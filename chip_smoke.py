@@ -5,9 +5,16 @@
 
 Phases, each of which raises on failure (a non-zero exit):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from `instant_ngp_tpu_torch/csrc` (nvcc);
-3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the render path gives it, and time both with CUDA events;
+2. build the CUDA kernels from `instant_ngp_tpu_torch/csrc` (one nvcc per
+   source, started together);
+3. hold the fused-MLP kernel against its plain PyTorch version on the
+   card: the two shapes of the render path at small and ragged row counts
+   first (a fault of the input pipeline shows there within seconds), then
+   shapes that take the general kernel and the 128-wide instantiation,
+   then the path shapes at 2^20 rows, where the kernel, the general
+   kernel on the same shape and the plain version are timed with CUDA
+   events beside the card's bound; then times at 2^14, 2^17 and 2^21 rows
+   and with the input ring at each depth and without it;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -40,6 +47,17 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 N_ROWS = 1 << 20
+SMALL_ROWS = (1, 127, 129, 100003)
+OTHER_ROWS = (1 << 14, 1 << 17, 1 << 21)   # late render rounds; a full budget
+# shapes off the render path: (widths, hidden activation, output activation)
+OTHER_SHAPES = (([27, 48, 5], "None", "None"),
+                ([32] + [64] * 8 + [16], "ReLU", "None"),
+                ([32, 128, 128, 128, 16], "ReLU", "None"),
+                ([16, 1], "None", "ReLU"),
+                ([32, 64, 64, 16], "Sine", "None"))
+# NVIDIA's data sheet for the H100 SXM: memory rate and dense bf16 rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 WIDTH = HEIGHT = 400
 FOCAL = 440.0              # the synthetic orbit scene's 400 px * 1.1
 # kernel vs plain, relative to the reference's max and mean |value|: bf16
@@ -111,6 +129,37 @@ def cuda_ms(fn, reps=5, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def mlp_bound_ms(rows, dims, x_bytes_per_value):
+    """(least ms, "bytes" or "operations"): x and the bf16 weights read
+    once and the float32 output written once at the card's memory rate,
+    against 2 * rows * fan_in * fan_out operations per layer at its bf16
+    tensor-core rate."""
+    n_weights = sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+    moved = rows * (dims[0] * x_bytes_per_value + dims[-1] * 4) + 2 * n_weights
+    by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+    by_ops = 1e3 * 2 * rows * n_weights / BF16_FLOP_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def check_kernel(out, ref, what):
+    """(max abs, mean abs) error of `out`, raising where it is outside the
+    tolerance relative to the reference's scale."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    ref_max, ref_mean = ref.abs().max().item(), ref.abs().mean().item()
+    if not (torch.isfinite(out).all() and out.shape == ref.shape
+            and max_abs <= KERNEL_MAX_REL * ref_max
+            and mean_abs <= KERNEL_MEAN_REL * ref_mean):
+        raise RuntimeError(
+            f"fused_mlp_forward disagrees with its plain version at {what}: "
+            f"max abs {max_abs:.3g} mean abs {mean_abs:.3g} (ref max "
+            f"{ref_max:.3g} mean {ref_mean:.3g})")
+    return max_abs, mean_abs
 
 
 def profile_frame(tb, cam, smi, out_path):
@@ -191,6 +240,11 @@ def profile_frame(tb, cam, smi, out_path):
         print(f"  {e.key[:60]}: {us / 1e6:.3f} s "
               f"({100 * us / 1e6 / busy:.1f} % of device time), "
               f"{e.count} calls")
+    for e in kernels:
+        if "fused_mlp" in e.key:
+            us = self_device_us(e)
+            print(f"  {e.key[:70]}: {us / 1e3:.3f} ms of device time, "
+                  f"{e.count} calls")
     with open(out_path, "w") as f:
         f.write(f"{smi}\n")
         f.write(rows.table(sort_by="self_cuda_time_total", row_limit=40))
@@ -260,53 +314,142 @@ def main():
           f"{[w.shape[1] for w in model.density_net.weights]}, rgb "
           f"{[w.shape[1] for w in model.rgb_net.weights]}", flush=True)
 
-    # phase 3: kernel vs plain at the path's shapes, on the path's inputs
+    # phase 3: kernel vs plain, on the path's inputs
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        GENERAL, MMA_STAGES, kernel_variant, pack_weights)
+
     gen = torch.Generator().manual_seed(SEED + 1)
+    n_max = max(N_ROWS, *OTHER_ROWS)
     with torch.no_grad():
-        pos = torch.rand(N_ROWS, 3, generator=gen).to(dev)
-        d = torch.randn(N_ROWS, 3, generator=gen)
+        pos = torch.rand(n_max, 3, generator=gen).to(dev)
+        d = torch.randn(n_max, 3, generator=gen)
         d = ((d / d.norm(dim=-1, keepdim=True) + 1.0) * 0.5).to(dev)
-        feats = model.pos_encoding(pos)
+        feats = model.pos_encoding(pos).contiguous()
         dens_w = model.density_net.kernel_weights()
         dens_plain = fused_mlp_forward_plain(feats, dens_w.layers)
         dirw = d * 2.0 - 1.0
         rgb_in = torch.cat([dens_plain, sh_basis(4, dirw[:, 0], dirw[:, 1],
-                                                 dirw[:, 2])], -1)
+                                                 dirw[:, 2])], -1).contiguous()
         rgb_w = model.rgb_net.kernel_weights()
-        shapes = {}
-        for name, x, w in (("density", feats, dens_w),
-                           ("rgb", rgb_in, rgb_w)):
-            x = x.contiguous()
-            out = fused_mlp_forward(x, w)
-            ref = fused_mlp_forward_plain(x, w.layers)
-            torch.cuda.synchronize()
-            err = (out - ref).abs()
-            max_abs, mean_abs = err.max().item(), err.mean().item()
-            ref_max = ref.abs().max().item()
-            ref_mean = ref.abs().mean().item()
-            ms = cuda_ms(lambda: fused_mlp_forward(x, w))
-            plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers))
-            shapes[name] = {"dims": list(w.dims), "rows": N_ROWS,
-                            "max_abs_err": max_abs, "mean_abs_err": mean_abs,
-                            "ref_max_abs": ref_max, "ref_mean_abs": ref_mean,
-                            "ms": ms, "plain_ms": plain_ms}
-            print(f"kernel {name} {'-'.join(map(str, w.dims))} x {N_ROWS}: "
-                  f"max abs {max_abs:.3g} mean abs {mean_abs:.3g} (ref "
-                  f"max {ref_max:.3g} mean {ref_mean:.3g}) | "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]",
+        del pos, d, dirw, dens_plain
+        path_shapes = (("density", feats, dens_w), ("rgb", rgb_in, rgb_w))
+
+        # small and ragged first: a hang would show here
+        worst = 0.0
+        for name, x, w in path_shapes:
+            for n in SMALL_ROWS:
+                ref = fused_mlp_forward_plain(x[:n], w.layers)
+                max_abs, _ = check_kernel(fused_mlp_forward(x[:n], w), ref,
+                                          f"{name} x {n}")
+                check_kernel(fused_mlp_forward(x[:n].to(torch.bfloat16), w),
+                             ref, f"{name} x {n}, bf16 input")
+                worst = max(worst, max_abs)
+        print(f"kernel at {SMALL_ROWS} rows, both path shapes, f32 and "
+              f"bf16 input: ok (max abs {worst:.3g})", flush=True)
+
+        other = {}
+        rng = np.random.default_rng(SEED + 2)
+        for dims, act, out_act in OTHER_SHAPES:
+            ws = [torch.from_numpy(rng.uniform(
+                -np.sqrt(6.0 / (i + o)), np.sqrt(6.0 / (i + o)), (i, o))
+                .astype(np.float32)).to(dev)
+                for i, o in zip(dims[:-1], dims[1:])]
+            w = pack_weights(ws)
+            x = torch.from_numpy(rng.normal(size=(SMALL_ROWS[-1], dims[0]))
+                                 .astype(np.float32)).to(dev)
+            ref = fused_mlp_forward_plain(x, w.layers, act, out_act)
+            max_abs, mean_abs = check_kernel(
+                fused_mlp_forward(x, w, act, out_act), ref, str(dims))
+            tag = "-".join(map(str, dims)) + f" {act}/{out_act}"
+            other[tag] = {"variant": kernel_variant(dims, act, out_act),
+                          "rows": x.shape[0], "max_abs_err": max_abs,
+                          "mean_abs_err": mean_abs}
+            print(f"kernel {tag} x {x.shape[0]} [{other[tag]['variant']}]: "
+                  f"max abs {max_abs:.3g} mean abs {mean_abs:.3g}",
                   flush=True)
+
+        shapes = {}
+        for name, x_all, w in path_shapes:
+            x = x_all[:N_ROWS]
+            variant = kernel_variant(w.dims)
+            if variant == GENERAL:
+                raise RuntimeError(f"the {name} shape {w.dims} has no "
+                                   f"instantiation of the mma kernel")
+            ref = fused_mlp_forward_plain(x, w.layers)
+            ref_mean = ref.abs().mean().item()
             if ref_mean < KERNEL_MIN_MEAN_ABS:
                 raise RuntimeError(f"the {name} reference is too small "
                                    f"({ref_mean:.3g}) to check the kernel")
-            if not (torch.isfinite(out).all()
-                    and max_abs <= KERNEL_MAX_REL * ref_max
-                    and mean_abs <= KERNEL_MEAN_REL * ref_mean):
-                raise RuntimeError(f"fused_mlp_forward disagrees with its "
-                                   f"plain version at the {name} shape")
+            max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w), ref,
+                                             f"{name} x {N_ROWS}")
+            check_kernel(fused_mlp_forward(x, w, variant=GENERAL), ref,
+                         f"{name} x {N_ROWS}, general kernel")
+            # in turns: general, kernel, plain, kernel, general
+            general_ms = [cuda_ms(lambda: fused_mlp_forward(
+                x, w, variant=GENERAL))]
+            ms = [cuda_ms(lambda: fused_mlp_forward(x, w))]
+            plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers))
+            ms.append(cuda_ms(lambda: fused_mlp_forward(x, w)))
+            general_ms.append(cuda_ms(lambda: fused_mlp_forward(
+                x, w, variant=GENERAL)))
+            ms, general_ms = min(ms), min(general_ms)
+            bound_ms, bound_by = mlp_bound_ms(N_ROWS, w.dims, 4)
+            by_rows = {}
+            for n in OTHER_ROWS:
+                xn = x_all[:n]
+                by_rows[str(n)] = {
+                    "ms": cuda_ms(lambda: fused_mlp_forward(xn, w)),
+                    "general_ms": cuda_ms(lambda: fused_mlp_forward(
+                        xn, w, variant=GENERAL)),
+                    "bound_ms": mlp_bound_ms(n, w.dims, 4)[0]}
+            # the input ring at each depth, and the same kernel without it
+            # (an input that is not 16-byte aligned takes plain loads)
+            ring = {str(k): cuda_ms(lambda: fused_mlp_forward(x, w, stages=k))
+                    for k in (1, 2, 3, 4)}
+            shifted = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
+            shifted.copy_(x)
+            check_kernel(fused_mlp_forward(shifted, w), ref,
+                         f"{name} x {N_ROWS}, unaligned input")
+            no_ring_ms = cuda_ms(lambda: fused_mlp_forward(shifted, w))
+            del shifted
+            xb = x.to(torch.bfloat16)
+            bf16_ms = cuda_ms(lambda: fused_mlp_forward(xb, w))
+            del xb
+            shapes[name] = {
+                "dims": list(w.dims), "rows": N_ROWS, "variant": variant,
+                "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+                "ref_max_abs": ref.abs().max().item(),
+                "ref_mean_abs": ref_mean,
+                "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms,
+                "ms_by_rows": by_rows, "ms_by_ring_depth": ring,
+                "ms_plain_loads": no_ring_ms, "ms_bf16_input": bf16_ms}
+            print(f"kernel {name} {'-'.join(map(str, w.dims))} x {N_ROWS} "
+                  f"[{variant}, ring of {MMA_STAGES}]: max abs {max_abs:.3g} "
+                  f"mean abs {mean_abs:.3g} (ref max "
+                  f"{shapes[name]['ref_max_abs']:.3g} mean {ref_mean:.3g}) | "
+                  f"kernel {ms:.4f} ms, general kernel {general_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; {100 * bound_ms / ms:.1f} % reached) "
+                  f"[{smi}]", flush=True)
+            for n, r in by_rows.items():
+                print(f"  x {n}: kernel {r['ms']:.4f} ms, general kernel "
+                      f"{r['general_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms [{smi}]")
+            print("  ring depth " + ", ".join(
+                f"{k}: {v:.4f} ms" for k, v in ring.items())
+                + f"; plain loads, no ring: {no_ring_ms:.4f} ms; bf16 "
+                f"input: {bf16_ms:.4f} ms [{smi}]", flush=True)
+            if not (ms < general_ms):
+                raise RuntimeError(f"the mma kernel is not faster than the "
+                                   f"general kernel at the {name} shape")
+        del feats, rgb_in, path_shapes, x, x_all, ref
 
     # phase 4: the main path, through the testbed's entry points
     cam = orbit_camera(angle=0.3, elevation=0.4)
     fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -314,14 +457,22 @@ def main():
     torch.cuda.synchronize()
     density_s = time.perf_counter() - t0
     launches_density = fused_mlp_forward.launches
+    by_variant_density = dict(fused_mlp_forward.launches_by_variant)
     occupied = int(np.unpackbits(tb.bitfield.cpu().numpy()).sum())
     frames = []
     for _ in range(2):   # a cold frame, then a warm one
+        by_variant_before = dict(fused_mlp_forward.launches_by_variant)
         t0 = time.perf_counter()
         frame = tb.render_frame(WIDTH, HEIGHT, cam, focal_length=FOCAL)
         torch.cuda.synchronize()
         frames.append((time.perf_counter() - t0, tb.last_frame_n_samples))
     launches = fused_mlp_forward.launches
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    for shape in shapes.values():
+        v = shape["variant"]
+        shape["launches_per_frame"] = (by_variant.get(v, 0)
+                                       - by_variant_before.get(v, 0))
+        shape["launches_per_density_pass"] = by_variant_density.get(v, 0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"density pass: {tb.density_grid.numel()} cells in "
           f"{density_s:.3f} s, {occupied} occupied bits, "
@@ -329,11 +480,16 @@ def main():
     for tag, (sec, n) in zip(("cold", "warm"), frames):
         print(f"frame {WIDTH}x{HEIGHT} ({tag}): {sec:.3f} s, {n} samples, "
               f"{n / sec:.4g} samples/s [{smi}]")
-    print(f"main path: {launches} kernel launches, peak "
+    print(f"main path: {launches} kernel launches {by_variant}, peak "
           f"{peak_gib:.2f} GiB allocated", flush=True)
     if launches_density == 0 or launches <= launches_density:
         raise RuntimeError("the main path did not launch fused_mlp_forward "
                            "in both phases")
+    if (GENERAL in by_variant
+            or any(s["launches_per_frame"] == 0 for s in shapes.values())
+            or shapes["density"]["launches_per_density_pass"] == 0):
+        raise RuntimeError("the main path did not go through the mma "
+                           "kernel's instantiations for its two shapes")
     if frame.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(frame).all():
         raise RuntimeError("the frame is not finite or has the wrong shape")
     if frames[-1][1] <= 0 or frame[..., 3].max() <= 0.0:
@@ -371,14 +527,22 @@ def main():
     kernels = [{
         "name": "fused_mlp_forward",
         "route": "cuda",
-        "source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
+        "source": "instant_ngp_tpu_torch/csrc/fused_mlp_mma.cu",
+        "general_source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
         "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
         # one network evaluation of N_ROWS samples: both MLPs
         "ms": sum(s["ms"] for s in shapes.values()),
         "plain_ms": sum(s["plain_ms"] for s in shapes.values()),
+        "bound_ms": sum(s["bound_ms"] for s in shapes.values()),
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes"
+                                   for s in shapes.values()) else "operations",
+        # no one PyTorch call computes a fused multi-layer MLP
+        "library_ms": None,
+        "general_ms": sum(s["general_ms"] for s in shapes.values()),
         "shapes": shapes,
+        "other_shapes": other,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)   # the card's name and power limit, as nvidia-smi gives them

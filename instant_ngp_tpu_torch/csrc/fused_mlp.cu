@@ -1,5 +1,8 @@
 // Fused forward of a bias-free MLP on Hopper (sm_90a), bf16 tensor-core MMA
-// with float32 accumulation.
+// with float32 accumulation: the general path, for any chain of widths up
+// to 128. The shapes the configurations produce have instantiations of the
+// faster kernel in fused_mlp_mma.cu; the wrapper picks the path from the
+// shape alone.
 //
 // Replaces the TPU kernel instant_ngp_tpu/ops/pallas/mlp_kernels.py::
 // fused_mlp_forward. For x (N, D_in), f32 or bf16:
@@ -23,7 +26,9 @@
 //     activation tile, so no activation between layers reaches HBM;
 //   - feature dims are padded to multiples of 16 (not to 128 lanes); the
 //     3-wide RGB output is computed padded and stored unpadded.
-// wgmma, TMA and a pipelined input stream are left for later work.
+// Widths, layer count and activations are run-time values here, so every
+// layer's activations pass through shared memory and the input is not
+// streamed ahead; fused_mlp_mma.cu is the design that removes both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

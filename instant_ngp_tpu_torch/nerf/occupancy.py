@@ -24,11 +24,11 @@ from .march import morton3d, morton3d_coords
 N_BITFIELD_BYTES = NERF_GRID_N_CELLS // 8 * NERF_CASCADES
 
 
-def init_density_grid(n_cascades: int, device=None) -> torch.Tensor:
+def init_density_grid(n_cascades: int, device) -> torch.Tensor:
     return torch.zeros(NERF_GRID_N_CELLS * n_cascades, device=device)
 
 
-def init_bitfield(device=None) -> torch.Tensor:
+def init_bitfield(device) -> torch.Tensor:
     return torch.zeros(N_BITFIELD_BYTES, dtype=torch.uint8, device=device)
 
 

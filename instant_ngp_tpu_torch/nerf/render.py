@@ -156,11 +156,13 @@ class WavefrontRenderer:
 
 def camera_rays_for_frame(width: int, height: int,
                           focal_length: Sequence[float],
-                          camera_matrix, screen_center=(0.5, 0.5),
-                          jitter: Optional[Sequence[float]] = None,
-                          device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(H*W, 3) origins and normalized directions of a pinhole frame, row
-    by row; `jitter` (2,) is the subpixel offset (default pixel centres)."""
+                          camera_matrix, *, device,
+                          screen_center=(0.5, 0.5),
+                          jitter: Optional[Sequence[float]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H*W, 3) origins and normalized directions of a pinhole frame on
+    `device`, row by row; `jitter` (2,) is the subpixel offset (default
+    pixel centres)."""
     off = (0.5, 0.5) if jitter is None else jitter
     x = torch.arange(width, dtype=torch.float32, device=device)
     y = torch.arange(height, dtype=torch.float32, device=device)

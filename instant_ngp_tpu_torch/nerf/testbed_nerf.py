@@ -1,7 +1,8 @@
 """Render-only NeRF testbed (counterpart of the render half of
 instant_ngp_tpu/nerf/testbed_nerf.py::NerfTestbed).
 
-It holds a network, its occupancy grid and bitfield on one device, and
+It holds a network, its occupancy grid and bitfield on one device (the
+CUDA device unless `device` names another; it raises where there is none), and
 renders frames through the wavefront renderer in Shade mode. Parameters
 come from a seed (`torch.Generator`), from `load_params` (the JAX layout,
 e.g. a converted snapshot), and the grid from `set_density_grid` or from
@@ -27,14 +28,16 @@ from .render import RenderConfig, WavefrontRenderer, camera_rays_for_frame
 
 class NerfTestbed:
     def __init__(self, scene: NerfSceneConfig,
-                 network_config: Dict[str, Any], device="cpu",
+                 network_config: Dict[str, Any], device=None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  seed: int = 1337):
         if scene.n_extra_dims:
             raise NotImplementedError("rendering with per-image latent "
                                       "dims is not ported yet")
         self.scene = scene
-        self.device = torch.device(device)
+        # the card unless the caller names another device; never the CPU
+        # by itself
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was asked for but none is "
                                "available")

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
-    fused_mlp_forward, fused_mlp_forward_plain, pack_weights)
+    _ACTIVATION_IDS, GENERAL, MMA_VARIANTS, fused_mlp_forward,
+    fused_mlp_forward_plain, kernel_variant, pack_weights)
 from instant_ngp_tpu_torch.ops.mlp import MLP
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +47,14 @@ CASES = [
     ([32] + [64] * 8 + [16], "ReLU", "None"),    # 9 layers
     ([32, 128, 128, 128, 16], "ReLU", "None"),   # 128 wide
     ([16, 1], "None", "ReLU"),                   # one layer
+    # one per instantiation of the mma kernel the cases above do not reach,
+    # and the shapes of its other branches
+    ([32, 64, 64, 4], "ReLU", "ReLU"),           # volume nets
+    ([16, 64, 16], "ReLU", "None"),              # 16 inputs
+    ([32, 3], "ReLU", "None"),                   # one layer, mma kernel
+    ([27, 64, 64, 5], "ReLU", "None"),           # inputs narrower than padded
+    ([32, 64, 8], "ReLU", "None"),               # 8 outputs stored directly
+    ([32, 128, 16], "ReLU", "None"),             # 128 wide, two layers
 ]
 
 
@@ -67,12 +76,83 @@ def test_fused_mlp_kernel_matches_plain(device, case, n):
     err = (out - ref).abs()
     assert torch.isfinite(out).all()
     assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+    # the general kernel takes every shape, and an input that is not
+    # 16-byte aligned takes the mma kernel's plain loads
+    forced = fused_mlp_forward(x, packed, act, out_act, variant=GENERAL)
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view_as(x)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    unaligned = fused_mlp_forward(shifted, packed, act, out_act)
+    torch.cuda.synchronize()
+    for other in (forced, unaligned):
+        err = (other - ref).abs()
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
     # bf16 input takes the same path as its f32 value
     out_b = fused_mlp_forward(x.to(torch.bfloat16), packed, act, out_act)
     ref_b = fused_mlp_forward(x.to(torch.bfloat16).float(), packed, act,
                               out_act)
     torch.cuda.synchronize()
     assert torch.equal(out_b, ref_b)
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+@pytest.mark.parametrize("dims", [[32, 64, 16], [32, 64, 64, 3]])
+def test_every_ring_depth_gives_the_same_rows(device, dims, stages):
+    """More tiles than stages for some blocks and fewer for others: the
+    ring wraps, and the result does not depend on its depth."""
+    rng = np.random.default_rng(stages)
+    packed = pack_weights(_weights(rng, dims, device))
+    n = 128 * 132 * 4 * 3 + 77
+    x = torch.from_numpy(rng.normal(size=(n, 32)).astype(np.float32)) \
+        .to(device)
+    out = fused_mlp_forward(x, packed, stages=stages)
+    ref = fused_mlp_forward(x, packed, variant=GENERAL)
+    small = fused_mlp_forward(x[:200], packed, stages=stages)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-2
+    assert torch.equal(out[:200], small)
+
+
+def test_permutation_weights_route_inputs_exactly(device):
+    """One-hot weights: every output is one bf16-rounded input, so a
+    wrong lane, row or column mapping is an exact mismatch."""
+    rng = np.random.default_rng(3)
+    p0 = torch.from_numpy(rng.permutation(64)[:32])
+    keep = torch.from_numpy(rng.permutation(32))
+    x = torch.from_numpy(np.abs(rng.normal(size=(1000, 32)))
+                         .astype(np.float32)).to(device)
+    want = x.to(torch.bfloat16).float()
+    for d_out in (16, 3):
+        w0 = torch.zeros(32, 64)
+        w0[torch.arange(32), p0] = 1.0
+        w1 = torch.zeros(64, 64)
+        w1[torch.arange(64), torch.arange(64)] = 1.0
+        w2 = torch.zeros(64, d_out)
+        w2[p0[keep[:d_out]], torch.arange(d_out)] = 1.0
+        packed = pack_weights([w.to(device) for w in (w0, w1, w2)])
+        assert kernel_variant(packed.dims) != GENERAL
+        out = fused_mlp_forward(x, packed)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[:, keep[:d_out].to(device)])
+
+
+def test_variant_table_matches_the_library(device):
+    import ctypes
+
+    from instant_ngp_tpu_torch.ops.kernels._build import load_library
+
+    lib = load_library()
+    shapes = [c[0] for c in CASES] + [[48, 64, 16], [32, 64, 128, 16],
+                                      [32, 64, 32], [32, 128, 3]]
+    for dims in shapes:
+        for act in ("None", "ReLU", "Sine"):
+            for out_act in ("None", "ReLU", "Exponential"):
+                has = lib.fused_mlp_mma_has_variant(
+                    len(dims) - 1, (ctypes.c_int * len(dims))(*dims),
+                    _ACTIVATION_IDS[act], _ACTIVATION_IDS[out_act])
+                assert bool(has) == (kernel_variant(dims, act, out_act)
+                                     != GENERAL), (dims, act, out_act)
+    assert len(MMA_VARIANTS) == 5
 
 
 def test_zero_rows_launch_nothing(device):

@@ -74,7 +74,7 @@ def _numpy_tree(tree):
 
 def _port_testbed(jax_tb, dtype, params=None, grid=None):
     tb = NerfTestbed(scene_config(jax_tb.scene.aabb_scale), SLICE_CFG,
-                     compute_dtype=dtype)
+                     device="cpu", compute_dtype=dtype)
     tb.n_march = jax_tb.n_march
     tb.max_samples_per_ray = jax_tb.max_samples_per_ray
     tb.load_params(params if params is not None else
@@ -254,7 +254,7 @@ from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops.sampling import ld_pixel_offset
 cfg = load_network_config(find_network_config("base", "nerf"))
 cfg["encoding"]["log2_hashmap_size"] = 12
-tb = NerfTestbed(scene_config(1), cfg, seed=0)
+tb = NerfTestbed(scene_config(1), cfg, device="cpu", seed=0)
 tb.set_density_grid(np.full(128 ** 3, 0.02, np.float32))
 cam = np.array([[1, 0, 0, 0.5], [0, 1, 0, 0.5], [0, 0, 1, -1.0]], np.float32)
 frame = tb.render_frame(4, 4, cam, focal_length=4.0)
