@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's NeRF render path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF render and training paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -23,13 +24,36 @@ Phases, each of which raises on failure (a non-zero exit):
    set to 0 before and read after;
 5. check the result: a small frame rendered on the card agrees with the
    same testbed rendered on the CPU through the plain versions, and that
-   comparison can see a density network that is off.
+   comparison can see a density network that is off;
+6. train on the card: the synthetic orbit scene (64 views of 400x400 of
+   an octant-checker sphere, raytraced here with numpy) trains
+   configs/nerf/base.json at full width and batch 2^18 for 128 steps
+   through `NerfTestbed(dataset, config).train`, with the kernel's
+   launch count set to 0 before and read after. It fails unless the loss
+   fell, samples were generated, the kernel was launched by the density
+   updates and never by a train step, the occupancy thinned out, and the
+   PSNR of view 0 rose to at least 20 dB; it prints the rates, the prep
+   times, the peak memory and a warm frame of the trained model;
+7. card against CPU: the same 2 train steps of a small network, with
+   the same random draws, on the card and on the CPU: the losses and a
+   48x48 frame agree within the stated tolerance.
 
     python3 chip_smoke.py --profile OUT.txt
 
 adds a last phase: one warm frame with CUDA-event spans around each
-layer, one under torch.profiler (its table goes to OUT.txt), and a warm
-density pass.
+layer, one under torch.profiler (its table goes to OUT.txt), a warm
+density pass; then the same for training: the spans of one warm train
+step and of one density update, and 16 steps under torch.profiler.
+
+    python3 chip_smoke.py --curve
+
+adds the quality curve: a second testbed trains the same scene for 1024
+steps under the protocol of the JAX package's record
+(scripts/time_to_30db_r5.py: 2048 rays a step, not adapted; PSNR averaged
+over views 0, 16, 32 and 48 at 2 spp with the render's candidate cap at
+n_march) and prints PSNR and training seconds at steps 128, 256, 512 and
+1024 beside that record's PSNRs. It fails if a milestone falls more than
+CURVE_SLACK_DB short of the record.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit (nvidia-smi's own line), and
@@ -72,6 +96,21 @@ FRAME_MAX_ABS, FRAME_MEAN_ABS = 2e-2, 1e-3
 # halving the density net's output layer must move the CPU frame by this
 # much more than the card-vs-CPU mean tolerance
 FRAME_SENSITIVITY = 5.0
+TRAIN_STEPS, TRAIN_WARMUP = 128, 16
+TRAIN_MIN_PSNR = 20.0      # dB on view 0 after TRAIN_STEPS steps
+# card vs CPU after 2 train steps of a small bf16 network: a bf16 flip or
+# a summation order in the table gradient (atomic adds on the card) moves
+# a loss by well under a percent; Adam's first steps are of full size
+# (lr) wherever the gradient is not zero, so the frames get the same
+# tolerance as phase 5's
+CPU_LOSS_REL = 2e-2
+# the JAX package's quality record on this scene (PSNR in dB by step, from
+# walkthrough_out/lr_decay_run/time_to_30db_r5.json; trained there with
+# its stochastic-corner encode, here with the exact one), and how far
+# short of it a milestone of --curve may fall
+CURVE_RECORD_DB = {128: 23.41, 256: 26.974, 512: 31.037, 1024: 33.06}
+CURVE_SLACK_DB = 1.5
+CURVE_VIEWS = (0, 16, 32, 48)
 
 
 def look_at(eye, center, up):
@@ -94,6 +133,423 @@ def orbit_camera(angle, elevation, radius=0.85):
                                  np.sin(angle) * np.cos(elevation)],
                                 np.float32)
     return look_at(eye, c, np.array([0, 1, 0], np.float32))
+
+
+def raytrace_view(cam, size, focal):
+    """The scene's ground truth: a lambertian sphere (r = 0.22 at the
+    box's centre) with an octant-checker albedo and a smooth band, lit
+    from the camera, over transparent black -> (H, W, 4) uint8 sRGB."""
+    import numpy as np
+
+    c = np.array([0.5, 0.5, 0.5], np.float32)
+    r = 0.22
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) + 0.5
+    dirs = np.stack([(xx - size / 2) / focal, (yy - size / 2) / focal,
+                     np.ones_like(xx)], -1)
+    dirs = dirs @ cam[:3, :3].T
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    o = cam[:3, 3]
+    oc = o - c
+    b = np.einsum("hwc,c->hw", dirs, oc)
+    disc = b * b - (oc @ oc - r * r)
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    hit &= t > 0
+    n = (o + dirs * t[..., None] - c) / r
+    octant = ((n[..., 0] > 0).astype(int) + (n[..., 1] > 0).astype(int) * 2
+              + (n[..., 2] > 0).astype(int) * 4)
+    palette = np.array(
+        [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
+         [0.9, 0.9, 0.2], [0.9, 0.2, 0.9], [0.2, 0.9, 0.9],
+         [0.95, 0.6, 0.2], [0.85, 0.85, 0.85]], np.float32)
+    band = 0.5 + 0.5 * np.sin(12.0 * np.arcsin(np.clip(n[..., 1], -1, 1)))
+    albedo = palette[octant] * (0.6 + 0.4 * band[..., None])
+    lam = np.clip(-np.einsum("hwc,hwc->hw", n, dirs), 0.0, 1.0)
+    shade = albedo * (0.25 + 0.75 * lam[..., None])
+    srgb = np.where(shade <= 0.0031308, shade * 12.92,
+                    1.055 * shade ** (1 / 2.4) - 0.055)
+    img = np.zeros((size, size, 4), np.float32)
+    img[..., :3] = np.where(hit[..., None], srgb, 0.0)
+    img[..., 3] = hit.astype(np.float32)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def make_scene(n_cams=64, size=400):
+    """The synthetic orbit scene of scripts/time_to_30db_r5.py::make_scene
+    as the port's dataset: n_cams pinhole views from a radius of 0.85 at
+    seeded elevations, focal 1.1 * size, aabb_scale 1."""
+    import numpy as np
+
+    from instant_ngp_tpu_torch.data.nerf_loader import (FrameMetadata, Lens,
+                                                        NerfDataset)
+
+    focal = size * 1.1
+    imgs, xforms, metas = [], [], []
+    rng = np.random.RandomState(7)
+    for i in range(n_cams):
+        ang = i / n_cams * 2 * np.pi
+        elev = 0.15 + 0.5 * rng.rand()
+        eye = np.array([0.5 + 0.85 * np.cos(ang) * np.cos(elev),
+                        0.5 + 0.85 * np.sin(elev),
+                        0.5 + 0.85 * np.sin(ang) * np.cos(elev)], np.float32)
+        cam = look_at(eye, np.array([0.5, 0.5, 0.5], np.float32),
+                      np.array([0, 1, 0], np.float32))
+        imgs.append(raytrace_view(cam, size, focal))
+        xforms.append(cam)
+        metas.append(FrameMetadata(
+            (size, size), np.array([focal, focal], np.float32),
+            np.array([0.5, 0.5], np.float32), np.zeros(4, np.float32),
+            Lens()))
+    return NerfDataset(paths=[f"synth{i}" for i in range(n_cams)],
+                       images=imgs, depths=[None] * n_cams,
+                       rays=[None] * n_cams, metadata=metas,
+                       xforms_start=np.stack(xforms),
+                       xforms_end=np.stack(xforms), aabb_scale=1)
+
+
+def occupied_bits(tb):
+    import numpy as np
+
+    return int(np.unpackbits(tb.bitfield.cpu().numpy()).sum())
+
+
+class EventSpans:
+    """CUDA-event spans by name: `wrap` times every call of a function on
+    the device's clock without synchronising."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def wrap(self, name, fn):
+        import torch
+
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.spans.setdefault(name, []).append((start, end))
+            return out
+        return wrapper
+
+    def ms(self, name):
+        return sum(s.elapsed_time(e) for s, e in self.spans.get(name, []))
+
+    def calls(self, name):
+        return len(self.spans.get(name, []))
+
+
+def profiler_kernels(prof):
+    """(the profiler's rows, its CUDA kernels' rows, a row's own device
+    time in us). An operator's row repeats the time of the kernels it
+    launched, so only the kernels' own rows are counted."""
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    return (rows, [e for e in rows if e.device_type == DeviceType.CUDA],
+            self_device_us)
+
+
+def train_on_card(cfg, dev, smi, fused_mlp_forward):
+    """Phase 6 -> (the trained testbed, the kernel's launches by variant
+    during the 128 steps, and during the whole phase)."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    t0 = time.perf_counter()
+    ds = make_scene()
+    print(f"scene: {ds.n_images} views of {ds.images[0].shape[1]}x"
+          f"{ds.images[0].shape[0]} raytraced in "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                     seed=SEED)
+    print(f"training testbed: n_march {tb.n_march}, target batch "
+          f"{tb.target_batch_size}, rays per batch {tb.rays_per_batch}, "
+          f"pixels {tuple(tb.data.pixels.shape)} {tb.data.pixels.dtype} on "
+          f"{tb.data.pixels.device}", flush=True)
+    psnr_before = tb.eval_psnr(0)
+
+    # count the kernel's launches by who made them, and time each density
+    # update on the device's clock
+    counts = {"prep": 0, "step": 0}
+    spans = EventSpans()
+    prep, step = tb.training_prep, tb.train_step
+
+    def counted(kind, fn):
+        def wrapper(*args, **kwargs):
+            before = fused_mlp_forward.launches
+            out = fn(*args, **kwargs)
+            counts[kind] += fused_mlp_forward.launches - before
+            return out
+        return wrapper
+
+    def timed_prep(*args, **kwargs):
+        name = "full sweep" \
+            if tb.training_step < tb.warmup_full_grid_preps else "1/4 + 1/4"
+        return spans.wrap(name, prep)(*args, **kwargs)
+
+    tb.training_prep = counted("prep", timed_prep)
+    tb.train_step = counted("step", step)
+
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first_loss = tb.train(1)
+    bits_first = occupied_bits(tb)
+    tb.train(TRAIN_WARMUP - 1)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    rays_done = 0
+    t0 = time.perf_counter()
+    for _ in range((TRAIN_STEPS - TRAIN_WARMUP) // tb.sync_every):
+        rays = tb.rays_per_batch
+        last_loss = tb.train(tb.sync_every)
+        rays_done += rays * tb.sync_every
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches_train = fused_mlp_forward.launches
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    del tb.training_prep, tb.train_step
+    n_timed = TRAIN_STEPS - TRAIN_WARMUP
+    bits_last = occupied_bits(tb)
+    psnr_after = tb.eval_psnr(0)
+    perf = tb.performance_stats()
+
+    print(f"train: {TRAIN_STEPS} steps; the first {TRAIN_WARMUP} (camera "
+          f"visibility, {tb.warmup_full_grid_preps} full sweeps) in "
+          f"{warmup_s:.3f} s; the other {n_timed} in {train_s:.3f} s: "
+          f"{n_timed / train_s:.2f} steps/s, "
+          f"{n_timed * tb.measured_batch_size / train_s:.4g} samples/s "
+          f"(at the last sync's {tb.measured_batch_size} samples a step), "
+          f"{rays_done / train_s:.4g} rays/s [{smi}]")
+    print(f"train: loss {first_loss:.6f} at step 1 -> {last_loss:.6f} at "
+          f"step {tb.training_step}; rays per batch {tb.rays_per_batch}, "
+          f"{perf['mean_samples_per_ray']:.2f} samples per ray, "
+          f"{tb.measured_batch_size_before_compaction} samples generated")
+    for name in ("full sweep", "1/4 + 1/4"):
+        n = max(spans.calls(name), 1)
+        print(f"train: density update, {name}: {spans.ms(name) / n / 1e3:.4f}"
+              f" s each on the device's clock, {spans.calls(name)} calls "
+              f"[{smi}]")
+    print(f"train: occupied bits {bits_first} after the first update -> "
+          f"{bits_last}; PSNR of view 0 {psnr_before:.2f} dB -> "
+          f"{psnr_after:.2f} dB; peak {peak_gib:.2f} GiB allocated; kernel "
+          f"launches: {counts['prep']} by density updates, "
+          f"{counts['step']} by train steps, {launches_train} in all",
+          flush=True)
+
+    cam = orbit_camera(angle=0.3, elevation=0.4)
+    for tag in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tb.render_frame(WIDTH, HEIGHT, cam, focal_length=FOCAL)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"trained frame {WIDTH}x{HEIGHT} ({tag}): {sec:.3f} s, "
+              f"{tb.last_frame_n_samples} samples (untrained, seeded "
+              f"weights: see the frame above), "
+              f"{tb.last_frame_n_samples / sec:.4g} samples/s [{smi}]")
+    by_variant_all = dict(fused_mlp_forward.launches_by_variant)
+
+    if not last_loss < first_loss:
+        raise RuntimeError("the training loss did not fall")
+    if tb.measured_batch_size <= 0:
+        raise RuntimeError("training generated no samples")
+    if counts["prep"] == 0 or counts["step"] != 0 \
+            or launches_train != counts["prep"]:
+        raise RuntimeError("the kernel must be launched by the density "
+                           "updates and never by a train step")
+    if not bits_last < bits_first:
+        raise RuntimeError("the occupancy grid did not thin out")
+    if not (psnr_after > psnr_before and psnr_after >= TRAIN_MIN_PSNR):
+        raise RuntimeError(f"PSNR of view 0 is {psnr_after:.2f} dB after "
+                           f"{TRAIN_STEPS} steps (from {psnr_before:.2f})")
+    if not np.isfinite(frame).all() or tb.last_frame_n_samples <= 0:
+        raise RuntimeError("the trained frame is not finite or empty")
+    return tb, by_variant, by_variant_all
+
+
+def train_curve(cfg, dev, smi):
+    """--curve: PSNR by training step under the JAX record's protocol."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    tb = NerfTestbed(make_scene(), cfg, device=dev,
+                     compute_dtype=torch.bfloat16, seed=SEED)
+    tb.rays_per_batch = 1 << 11
+    tb.adapt_ray_batch = False
+    tb.render_max_samples_per_ray = tb.n_march
+    train_s = 0.0
+    for step, record in CURVE_RECORD_DB.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb.train(step - tb.training_step)
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - t0
+        per_view = [tb.eval_psnr(v, spp=2) for v in CURVE_VIEWS]
+        avg = float(np.mean(per_view))
+        print(f"curve: step {step}: PSNR {avg:.3f} dB over views "
+              f"{CURVE_VIEWS} ({', '.join(f'{p:.2f}' for p in per_view)}), "
+              f"the JAX record {record} dB; {train_s:.2f} s of training, "
+              f"loss {tb.loss_scalar:.6f}, {tb.measured_batch_size} "
+              f"samples a step, {occupied_bits(tb)} occupied bits [{smi}]",
+              flush=True)
+        if avg < record - CURVE_SLACK_DB:
+            raise RuntimeError(f"PSNR {avg:.2f} dB at step {step} is more "
+                               f"than {CURVE_SLACK_DB} dB short of the "
+                               f"record's {record}")
+
+
+def card_against_cpu(cfg, dev):
+    """Phase 7: 2 train steps of a small network on the card and on the
+    CPU, from the same seed with the same draws."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.sampler import (TrainDraws,
+                                                    draw_train_randoms)
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    small = copy.deepcopy(cfg)
+    small["encoding"].update(n_levels=4, log2_hashmap_size=12)
+    ds = make_scene(n_cams=4, size=32)
+    losses, frames = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        tb = NerfTestbed(ds, small, device=device,
+                         compute_dtype=torch.bfloat16, seed=SEED)
+        tb.target_batch_size = 1 << 14
+        tb.rays_per_batch = 1 << 10
+        tb.adapt_ray_batch = False
+        gen = torch.Generator().manual_seed(SEED + 7)   # on the CPU
+
+        def train_draws(n_rays, tb=tb, gen=gen):
+            draws = draw_train_randoms(gen, n_rays, tb.data.n_images)
+            return TrainDraws(*(v.to(tb.device) for v in draws))
+
+        def prep_draws(n_uniform, n_nonuniform, tb=tb, gen=gen):
+            # full sweeps only (2 steps): no probes, the jitter alone
+            return None, torch.rand(n_uniform + n_nonuniform, 3,
+                                    generator=gen).to(tb.device)
+
+        tb._train_draws, tb._prep_draws = train_draws, prep_draws
+        losses[name] = [tb.train(1), tb.train(1)]
+        frames[name] = tb.render_training_view(0, width=48, height=48)
+        samples = tb.measured_batch_size
+    err = np.abs(frames["card"] - frames["cpu"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                               losses["cpu"])]
+    print(f"card vs CPU, 2 train steps of a small network ({samples} "
+          f"samples a step): losses {losses['card']} vs {losses['cpu']} "
+          f"(relative difference {max(rel):.3g}); 48x48 frame max abs "
+          f"{err.max():.3g}, mean abs {err.mean():.3g}", flush=True)
+    if not (max(rel) <= CPU_LOSS_REL and err.max() <= FRAME_MAX_ABS
+            and err.mean() <= FRAME_MEAN_ABS):
+        raise RuntimeError("training on the card disagrees with the CPU")
+    if frames["cpu"][..., 3].max() <= 0.0:
+        raise RuntimeError("the small frame evaluated no samples")
+
+
+def profile_training(tb, smi, out_path):
+    """CUDA-event spans of one warm train step and of one density update,
+    then 16 steps under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from instant_ngp_tpu_torch.nerf import training
+
+    spans = EventSpans()
+    model, enc = tb.model, tb.model.pos_encoding
+    patches = [
+        (training, "generate_rays", "rays + march + compaction"),
+        (training, "march_rays", "rays + march + compaction"),
+        (training, "compact_samples", "rays + march + compaction"),
+        (enc, "forward", "encode forward"),
+        (model.density_net, "forward", "MLP forward (density + RGB)"),
+        (model.rgb_net, "forward", "MLP forward (density + RGB)"),
+        (model.dir_encoding, "forward", "SH direction encode"),
+        (training, "composite_loss", "composite + loss"),
+        (torch.autograd, "grad", "backward"),
+        (enc, "_table_gradient", "  of which the encode's backward"),
+        (tb.optimizer, "step", "optimizer + EMA"),
+    ]
+    saved = [(obj, attr, obj.__dict__.get(attr)) for obj, attr, _ in patches]
+    for obj, attr, name in patches:
+        setattr(obj, attr, spans.wrap(name, getattr(obj, attr)))
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tb.train_step()
+        end.record()
+        end.synchronize()
+    finally:
+        for obj, attr, old in saved:
+            if old is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, old)
+    step_ms = start.elapsed_time(end)
+    print(f"profile: warm train step {step_ms:.2f} ms on the device's "
+          f"clock, {tb.rays_per_batch} rays x {tb.n_march} candidates, "
+          f"{tb.measured_batch_size} samples at the last sync [{smi}]")
+    rest = step_ms
+    for name in dict.fromkeys(n for _, _, n in patches):
+        ms = spans.ms(name)
+        if not name.startswith(" "):
+            rest -= ms
+        print(f"  {name}: {ms:.2f} ms ({100 * ms / step_ms:.1f} %)")
+    print(f"  the rest (background, exposure, stats): {rest:.2f} ms "
+          f"({100 * rest / step_ms:.1f} %)")
+
+    for name, fn in (("1/4 + 1/4", tb.training_prep),
+                     ("full sweep", tb.update_density_grid_full)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        print(f"profile: density update, {name}: "
+              f"{start.elapsed_time(end):.1f} ms [{smi}]")
+
+    n_steps = 16
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tb.train_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, kernels, self_device_us = profiler_kernels(prof)
+    busy = sum(self_device_us(e) for e in kernels) / 1e6
+    print(f"profile: {n_steps} traced train steps {wall:.3f} s wall "
+          f"({1e3 * wall / n_steps:.1f} ms a step), device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f} %), "
+          f"{sum(e.count for e in kernels) / n_steps:.0f} kernel launches a "
+          f"step [{smi}]")
+    for e in sorted(kernels, key=self_device_us, reverse=True)[:10]:
+        us = self_device_us(e)
+        print(f"  {e.key[:60]}: {us / 1e3 / n_steps:.3f} ms a step "
+              f"({100 * us / 1e6 / busy:.1f} % of device time), "
+              f"{e.count // n_steps} calls a step")
+    with open(out_path, "a") as f:
+        f.write(f"\n{n_steps} train steps\n")
+        f.write(rows.table(sort_by="self_cuda_time_total", row_limit=40))
 
 
 def trained_scale_params(model, seed):
@@ -167,23 +623,12 @@ def profile_frame(tb, cam, smi, out_path):
     between the events, no extra syncs), one under torch.profiler, and a
     warm density pass."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from instant_ngp_tpu_torch.nerf.render import WavefrontRenderer
 
-    spans = {}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans.setdefault(name, []).append((start, end))
-            return out
-        return wrapper
+    events = EventSpans()
+    timed, spans = events.wrap, events.spans
 
     model = tb.model
     layers = [("hash-grid encode", model.pos_encoding),
@@ -223,15 +668,7 @@ def profile_frame(tb, cam, smi, out_path):
         tb.render_frame(WIDTH, HEIGHT, cam, focal_length=FOCAL)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-
-    def self_device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # an operator's row repeats the time of the kernels it launched, so
-    # count the kernels' own rows only
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    rows, kernels, self_device_us = profiler_kernels(prof)
     busy = sum(self_device_us(e) for e in kernels) / 1e6
     print(f"profile: traced warm frame {wall:.3f} s wall, device busy "
           f"{busy:.3f} s ({100 * busy / wall:.1f} %) [{smi}]")
@@ -265,6 +702,10 @@ def main():
     parser.add_argument("--profile", metavar="OUT",
                         help="also profile a warm frame; the profiler's "
                              "table goes to OUT")
+    parser.add_argument("--curve", action="store_true",
+                        help="also train 1024 steps under the protocol of "
+                             "the JAX package's quality record and print "
+                             "PSNR by step beside it")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -521,8 +962,25 @@ def main():
         raise RuntimeError("the frame comparison cannot see a wrong "
                            "density network")
 
+    # phases 6 and 7: training
+    train_tb, by_variant_train, by_variant_phase6 = train_on_card(
+        cfg, dev, smi, fused_mlp_forward)
+    launches_train = sum(by_variant_train.values())
+    if GENERAL in by_variant_phase6 or any(
+            by_variant_phase6.get(s["variant"], 0) == 0
+            for s in shapes.values()):
+        raise RuntimeError("the training path did not go through the mma "
+                           "kernel's instantiations for its two shapes")
+    for shape in shapes.values():
+        shape["launches_per_128_train_steps"] = by_variant_train.get(
+            shape["variant"], 0)
+    card_against_cpu(cfg, dev)
+
     if args.profile:
         profile_frame(tb, cam, smi, args.profile)
+        profile_training(train_tb, smi, args.profile)
+    if args.curve:
+        train_curve(cfg, dev, smi)
 
     kernels = [{
         "name": "fused_mlp_forward",
@@ -530,7 +988,11 @@ def main():
         "source": "instant_ngp_tpu_torch/csrc/fused_mlp_mma.cu",
         "general_source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
-        "launches": launches,
+        # both main paths, each counted from 0: the render path (a
+        # density pass and two frames) and 128 training steps
+        "launches": launches + launches_train,
+        "launches_render_path": launches,
+        "launches_train_path": launches_train,
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
         # one network evaluation of N_ROWS samples: both MLPs
         "ms": sum(s["ms"] for s in shapes.values()),

@@ -1,10 +1,12 @@
-"""Parameters from the JAX package into the port.
+"""Parameters and optimizer state between the JAX package and the port.
 
 Both packages keep one layout: the grid table is a flat float32 vector in
 the interleaved layout (feature k of entry e at e*F + k), MLP weights are
 bias-free (fan_in, fan_out) matrices, and a NeRF's keys are
 `pos_encoding`, `density_net`, `dir_encoding` and `rgb_net`. So converting
-is a copy into float32 tensors.
+is a copy into float32 tensors, or back into numpy arrays. The optimizer
+state is `{"step", "m", "v", "ema"}` with the three trees in the
+parameters' layout.
 """
 
 from __future__ import annotations
@@ -30,3 +32,36 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
         else _tensor(tree["dir_encoding"]),
         "rgb_net": [_tensor(w) for w in tree["rgb_net"]],
     }
+
+
+def opt_state_from_jax(opt: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX optimizer state of numpy arrays -> CPU tensors, ready for
+    `NerfTestbed.load_state`."""
+    out = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                dtype=torch.int32)}
+    for k in ("m", "v", "ema"):
+        if k in opt:
+            out[k] = params_from_jax(opt[k])
+    return out
+
+
+def _numpy(t):
+    return None if t is None else t.detach().cpu().numpy().copy()
+
+
+def params_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameter tree -> numpy arrays in the JAX layout."""
+    return {
+        "pos_encoding": _numpy(tree["pos_encoding"]),
+        "density_net": [_numpy(w) for w in tree["density_net"]],
+        "dir_encoding": _numpy(tree.get("dir_encoding")),
+        "rgb_net": [_numpy(w) for w in tree["rgb_net"]],
+    }
+
+
+def opt_state_to_jax(opt: Dict[str, Any]) -> Dict[str, Any]:
+    out = {"step": np.asarray(int(opt["step"]), np.int32)}
+    for k in ("m", "v", "ema"):
+        if k in opt:
+            out[k] = params_to_jax(opt[k])
+    return out

@@ -1,21 +1,23 @@
-"""Read the JAX package's NeRF snapshots (`.ingp`, zlib-compressed msgpack,
-or bare `.msgpack`; format of instant_ngp_tpu/data/snapshot.py).
+"""Read and write the JAX package's NeRF snapshots (`.ingp`,
+zlib-compressed msgpack, or bare `.msgpack`; format of
+instant_ngp_tpu/data/snapshot.py).
 
 Arrays are stored as {"__ndarray__": True, "dtype", "shape", "data"} with
-raw little-endian bytes, so reading needs numpy and msgpack only. msgpack
-is imported inside `load_snapshot`, because the port itself does not
-depend on it.
+raw little-endian bytes, so the format needs numpy and msgpack only.
+msgpack is imported inside `load_snapshot` and `save_snapshot`, because
+the port itself does not depend on it.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from ..convert import params_from_jax
+from ..convert import opt_state_from_jax, params_from_jax
 from ..ops.grid_encoding import convert_layout
 
 SNAPSHOT_FORMAT_VERSION = 1
@@ -33,10 +35,49 @@ def _unpack_tree(obj: Any) -> Any:
     return obj
 
 
+def _pack_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _pack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_pack_tree(v) for v in tree]
+    if tree is None or isinstance(tree, (bool, int, float, str, bytes)):
+        return tree
+    if torch.is_tensor(tree):
+        tree = tree.detach().cpu().numpy()
+    if isinstance(tree, np.ndarray):
+        return {_ARRAY_KEY: True, "dtype": str(tree.dtype),
+                "shape": list(tree.shape), "data": tree.tobytes()}
+    if isinstance(tree, np.integer):
+        return int(tree)
+    if isinstance(tree, np.floating):
+        return float(tree)
+    raise TypeError(f"cannot serialize {type(tree)} into a snapshot")
+
+
+def save_snapshot(path: str, snapshot: Dict[str, Any]) -> None:
+    """Write a snapshot dict (numpy arrays or tensors at the leaves); at
+    least {"config", "trainer": {"params", "opt"}}, and whatever else the
+    mode keeps (density grid, step counts). `.ingp` paths are
+    zlib-compressed."""
+    import msgpack
+
+    payload = dict(snapshot)
+    payload["snapshot_format_version"] = SNAPSHOT_FORMAT_VERSION
+    raw = msgpack.packb(_pack_tree(payload), use_bin_type=True)
+    if path.endswith(".ingp"):
+        raw = zlib.compress(raw, level=6)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(raw)
+    os.replace(tmp, path)
+
+
 def load_snapshot(path: str) -> Dict[str, Any]:
     """-> {"config", "aabb_scale", "params" (port tensors, interleaved
     grid; the Ema copy when the snapshot has one, as the JAX testbed
-    renders with it), "density_grid" (float32 tensor)}."""
+    renders with it), "density_grid" (float32 tensor), "trainer"
+    ({"params", "opt"} as port tensors, for `NerfTestbed.
+    load_snapshot_state`), "training_step", "density_grid_ema_step"}."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -50,16 +91,30 @@ def load_snapshot(path: str) -> Dict[str, Any]:
         raise ValueError(f"snapshot format version {version} is not "
                          f"{SNAPSHOT_FORMAT_VERSION}")
     trainer = payload["trainer"]
-    tree = dict(trainer.get("opt", {}).get("ema") or trainer["params"])
     config = payload["config"]
     n_features = config["encoding"].get("n_features_per_level", 2)
-    tree["pos_encoding"] = convert_layout(
-        np.asarray(tree["pos_encoding"]).reshape(-1), n_features,
-        payload.get("grid_layout", "planar"), "interleaved")
+    layout = payload.get("grid_layout", "planar")
+
+    def interleaved(tree):
+        return dict(tree, pos_encoding=convert_layout(
+            np.asarray(tree["pos_encoding"]).reshape(-1), n_features,
+            layout, "interleaved"))
+
+    opt = dict(trainer.get("opt") or {})
+    for k in ("m", "v", "ema"):
+        if opt.get(k):
+            opt[k] = interleaved(opt[k])
+    state = {"params": params_from_jax(interleaved(trainer["params"]))}
+    if "step" in opt:
+        state["opt"] = opt_state_from_jax(opt)
     return {
         "config": config,
         "aabb_scale": int(payload.get("aabb_scale", 1)),
-        "params": params_from_jax(tree),
+        "params": state.get("opt", {}).get("ema") or state["params"],
+        "trainer": state,
+        "training_step": int(payload.get("training_step", 0)),
+        "density_grid_ema_step": int(
+            payload.get("density_grid_ema_step", 0)),
         "density_grid": torch.from_numpy(
             np.asarray(payload["density_grid"], np.float32).copy()),
     }

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from ..common import (MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE,
+from ..common import (MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE, NERF_CASCADES,
                       NERF_GRID_N_CELLS, NERF_GRIDSIZE)
 
 _M32 = 0xFFFFFFFF
@@ -136,6 +136,12 @@ def advance_n_steps(t: torch.Tensor, cone_angle: float, n) -> torch.Tensor:
 
 def calc_dt(t: torch.Tensor, cone_angle: float) -> torch.Tensor:
     return advance_n_steps(t, cone_angle, 1.0) - t
+
+
+def warp_dt(dt: torch.Tensor) -> torch.Tensor:
+    """Step size -> [0, 1] over the range of cone step sizes."""
+    max_stepsize = MIN_CONE_STEPSIZE * (1 << (NERF_CASCADES - 1))
+    return (dt - MIN_CONE_STEPSIZE) / (max_stepsize - MIN_CONE_STEPSIZE)
 
 
 def ray_intersect_aabb(o: torch.Tensor, d: torch.Tensor,

@@ -1,5 +1,5 @@
 """NerfNetwork: hash-grid density model and view-dependent RGB head
-(counterpart of instant_ngp_tpu/nerf/model.py), forward only.
+(counterpart of instant_ngp_tpu/nerf/model.py).
 
 - density path: position in [0,1]^3 -> pos_encoding (HashGrid) -> density
   MLP with 16 raw outputs; channel 0 is the pre-activation density;
@@ -9,7 +9,13 @@
 
 Outputs are pre-activation; `network_to_rgb` / `network_to_density` apply
 the activations. Parameters load from the JAX layout
-{"pos_encoding", "density_net", "dir_encoding", "rgb_net"}.
+{"pos_encoding", "density_net", "dir_encoding", "rgb_net"}, and
+`param_tree` hands the module's own parameter tensors out in that layout:
+the optimizer updates them in place, and a second network of the same
+configuration whose tree IS the optimizer's EMA tree serves inference
+with no copy. Parameters do not require grad unless `requires_grad_(True)`
+is called, as a trainer does; under grad the forward is differentiable in
+the parameters (ops/mlp.py and ops/grid_encoding.py say how).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from torch import nn
 
 from ..ops.encodings import create_encoding
 from ..ops.factory import derive_grid_config
-from ..ops.mlp import MLP, apply_activation
+from ..ops.mlp import MLP, activation_derivative, apply_activation
 
 
 class NerfNetwork(nn.Module):
@@ -65,6 +71,14 @@ class NerfNetwork(nn.Module):
         self.density_net.load_weights(params["density_net"])
         self.rgb_net.load_weights(params["rgb_net"])
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameter tensors themselves, in the JAX layout (the
+        direction encodings carry none: None, an empty subtree)."""
+        return {"pos_encoding": self.pos_encoding.params,
+                "density_net": list(self.density_net.weights),
+                "dir_encoding": None,
+                "rgb_net": list(self.rgb_net.weights)}
+
     def density_forward(self, pos: torch.Tensor,
                         max_level: Optional[float] = None) -> torch.Tensor:
         """Warped positions (N, 3) -> raw density-net outputs (N, 16)."""
@@ -98,6 +112,20 @@ def network_to_rgb(raw: torch.Tensor, activation: str) -> torch.Tensor:
     return apply_activation(activation, raw)
 
 
+def network_to_rgb_derivative(raw: torch.Tensor, activation: str
+                              ) -> torch.Tensor:
+    if activation == "Exponential":
+        return torch.exp(raw.clamp(-10.0, 10.0))
+    return activation_derivative(activation, raw)
+
+
 def network_to_density(raw: torch.Tensor, activation: str) -> torch.Tensor:
     # unclamped, as in the reference (only its derivative clamps)
     return apply_activation(activation, raw)
+
+
+def network_to_density_derivative(raw: torch.Tensor, activation: str
+                                  ) -> torch.Tensor:
+    if activation == "Exponential":
+        return torch.exp(raw.clamp(-15.0, 15.0))
+    return activation_derivative(activation, raw)

@@ -5,7 +5,9 @@ instant_ngp_tpu/nerf/testbed_nerf.py::_density_update_body).
 
 - `density_grid`: (n_cascades * 128^3,) float32, Morton order per cascade.
   Negative values mark untrained cells.
-- an update splats `density * MIN_CONE_STEPSIZE` into the sampled cells
+- an update samples candidate cells (`sample_cells`: every cell in a full
+  sweep, else some cells regardless of state plus some occupied ones, each
+  by 10 rejection probes), splats `density * MIN_CONE_STEPSIZE` into them
   with a max, then keeps max(old * decay, new) per cell;
 - bitfield bit = density > min(0.01, mean density of cascade 0); mip m >= 1
   ORs in the 2x2x2 max-pool of the centre 64^3 of mip m-1.
@@ -13,7 +15,7 @@ instant_ngp_tpu/nerf/testbed_nerf.py::_density_update_body).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -30,6 +32,64 @@ def init_density_grid(n_cascades: int, device) -> torch.Tensor:
 
 def init_bitfield(device) -> torch.Tensor:
     return torch.zeros(N_BITFIELD_BYTES, dtype=torch.uint8, device=device)
+
+
+N_PROBES = 10
+
+
+class CellDraws(NamedTuple):
+    """The random numbers of one `sample_cells` call: per slot, N_PROBES
+    candidate cells of one cascade."""
+
+    uniform_idx: torch.Tensor     # (N_PROBES, n_uniform) in [0, 128^3)
+    uniform_level: torch.Tensor   # (n_uniform,) in [0, n_cascades)
+    occupied_idx: torch.Tensor    # (N_PROBES, n_nonuniform)
+    occupied_level: torch.Tensor  # (n_nonuniform,)
+
+
+def draw_cell_randoms(generator: torch.Generator, n_uniform: int,
+                      n_nonuniform: int, n_cascades: int) -> CellDraws:
+    dev = generator.device
+
+    def ints(high, *shape):
+        return torch.randint(0, high, shape, generator=generator, device=dev)
+
+    return CellDraws(ints(NERF_GRID_N_CELLS, N_PROBES, n_uniform),
+                     ints(n_cascades, n_uniform),
+                     ints(NERF_GRID_N_CELLS, N_PROBES, n_nonuniform),
+                     ints(n_cascades, n_nonuniform))
+
+
+def sample_cells(draws: Optional[CellDraws], density_grid: torch.Tensor,
+                 n_uniform: int, n_nonuniform: int, n_cascades: int
+                 ) -> torch.Tensor:
+    """Candidate cell indices: `n_uniform` cells regardless of state (the
+    threshold -0.01 skips only untrained cells) and `n_nonuniform`
+    occupied ones. Each slot keeps the first of its probes whose density
+    is above the threshold, else its last probe. Asking for every cell and
+    no occupied one is the full sweep: an exact enumeration, no draws."""
+    if n_uniform == n_cascades * NERF_GRID_N_CELLS and n_nonuniform == 0:
+        return torch.arange(n_uniform, device=density_grid.device)
+
+    def probe(idx, level, thresh):
+        flat = idx.long() + level.long()[None, :] * NERF_GRID_N_CELLS
+        ok = density_grid[flat] > thresh                     # (N_PROBES, n)
+        # leading failures = index of the first success
+        first = (torch.cumsum(ok, dim=0) == 0).sum(dim=0)
+        pick = first.clamp(max=N_PROBES - 1)
+        return flat.gather(0, pick[None, :])[0]
+
+    return torch.cat([
+        probe(draws.uniform_idx, draws.uniform_level, -0.01),
+        probe(draws.occupied_idx, draws.occupied_level,
+              NERF_MIN_OPTICAL_THICKNESS)])
+
+
+def mark_untrained_cells(density_grid: torch.Tensor, visible: torch.Tensor
+                         ) -> torch.Tensor:
+    """visible (C * 128^3,) bool: cells no training camera sees go to -1,
+    the rest are clamped to >= 0."""
+    return torch.where(visible, density_grid.clamp(min=0.0), -1.0)
 
 
 def cell_positions(indices: torch.Tensor, jitter: torch.Tensor

@@ -1,28 +1,150 @@
-"""Occupancy-guided marching over the analytic candidate grid
-(counterpart of instant_ngp_tpu/nerf/sampler.py::march_rays).
+"""Training-ray generation, marching through the occupancy grid and sample
+compaction (counterpart of instant_ngp_tpu/nerf/sampler.py).
 
-The sequential DDA march of the reference always lands on integer
-stepping-space coordinates, so every position it can visit is
-from_stepping_space(s0 + k). Testing occupancy at all k at once emits the
-same sample set; since the bitfield is max-pooled across mips, a candidate
-the DDA would skip tests empty at its own mip as well.
+1. `generate_rays`: one ray per lane from a random (image, pixel): the
+   target colour is read, the ray built through the image's camera (with
+   its rolling shutter), clipped to the aabb, and its start jittered by a
+   fraction of one step. The random numbers come as a `TrainDraws`: drawn
+   by `draw_train_randoms` from a `torch.Generator`, or supplied by the
+   caller (the tests feed the JAX package's own draws).
+2. `march_rays`: occupancy at the analytic (R, n_march) candidate grid.
+   The sequential DDA march of the reference always lands on integer
+   stepping-space coordinates, so every position it can visit is
+   from_stepping_space(s0 + k). Testing occupancy at all k at once emits
+   the same sample set; since the bitfield is max-pooled across mips, a
+   candidate the DDA would skip tests empty at its own mip as well.
+3. `compact_samples`: ray-major prefix-sum compaction of the emitted
+   candidates into flat (capacity,) buffers: a prefix sum gives every
+   emitted candidate its slot, one scatter inverts slot -> candidate. No
+   host sync, no `torch.nonzero`.
+
+A sample carries the warped position in [0,1]^3, the warped direction
+dir/2 + 0.5 and the warped dt.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .march import (calc_dt, density_grid_occupied_at, from_stepping_space,
-                    mip_from_dt, to_stepping_space)
+from ..camera import uv_to_ray, xform_with_rolling_shutter
+from .dataset import NerfTrainingData, read_rgba
+from .march import (advance_n_steps, calc_dt, density_grid_occupied_at,
+                    from_stepping_space, mip_from_dt, ray_intersect_aabb,
+                    to_stepping_space, warp_dt)
 
 
 class RayBatch(NamedTuple):
     origins: torch.Tensor    # (R, 3)
     dirs: torch.Tensor       # (R, 3) normalized
     t_start: torch.Tensor    # (R,) march start
-    valid: torch.Tensor      # (R,) bool
+    valid: torch.Tensor      # (R,) bool (masked pixels and misses excluded)
+    # training rays only
+    img_idx: Optional[torch.Tensor] = None   # (R,) source image
+    uv: Optional[torch.Tensor] = None        # (R, 2) position in the image
+    rgba: Optional[torch.Tensor] = None      # (R, 4) premultiplied linear
+
+
+class SampleBatch(NamedTuple):
+    """Compacted flat samples and the per-ray segment table."""
+
+    positions: torch.Tensor  # (S, 3) warped
+    dirs: torch.Tensor       # (S, 3) warped
+    dts: torch.Tensor        # (S,) warped
+    t_mid: torch.Tensor      # (S,) ray distance of the sample
+    ray_id: torch.Tensor     # (S,) source ray lane of each sample
+    ray_base: torch.Tensor   # (R,) first sample index of each ray
+    ray_count: torch.Tensor  # (R,) number of samples of each ray
+    n_samples: torch.Tensor  # () valid samples (<= S)
+    cand_slot: torch.Tensor  # (R, M) flat sample index of each candidate;
+    #                          >= S means "no kept sample here"
+    cand_src: torch.Tensor   # (S,) flat candidate index (r*M + k) of each
+    #                          sample; == R*M in the invalid tail
+
+
+class TrainDraws(NamedTuple):
+    """The random numbers of one train step."""
+
+    img_idx: torch.Tensor          # (R,) integer in [0, n_images)
+    uv: torch.Tensor               # (R, 2) in [0, 1)
+    motionblur_time: torch.Tensor  # (R,) in [0, 1)
+    start_jitter: torch.Tensor     # (R,) in [0, 1): fraction of a step
+    bg_color: torch.Tensor         # (R, 3) in [0, 1): sRGB background
+
+
+def draw_train_randoms(generator: torch.Generator, n_rays: int,
+                       n_images: int) -> TrainDraws:
+    """Uniform draws on the generator's device."""
+    dev = generator.device
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=generator, device=dev)
+
+    return TrainDraws(
+        img_idx=torch.randint(0, n_images, (n_rays,), generator=generator,
+                              device=dev),
+        uv=uniform(n_rays, 2), motionblur_time=uniform(n_rays),
+        start_jitter=uniform(n_rays), bg_color=uniform(n_rays, 3))
+
+
+def sample_rays(draws: TrainDraws, data: NerfTrainingData,
+                snap_to_pixel_centers: bool = False, error_cdfs=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(img_idx, uv, motionblur_time) per lane, uniform over images and
+    pixels."""
+    if error_cdfs is not None:
+        raise NotImplementedError(
+            "error-map importance sampling is not ported yet (ROADMAP "
+            "queue 1: the training chain's remainder)")
+    img_idx, uv = draws.img_idx.long(), draws.uv
+    if snap_to_pixel_centers:
+        res = data.resolutions[img_idx]
+        uv = (torch.floor(uv * res) + 0.5) / res
+    return img_idx, uv, draws.motionblur_time
+
+
+def build_rays(data: NerfTrainingData, img_idx: torch.Tensor,
+               uv: torch.Tensor, motionblur_time: torch.Tensor,
+               lens_mode: int, cam=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """uv and image -> (origins, normalized dirs, valid)."""
+    if cam is not None:
+        raise NotImplementedError(
+            "camera offsets (extrinsics and focal-length optimisation) are "
+            "not ported yet (ROADMAP queue 1: the training chain's "
+            "remainder)")
+    xform = xform_with_rolling_shutter(
+        data.xforms_start[img_idx], data.xforms_end[img_idx],
+        data.rolling_shutter[img_idx], uv, motionblur_time)
+    origins, dirs_un, ray_ok = uv_to_ray(
+        uv, data.resolutions[img_idx], data.focal_lengths[img_idx], xform,
+        screen_center=(0.5, 0.5), lens_mode=lens_mode)
+    dirs = dirs_un / torch.linalg.norm(dirs_un, dim=-1, keepdim=True)
+    return origins, dirs, ray_ok
+
+
+def generate_rays(draws: TrainDraws, data: NerfTrainingData,
+                  aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+                  cone_angle: float, lens_mode: int,
+                  snap_to_pixel_centers: bool = False, cam=None,
+                  error_cdfs=None) -> Tuple[RayBatch, torch.Tensor]:
+    """One ray per lane -> (rays, motionblur_time)."""
+    img_idx, uv, motionblur_time = sample_rays(
+        draws, data, snap_to_pixel_centers, error_cdfs)
+    # truncation towards zero picks the pixel, as the reference does
+    px = (uv * data.resolutions[img_idx]).to(torch.int32)
+    rgba = read_rgba(data.pixels, img_idx, px)
+    valid = rgba[:, 0] >= 0.0          # the hot-pink mask skips the lane
+
+    origins, dirs, ray_ok = build_rays(data, img_idx, uv, motionblur_time,
+                                       lens_mode, cam)
+    tmin, tmax = ray_intersect_aabb(origins, dirs, aabb_min, aabb_max)
+    tmin = tmin.clamp(min=0.0)
+    valid = valid & ray_ok & (tmax >= tmin)
+    t_start = advance_n_steps(tmin, cone_angle, draws.start_jitter)
+    return RayBatch(origins, dirs, t_start, valid, img_idx, uv, rgba), \
+        motionblur_time
 
 
 def march_rays(rays: RayBatch, bitfield: torch.Tensor,
@@ -43,3 +165,52 @@ def march_rays(rays: RayBatch, bitfield: torch.Tensor,
     emit = inside & occupied & rays.valid[:, None]
     emit &= torch.cumsum(emit, dim=1) <= max_samples_per_ray
     return ts, dts, emit
+
+
+def compact_samples(rays: RayBatch, ts: torch.Tensor, emits: torch.Tensor,
+                    aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+                    capacity: int, cone_angle: float, order: str = "ray"
+                    ) -> SampleBatch:
+    """Compact the emitted candidates of the (R, n_march) grid into flat
+    (capacity,) buffers, ray-major: each ray's samples are contiguous and
+    time-ordered, and when capacity truncates, whole late rays starve.
+
+    Every emitted candidate's slot is its ray's base (an exclusive prefix
+    sum of the per-ray counts) plus its rank within the ray; one scatter of
+    the candidate indices into a buffer with a spill slot past `capacity`
+    inverts the map. dt, positions and directions are
+    recomputed from (ray, t) on the compacted domain."""
+    if order != "ray":
+        raise NotImplementedError(
+            f"compact_samples order={order!r} is not ported (the renderer "
+            f"packs its own candidates; ROADMAP queue 1: render_tile)")
+    n_rays, n_march = emits.shape
+    n = n_rays * n_march
+    dev = emits.device
+    e = emits.long()
+    count = e.sum(dim=1)                                       # (R,)
+    base = torch.cumsum(count, dim=0) - count                  # (R,)
+    rank = base[:, None] + (torch.cumsum(e, dim=1) - e)        # (R, M)
+    cand_slot = torch.where(emits, rank, capacity).clamp(max=capacity)
+
+    # slot -> candidate: kept candidates' slots are unique and < capacity;
+    # the rest all land in one spill slot past it, which is cut off
+    src = torch.full((capacity + 1,), n, dtype=torch.long, device=dev)
+    src.scatter_(0, cand_slot.reshape(-1), torch.arange(n, device=dev))
+    cand_src = src[:capacity]
+    src_c = cand_src.clamp(max=n - 1)
+
+    ray_id = src_c // n_march                                  # (S,)
+    t_flat = ts.reshape(-1)[src_c]
+    # dt is a function of t alone: recomputed, not gathered
+    dt_flat = warp_dt(calc_dt(t_flat, cone_angle))
+    d_r = rays.dirs[ray_id]
+    positions = (rays.origins[ray_id] + t_flat[:, None] * d_r
+                 - aabb_min) / (aabb_max - aabb_min)
+    dirs = (d_r + 1.0) * 0.5
+
+    n_samples = (base[-1] + count[-1]).clamp(max=capacity)
+    base_c = base.clamp(max=capacity)
+    count_c = torch.minimum(count, capacity - base_c)
+    return SampleBatch(positions, dirs, dt_flat, t_flat, ray_id, base_c,
+                       count_c, n_samples, cand_slot, cand_src)

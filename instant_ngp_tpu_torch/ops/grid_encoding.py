@@ -1,5 +1,6 @@
-"""Multiresolution hash/dense/tiled grid encoding, forward only
-(counterpart of instant_ngp_tpu/ops/grid_encoding.py, exact d-linear path).
+"""Multiresolution hash/dense/tiled grid encoding, forward and table
+gradient (counterpart of instant_ngp_tpu/ops/grid_encoding.py, exact
+d-linear path).
 
 - L levels; level l has scale s_l = N_min * 2^(l * log2(b)) - 1 and
   resolution r_l = ceil(s_l) + 1.
@@ -15,8 +16,17 @@ k of entry e sits at e*F + k, so one entry's F features are one row of
 `params.view(-1, F)`. `convert_layout` maps planar (feature-major) tables
 of old snapshots into it.
 
-This is plain PyTorch: one gather per level. Its CUDA kernel is the next
-kernel the port needs (the JAX package has no TPU kernel for it).
+Under autograd (grad mode on and the table requires grad) the forward
+runs inside `_GridEncode`, which saves x alone; its backward recomputes
+each level's indices and d-linear weights and deposits grad * weight into
+the table gradient with `index_add_` (atomic adds on a CUDA device, so the
+summation order varies between runs). Autograd through `table[idx]` would
+instead keep every level's gather alive and sort all indices in
+`index_put_`. The gradient with respect to x is not implemented.
+
+This is plain PyTorch: one gather per level. Its CUDA kernel, for both
+directions, is the next kernel the port needs (the JAX package has no TPU
+kernel for it).
 """
 
 from __future__ import annotations
@@ -136,46 +146,98 @@ class GridEncoding(nn.Module):
         with torch.no_grad():
             self.params.copy_(p)
 
-    def forward(self, x: torch.Tensor,
-                max_level: Optional[float] = None) -> torch.Tensor:
-        """x (N, d) in [0,1]^d -> (N, L*F) float32 features."""
-        x = x.reshape(-1, self.n_dims).float()
-        table = self.params.view(-1, self.n_features_per_level)
+    def _level_corners(self, x: torch.Tensor, lvl: int):
+        """Table rows and d-linear weights of the 2^d corners around each
+        point at one level -> (idx (N, C) int64, weight (N, C))."""
+        scale, res, size, offset, hashed = self.levels[lvl]
         corners = self.corners                                   # (C, d)
-        outs = []
-        for lvl, (scale, res, size, offset, hashed) in enumerate(self.levels):
-            pos = x * scale + 0.5
-            pos0 = torch.floor(pos)
-            w = pos - pos0
-            if self.interpolation == "Smoothstep":
-                w = w * w * (3.0 - 2.0 * w)
-            elif self.interpolation == "Nearest":
-                w = torch.round(w)
-            coords = pos0.long()[:, None, :] + corners[None]     # (N, C, d)
-            if hashed:
-                # uint32 wraparound: the low 32 bits of the int64 product
-                # (|coord| < 2^31, so the product itself cannot overflow)
-                idx = (coords[..., 0] * _PRIMES[0]) & _U32_MASK
-                for k in range(1, self.n_dims):
-                    idx = idx ^ ((coords[..., k] * _PRIMES[k]) & _U32_MASK)
-            else:
-                if self.grid_type == "Tiled":
-                    coords = torch.remainder(coords, res)
-                else:
-                    coords = coords.clamp(0, res - 1)
-                idx = coords[..., 0]
-                stride = 1
-                for k in range(1, self.n_dims):
-                    stride *= res
-                    idx = idx + coords[..., k] * stride
-            idx = idx % size + offset
-            sel = corners[None] == 1                             # (1, C, d)
-            w_sel = torch.where(sel, w[:, None, :], 1.0 - w[:, None, :])
-            weight = w_sel[..., 0]
+        pos = x * scale + 0.5
+        pos0 = torch.floor(pos)
+        w = pos - pos0
+        if self.interpolation == "Smoothstep":
+            w = w * w * (3.0 - 2.0 * w)
+        elif self.interpolation == "Nearest":
+            w = torch.round(w)
+        coords = pos0.long()[:, None, :] + corners[None]         # (N, C, d)
+        if hashed:
+            # uint32 wraparound: the low 32 bits of the int64 product
+            # (|coord| < 2^31, so the product itself cannot overflow)
+            idx = (coords[..., 0] * _PRIMES[0]) & _U32_MASK
             for k in range(1, self.n_dims):
-                weight = weight * w_sel[..., k]
+                idx = idx ^ ((coords[..., k] * _PRIMES[k]) & _U32_MASK)
+        else:
+            if self.grid_type == "Tiled":
+                coords = torch.remainder(coords, res)
+            else:
+                coords = coords.clamp(0, res - 1)
+            idx = coords[..., 0]
+            stride = 1
+            for k in range(1, self.n_dims):
+                stride *= res
+                idx = idx + coords[..., k] * stride
+        idx = idx % size + offset
+        sel = corners[None] == 1                                 # (1, C, d)
+        w_sel = torch.where(sel, w[:, None, :], 1.0 - w[:, None, :])
+        weight = w_sel[..., 0]
+        for k in range(1, self.n_dims):
+            weight = weight * w_sel[..., k]
+        return idx, weight
+
+    def _encode(self, params: torch.Tensor, x: torch.Tensor,
+                max_level: Optional[float]) -> torch.Tensor:
+        table = params.view(-1, self.n_features_per_level)
+        outs = []
+        for lvl in range(self.n_levels):
+            idx, weight = self._level_corners(x, lvl)
             if max_level is not None and not max_level >= lvl:
                 weight = torch.zeros_like(weight)
             feats = table[idx]                                   # (N, C, F)
             outs.append((feats * weight[..., None]).sum(dim=1))
         return torch.cat(outs, dim=-1)
+
+    def _table_gradient(self, x: torch.Tensor, grad_out: torch.Tensor,
+                        max_level: Optional[float]) -> torch.Tensor:
+        """d(loss)/d(params) from grad_out (N, L*F): flat, like params."""
+        n_feat = self.n_features_per_level
+        grad = torch.zeros(self.n_entries, n_feat, dtype=grad_out.dtype,
+                           device=grad_out.device)
+        for lvl in range(self.n_levels):
+            if max_level is not None and not max_level >= lvl:
+                continue       # the forward zeroed this level's features
+            idx, weight = self._level_corners(x, lvl)
+            g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]     # (N, F)
+            deposit = g[:, None, :] * weight[..., None]          # (N, C, F)
+            grad.index_add_(0, idx.reshape(-1),
+                            deposit.reshape(-1, n_feat))
+        return grad.view(-1)
+
+    def forward(self, x: torch.Tensor,
+                max_level: Optional[float] = None) -> torch.Tensor:
+        """x (N, d) in [0,1]^d -> (N, L*F) float32 features."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "the grid encoding's gradient with respect to its input is "
+                "not ported yet (camera optimisation and the Normals mode "
+                "need it)")
+        x = x.reshape(-1, self.n_dims).float()
+        if torch.is_grad_enabled() and self.params.requires_grad:
+            return _GridEncode.apply(self.params, x, self, max_level)
+        return self._encode(self.params, x, max_level)
+
+
+class _GridEncode(torch.autograd.Function):
+    """The encode with a hand-written table gradient; saves x only."""
+
+    @staticmethod
+    def forward(ctx, params, x, encoding, max_level):
+        ctx.save_for_backward(x)
+        ctx.encoding = encoding
+        ctx.max_level = max_level
+        return encoding._encode(params, x, max_level)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (x,) = ctx.saved_tensors
+        grad = ctx.encoding._table_gradient(x, grad_out.contiguous(),
+                                            ctx.max_level)
+        return grad, None, None, None

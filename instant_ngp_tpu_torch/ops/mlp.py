@@ -3,9 +3,14 @@
 input -> [n_neurons] * n_hidden_layers -> output, no biases (as tcnn's
 fully-fused MLPs); n_hidden_layers = 0 is a single input->output matrix.
 Master weights are float32 (fan_in, fan_out) matrices. With bf16 compute
-the forward is `fused_mlp_forward`: the CUDA kernel on a CUDA tensor, its
-plain version on a CPU tensor. With float32 compute it is a loop of
-float32 matmuls.
+the forward takes one of two paths, chosen by grad mode alone:
+- grad mode on and the input or a weight requires grad (a train step):
+  the differentiable path, float32 matmuls of bf16-rounded operands with
+  hidden activations rounded to bf16, under autograd;
+- otherwise (inference): `fused_mlp_forward`, the CUDA kernel on a CUDA
+  tensor, its plain version on a CPU tensor. The kernel's output has no
+  `grad_fn`, so it must never see a call that wants gradients.
+With float32 compute the forward is a loop of float32 matmuls.
 """
 
 from __future__ import annotations
@@ -15,8 +20,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from .kernels.mlp_kernels import (FusedMLPWeights, fused_mlp_forward,
-                                  pack_weights)
+from .kernels import mlp_kernels
+from .kernels.mlp_kernels import FusedMLPWeights, pack_weights
 
 
 def apply_activation(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +43,22 @@ def apply_activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "Tanh":
         return torch.tanh(x)
     raise ValueError(f"unknown activation: {name}")
+
+
+def activation_derivative(name: str, x: torch.Tensor) -> torch.Tensor:
+    """d(activation)/dx at the pre-activation x."""
+    if name in ("None", None, "none"):
+        return torch.ones_like(x)
+    if name == "ReLU":
+        return (x > 0).to(x.dtype)
+    if name == "Logistic":
+        s = torch.sigmoid(x)
+        return s * (1.0 - s)
+    if name == "Exponential":
+        return torch.exp(x)
+    if name == "Sine":
+        return torch.cos(x)
+    raise ValueError(f"unknown activation derivative: {name}")
 
 
 class MLP(nn.Module):
@@ -107,11 +128,27 @@ class MLP(nn.Module):
             self._packed_key = key
         return self._packed
 
+    def _forward_differentiable(self, x: torch.Tensor) -> torch.Tensor:
+        """The bf16 forward under autograd: what `fused_mlp_forward_plain`
+        computes, for any activation of the tcnn set."""
+        bf16 = torch.bfloat16
+        h = x.to(bf16).float()
+        for i, w in enumerate(self.weights):
+            h = h @ w.to(bf16).float()
+            if i + 1 < len(self.weights):
+                h = apply_activation(self.activation, h).to(bf16).float()
+        return apply_activation(self.output_activation, h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, n_input_dims) -> (N, n_output_dims) float32."""
         if self.compute_dtype == torch.bfloat16:
-            return fused_mlp_forward(x.contiguous(), self.kernel_weights(),
-                                     self.activation, self.output_activation)
+            if torch.is_grad_enabled() and (
+                    x.requires_grad
+                    or any(w.requires_grad for w in self.weights)):
+                return self._forward_differentiable(x)
+            return mlp_kernels.fused_mlp_forward(
+                x.contiguous(), self.kernel_weights(), self.activation,
+                self.output_activation)
         h = x.float()
         for i, w in enumerate(self.weights):
             h = h @ w

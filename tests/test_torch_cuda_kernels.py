@@ -189,3 +189,54 @@ def test_mlp_forward_on_cuda_launches_the_kernel(device):
     ref = fused_mlp_forward_plain(x, list(mlp.weights))
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 2e-2
+
+
+def test_kernel_on_ema_weights_after_an_optimizer_step(device):
+    """An inference network whose parameters are the optimizer's EMA
+    leaves: after a step (in place) the kernel must compute with the new
+    EMA values; a stale pack of the old ones would pass unnoticed."""
+    from instant_ngp_tpu_torch.ops.optimizers import Optimizer
+
+    gen = torch.Generator().manual_seed(3)
+    train_net = MLP(32, 16, 64, 1, compute_dtype=torch.bfloat16)
+    train_net.init_params(gen)
+    train_net.to(device).requires_grad_(True)
+    ema_net = MLP(32, 16, 64, 1, compute_dtype=torch.bfloat16).to(device)
+    opt = Optimizer({"otype": "Ema", "decay": 0.5, "nested": {
+        "otype": "Adam", "learning_rate": 1e-1}})
+    params = {"net": list(train_net.weights)}
+    state = opt.init(params)
+    ema_net.load_weights(state["ema"]["net"])
+    state["ema"] = {"net": list(ema_net.weights)}
+    x = torch.rand(5000, 32, device=device)
+    with torch.no_grad():
+        out0 = ema_net(x)                          # packs the weights
+        grads = {"net": [torch.ones_like(w) for w in train_net.weights]}
+        opt.step(state, params, grads)
+        before = fused_mlp_forward.launches
+        out1 = ema_net(x)
+        assert fused_mlp_forward.launches == before + 1
+        ref = fused_mlp_forward_plain(x, list(ema_net.weights))
+    torch.cuda.synchronize()
+    assert (out1 - ref).abs().max().item() <= 2e-2
+    assert (out1 - ref).abs().mean().item() <= 1e-3
+    # the step moved the weights by 0.05: the old pack would be far off
+    assert (out0 - ref).abs().mean().item() > 0.1
+
+
+def test_input_or_weights_that_require_grad_never_reach_the_kernel(device):
+    mlp = MLP(32, 16, 64, 1, compute_dtype=torch.bfloat16)
+    mlp.init_params(torch.Generator().manual_seed(0))
+    mlp.to(device)
+    x = torch.rand(1000, 32, device=device)
+    before = fused_mlp_forward.launches
+    out = mlp(x.clone().requires_grad_(True))
+    assert out.grad_fn is not None
+    mlp.requires_grad_(True)
+    out = mlp(x)
+    assert out.grad_fn is not None
+    torch.autograd.grad(out.sum(), list(mlp.weights))
+    assert fused_mlp_forward.launches == before
+    with torch.no_grad():
+        assert mlp(x).grad_fn is None
+    assert fused_mlp_forward.launches == before + 1
