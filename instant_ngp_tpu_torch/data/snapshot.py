@@ -77,7 +77,9 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     grid; the Ema copy when the snapshot has one, as the JAX testbed
     renders with it), "density_grid" (float32 tensor), "trainer"
     ({"params", "opt"} as port tensors, for `NerfTestbed.
-    load_snapshot_state`), "training_step", "density_grid_ema_step"}."""
+    load_snapshot_state`), "training_step", "density_grid_ema_step",
+    "camera" ({"pos_offset", "rot_offset", "focal_offset", "exposures"} as
+    numpy arrays, or None) and "dataset_paths"}."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -117,4 +119,6 @@ def load_snapshot(path: str) -> Dict[str, Any]:
             payload.get("density_grid_ema_step", 0)),
         "density_grid": torch.from_numpy(
             np.asarray(payload["density_grid"], np.float32).copy()),
+        "camera": payload.get("camera"),
+        "dataset_paths": payload.get("dataset_paths"),
     }

@@ -15,7 +15,12 @@ the optimizer updates them in place, and a second network of the same
 configuration whose tree IS the optimizer's EMA tree serves inference
 with no copy. Parameters do not require grad unless `requires_grad_(True)`
 is called, as a trainer does; under grad the forward is differentiable in
-the parameters (ops/mlp.py and ops/grid_encoding.py say how).
+the parameters, and in the positions and directions where those require
+grad (ops/mlp.py and ops/grid_encoding.py say how).
+
+`encode_draws` / `encode_generator` / `exact_axes` go to the position
+encoding alone and switch it to its stochastic-corner estimator (training
+and density updates; no gradient reaches the positions then).
 """
 
 from __future__ import annotations
@@ -80,21 +85,34 @@ class NerfNetwork(nn.Module):
                 "rgb_net": list(self.rgb_net.weights)}
 
     def density_forward(self, pos: torch.Tensor,
-                        max_level: Optional[float] = None) -> torch.Tensor:
+                        max_level: Optional[float] = None,
+                        encode_draws=None, encode_generator=None,
+                        exact_axes: Optional[int] = None) -> torch.Tensor:
         """Warped positions (N, 3) -> raw density-net outputs (N, 16)."""
-        return self.density_net(self.pos_encoding(pos, max_level=max_level))
+        if encode_draws is None and encode_generator is None:
+            feats = self.pos_encoding(pos, max_level=max_level)
+        else:
+            feats = self.pos_encoding(pos, max_level=max_level,
+                                      draws=encode_draws,
+                                      generator=encode_generator,
+                                      exact_axes=exact_axes)
+        return self.density_net(feats)
 
     def density(self, pos: torch.Tensor,
-                max_level: Optional[float] = None) -> torch.Tensor:
+                max_level: Optional[float] = None, **encode
+                ) -> torch.Tensor:
         """Raw (pre-activation) density (N,)."""
-        return self.density_forward(pos, max_level)[:, 0]
+        return self.density_forward(pos, max_level, **encode)[:, 0]
 
     def apply_components(self, pos: torch.Tensor, dirs: torch.Tensor,
                          extra: Optional[torch.Tensor] = None,
-                         max_level: Optional[float] = None) -> torch.Tensor:
+                         max_level: Optional[float] = None,
+                         encode_draws=None, encode_generator=None,
+                         exact_axes: Optional[int] = None) -> torch.Tensor:
         """Full forward: warped positions and directions (N, 3), extra
         latents (N, n_extra) -> raw (N, 4) = [r, g, b, density]."""
-        density_out = self.density_forward(pos, max_level)
+        density_out = self.density_forward(pos, max_level, encode_draws,
+                                           encode_generator, exact_axes)
         dir_in = dirs
         if self.n_extra_dims:
             if extra is None:

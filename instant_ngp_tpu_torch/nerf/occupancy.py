@@ -103,17 +103,18 @@ def cell_positions(indices: torch.Tensor, jitter: torch.Tensor
     return p * mip_scale + 0.5
 
 
-def cell_densities(density_fn: Callable[[torch.Tensor], torch.Tensor],
+def cell_densities(density_fn: Callable[[torch.Tensor, int], torch.Tensor],
                    indices: torch.Tensor, jitter: torch.Tensor,
                    aabb_min: torch.Tensor, aabb_max: torch.Tensor,
                    chunk: int = 1 << 19) -> torch.Tensor:
     """Raw density at a jittered position in each cell, in chunks of cells.
-    density_fn maps warped positions (n, 3) in [0,1]^3 to (n,)."""
+    density_fn(pos, start) maps the warped positions (n, 3) in [0,1]^3 of
+    cells start..start + n to (n,)."""
     out = torch.empty(indices.shape[0], device=indices.device)
     span = aabb_max - aabb_min
     for i in range(0, indices.shape[0], chunk):
         pos = cell_positions(indices[i:i + chunk], jitter[i:i + chunk])
-        out[i:i + chunk] = density_fn((pos - aabb_min) / span)
+        out[i:i + chunk] = density_fn((pos - aabb_min) / span, i)
     return out
 
 

@@ -14,6 +14,12 @@ transmittance fell below the threshold or whose candidates ran out is
 never evaluated again. Memory is bounded by marching `march_chunk` rays at
 a time and evaluating at most `query_budget` samples per network call.
 
+With `RenderConfig.stochastic_corners` and a generator, the position
+encoding runs its stochastic-corner estimator (the configuration's exact
+axes) with fresh draws in every network call, so the noise differs between
+the passes of a multi-sample frame and averages out like subpixel jitter.
+Off by default: renders use the exact encode.
+
 Depth, AO, Normals and the other render modes, and `render_tile`, are not
 ported yet.
 """
@@ -39,6 +45,7 @@ class RenderConfig(NamedTuple):
     density_activation: str
     min_transmittance: float = 1e-2
     query_budget: int = 2 << 20  # most samples per network call
+    stochastic_corners: bool = False  # the encode's estimator, given draws
 
 
 class WavefrontRenderer:
@@ -92,20 +99,26 @@ class WavefrontRenderer:
                  for i in range(0, origins.shape[0], self.march_chunk)]
         return tuple(torch.cat(p) for p in zip(*parts))
 
-    def _eval(self, pos: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    def _eval(self, pos: torch.Tensor, dirs: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Raw network outputs (n, 4) in calls of at most query_budget."""
         step = self.cfg.query_budget
-        return torch.cat([self.model.apply_components(pos[i:i + step],
-                                                      dirs[i:i + step])
-                          for i in range(0, pos.shape[0], step)])
+        return torch.cat([self.model.apply_components(
+            pos[i:i + step], dirs[i:i + step], encode_generator=generator)
+            for i in range(0, pos.shape[0], step)])
 
     def render(self, origins: torch.Tensor, dirs: torch.Tensor,
-               bitfield: torch.Tensor, bg_color: torch.Tensor
+               bitfield: torch.Tensor, bg_color: torch.Tensor,
+               generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
-        """origins, normalized dirs (R, 3); bg_color (3,) or (R, 3) linear.
+        """origins, normalized dirs (R, 3); bg_color (3,) or (R, 3) linear;
+        generator: the stochastic-corner draws' source (on the rays'
+        device), used only with `cfg.stochastic_corners`.
         -> {"rgb" (R, 3) over the background, "alpha", "depth" (R,),
         "n_samples": network evaluations made}."""
         cfg = self.cfg
+        if not cfg.stochastic_corners:
+            generator = None
         n_rays = origins.shape[0]
         dev = origins.device
         packed_ts, packed_ok, n_cand, valid = self._prep(origins, dirs,
@@ -127,8 +140,8 @@ class WavefrontRenderer:
             pos = ((o_b[:, None, :] + rt[..., None] * d_b[:, None, :])
                    - self.aabb_min) / span
             dirw = ((d_b + 1.0) * 0.5)[:, None, :].expand_as(pos)
-            raw = self._eval(pos.reshape(-1, 3),
-                             dirw.reshape(-1, 3)).reshape(*rt.shape, 4)
+            raw = self._eval(pos.reshape(-1, 3), dirw.reshape(-1, 3),
+                             generator).reshape(*rt.shape, 4)
             n_evaluated += rt.numel()
             rgb = network_to_rgb(raw[..., :3], cfg.rgb_activation)
             sigma = network_to_density(raw[..., 3], cfg.density_activation)

@@ -6,7 +6,12 @@ compaction (counterpart of instant_ngp_tpu/nerf/sampler.py).
    its rolling shutter), clipped to the aabb, and its start jittered by a
    fraction of one step. The random numbers come as a `TrainDraws`: drawn
    by `draw_train_randoms` from a `torch.Generator`, or supplied by the
-   caller (the tests feed the JAX package's own draws).
+   caller (the tests feed the JAX package's own draws). The pick is
+   uniform over images and pixels, or, given the error map's CDFs, half
+   of it follows them (`sample_rays`). `build_rays` is differentiable in
+   the per-image camera offsets `cam` = {"pos" (N, 3) translations, "rot"
+   (N, 3) axis-angle rotations applied on the left, "focal" (2,) relative
+   focal-length offset}.
 2. `march_rays`: occupancy at the analytic (R, n_march) candidate grid.
    The sequential DDA march of the reference always lands on integer
    stepping-space coordinates, so every position it can visit is
@@ -24,7 +29,7 @@ dir/2 + 0.5 and the warped dt.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,61 +69,127 @@ class SampleBatch(NamedTuple):
 
 
 class TrainDraws(NamedTuple):
-    """The random numbers of one train step."""
+    """The random numbers of one train step. The last five are needed only
+    when the pick follows the error map's CDFs (`sample_rays`); `img_idx`
+    and `uv` only when it does not."""
 
-    img_idx: torch.Tensor          # (R,) integer in [0, n_images)
-    uv: torch.Tensor               # (R, 2) in [0, 1)
+    img_idx: Optional[torch.Tensor]  # (R,) integer in [0, n_images)
+    uv: Optional[torch.Tensor]     # (R, 2) in [0, 1)
     motionblur_time: torch.Tensor  # (R,) in [0, 1)
     start_jitter: torch.Tensor     # (R,) in [0, 1): fraction of a step
     bg_color: torch.Tensor         # (R, 3) in [0, 1): sRGB background
+    u_img: Optional[torch.Tensor] = None    # (R,) in [0, 1): the image
+    use_cdf: Optional[torch.Tensor] = None  # (R,) bool: image by the CDF
+    u2: Optional[torch.Tensor] = None       # (R, 2): (column, row) lookups
+    u_mix: Optional[torch.Tensor] = None    # (R, 2): < 0.5 keeps uniform
+    jitter: Optional[torch.Tensor] = None   # (R, 2): place inside the cell
+
+    def to(self, device) -> "TrainDraws":
+        return TrainDraws(*(None if v is None else v.to(device)
+                            for v in self))
 
 
 def draw_train_randoms(generator: torch.Generator, n_rays: int,
-                       n_images: int) -> TrainDraws:
-    """Uniform draws on the generator's device."""
+                       n_images: int, with_cdf: bool = False) -> TrainDraws:
+    """Uniform draws on the generator's device; `with_cdf` draws what the
+    error-map pick needs instead of the uniform image and pixel."""
     dev = generator.device
 
     def uniform(*shape):
         return torch.rand(*shape, generator=generator, device=dev)
 
+    common = dict(motionblur_time=uniform(n_rays),
+                  start_jitter=uniform(n_rays), bg_color=uniform(n_rays, 3))
+    if with_cdf:
+        return TrainDraws(
+            img_idx=None, uv=None, u_img=uniform(n_rays),
+            use_cdf=uniform(n_rays) >= 0.5, u2=uniform(n_rays, 2),
+            u_mix=uniform(n_rays, 2), jitter=uniform(n_rays, 2), **common)
     return TrainDraws(
         img_idx=torch.randint(0, n_images, (n_rays,), generator=generator,
                               device=dev),
-        uv=uniform(n_rays, 2), motionblur_time=uniform(n_rays),
-        start_jitter=uniform(n_rays), bg_color=uniform(n_rays, 3))
+        uv=uniform(n_rays, 2), **common)
 
 
 def sample_rays(draws: TrainDraws, data: NerfTrainingData,
-                snap_to_pixel_centers: bool = False, error_cdfs=None
+                snap_to_pixel_centers: bool = False,
+                error_cdfs: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(img_idx, uv, motionblur_time) per lane, uniform over images and
-    pixels."""
-    if error_cdfs is not None:
-        raise NotImplementedError(
-            "error-map importance sampling is not ported yet (ROADMAP "
-            "queue 1: the training chain's remainder)")
-    img_idx, uv = draws.img_idx.long(), draws.uv
+    """(img_idx, uv, motionblur_time) per lane: uniform over images and
+    pixels, or, with `error_cdfs` = {"cdf_img" (N,), "cdf_y" (N, H_c),
+    "cdf_x_cond_y" (N, H_c, W_c)}, importance-sampled by the error map:
+    half of the lanes take their image from its CDF, and half of the
+    pixels come from the image's 2D CDF (a row by `cdf_y`, a column by the
+    row's conditional CDF, a jittered place inside that cell), the other
+    halves stay uniform."""
+    if error_cdfs is None:
+        img_idx, uv = draws.img_idx.long(), draws.uv
+    else:
+        n_images = data.n_images
+        u_img = draws.u_img
+        img_uniform = (u_img * n_images).to(torch.int32).long() % n_images
+        img_cdf = torch.searchsorted(error_cdfs["cdf_img"], u_img)
+        img_idx = torch.where(draws.use_cdf, img_cdf,
+                              img_uniform).clamp(0, n_images - 1)
+        cdf_y, cdf_x = error_cdfs["cdf_y"], error_cdfs["cdf_x_cond_y"]
+        ch, cw = cdf_y.shape[1], cdf_x.shape[2]
+        u2 = draws.u2
+        # the first entry not below the lookup (ties resolve to the left)
+        row = torch.searchsorted(cdf_y[img_idx], u2[:, 1:2].contiguous()
+                                 )[:, 0].clamp(0, ch - 1)
+        col = torch.searchsorted(cdf_x[img_idx, row],
+                                 u2[:, 0:1].contiguous()
+                                 )[:, 0].clamp(0, cw - 1)
+        uv_cdf = torch.stack([(col + draws.jitter[:, 0]) / cw,
+                              (row + draws.jitter[:, 1]) / ch], dim=-1)
+        uv = torch.where(draws.u_mix < 0.5, draws.u_mix * 2.0, uv_cdf)
     if snap_to_pixel_centers:
         res = data.resolutions[img_idx]
         uv = (torch.floor(uv * res) + 0.5) / res
     return img_idx, uv, draws.motionblur_time
 
 
+def rotvec_matrix(r: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle -> (..., 3, 3) rotation, differentiable AT ZERO.
+
+    The unnormalised Rodrigues form R = I + a K + b K^2 with a = sin(t)/t
+    and b = (1 - cos(t))/t^2, and their Taylor series below t^2 = 1e-8.
+    Camera offsets start at exactly zero, where a norm has a NaN gradient:
+    the square root is taken of a safe argument there, so the untaken
+    branch's gradient is finite as well."""
+    rx, ry, rz = r[..., 0], r[..., 1], r[..., 2]
+    zero = torch.zeros_like(rx)
+    K = torch.stack([torch.stack([zero, -rz, ry], -1),
+                     torch.stack([rz, zero, -rx], -1),
+                     torch.stack([-ry, rx, zero], -1)], -2)
+    t2 = (r * r).sum(dim=-1)[..., None, None]
+    small = t2 < 1e-8
+    safe_t2 = torch.where(small, 1.0, t2)
+    t = torch.sqrt(safe_t2)
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / safe_t2)
+    eye = torch.eye(3, dtype=r.dtype, device=r.device).expand_as(K)
+    return eye + a * K + b * (K @ K)
+
+
 def build_rays(data: NerfTrainingData, img_idx: torch.Tensor,
                uv: torch.Tensor, motionblur_time: torch.Tensor,
-               lens_mode: int, cam=None
+               lens_mode: int,
+               cam: Optional[Dict[str, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """uv and image -> (origins, normalized dirs, valid)."""
-    if cam is not None:
-        raise NotImplementedError(
-            "camera offsets (extrinsics and focal-length optimisation) are "
-            "not ported yet (ROADMAP queue 1: the training chain's "
-            "remainder)")
+    """uv and image -> (origins, normalized dirs, valid); differentiable in
+    the camera offsets `cam` {"pos", "rot", "focal"} when given."""
     xform = xform_with_rolling_shutter(
         data.xforms_start[img_idx], data.xforms_end[img_idx],
         data.rolling_shutter[img_idx], uv, motionblur_time)
+    focal = data.focal_lengths[img_idx]
+    if cam is not None:
+        rot = rotvec_matrix(cam["rot"][img_idx])               # (R, 3, 3)
+        new_t = (xform[..., :3, 3] + cam["pos"][img_idx])[..., None]
+        xform = torch.cat([rot @ xform[..., :3, :3], new_t], dim=-1)
+        focal = focal * (1.0 + cam["focal"][None, :])
     origins, dirs_un, ray_ok = uv_to_ray(
-        uv, data.resolutions[img_idx], data.focal_lengths[img_idx], xform,
+        uv, data.resolutions[img_idx], focal, xform,
         screen_center=(0.5, 0.5), lens_mode=lens_mode)
     dirs = dirs_un / torch.linalg.norm(dirs_un, dim=-1, keepdim=True)
     return origins, dirs, ray_ok

@@ -18,10 +18,32 @@ renders go through `inference_model` under `torch.no_grad()`, which sends
 the MLPs through the fused kernel; the kernel's packed weights are keyed
 by the tensors' versions, so an optimizer step repacks them.
 
+Training runs what the JAX testbed runs with its defaults:
+- `stochastic_corners` (on): train steps and density updates use the
+  position encoding's stochastic-corner estimator, the train step with the
+  configuration's exact axes and backward rule, the density update with
+  one sampled corner (its max-EMA already samples one random position per
+  cell and only errs towards keeping a cell). `stochastic_corners_until`
+  (from the encoding's config, default never) switches to the exact encode
+  at that step. Renders use the exact encode unless
+  `render_stochastic_corners` is set.
+- `use_error_map_sampling` (the dataset's `wants_importance_sampling`):
+  every step deposits the rays' losses into a coarse per-image error map;
+  every `n_steps_between_error_map_updates` steps the map becomes the CDFs
+  that half of the ray picks follow, on the host, and is zeroed.
+- `optimize_extrinsics`, `optimize_focal_length`, `optimize_exposure` (off):
+  per-image translation and axis-angle offsets, one relative focal offset
+  and per-image log2 exposures, stepped by Adam on the host every
+  `n_steps_between_cam_updates` steps from the gradients the train steps
+  return. The pose and focal gradients need the exact encode and a second
+  ray build, so they are taken on one step per `cam_grad_interval` and
+  scaled by it. `effective_xform` is a training camera with its offsets.
+The two host-side updates are the only reads of the device besides the
+stats: `host_syncs` counts them.
+
 Not ported yet, each raising `NotImplementedError` when switched on:
-stochastic-corner encoding, camera/focal/exposure optimisation, envmap and
-distortion training, extra dims, depth supervision, the error map, the
-scanned multi-step block and a device mesh.
+envmap and distortion training, extra dims, depth supervision, the scanned
+multi-step block and a device mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +59,8 @@ from ..common import NERF_GRID_N_CELLS, TestbedMode
 from ..convert import opt_state_to_jax, params_to_jax
 from ..data.nerf_loader import NerfDataset
 from ..metrics import mse, psnr
+from ..ops.grid_encoding import CornerDraws
+from ..ops.host_adam import HostAdam, RotationHostAdam, rotvec_to_matrix
 from ..ops.losses import loss_type_from_string
 from ..ops.optimizers import create_optimizer, tree_map
 from ..ops.sampling import ld_pixel_offset
@@ -50,8 +74,9 @@ from .occupancy import (CellDraws, cell_densities, density_grid_mean,
                         mark_untrained_cells, sample_cells, splat_and_ema,
                         update_bitfield)
 from .render import RenderConfig, WavefrontRenderer, camera_rays_for_frame
-from .sampler import TrainDraws, build_rays, draw_train_randoms
-from .training import REMAINDER, NerfTrainStepConfig, nerf_train_step
+from .sampler import build_rays, draw_train_randoms
+from .training import (REMAINDER, NerfTrainStepConfig, StepDraws,
+                       nerf_train_step)
 from .visibility import compute_visible_cells
 
 
@@ -128,6 +153,10 @@ class NerfTestbed:
         self.render_query_budget = 2 << 20
         # network evaluations of the last render_frame
         self.last_frame_n_samples = 0
+        # render with the position encoding's stochastic-corner estimator
+        # (the configuration's exact axes), fresh draws in every network
+        # call; off = the exact encode
+        self.render_stochastic_corners = False
 
         self.training_step = 0
         self.loss_scalar = float("nan")
@@ -169,15 +198,54 @@ class NerfTestbed:
         self.train_in_linear_colors = False
         self.disable_regularizers = False
 
-        # switches of what is not ported yet: each raises when set
-        self.stochastic_corners = False
+        # the stochastic-corner encode in train steps and density updates
+        # (the exact encode wherever a step takes the camera gradient, and
+        # at render time), until this step (None = always)
+        self.stochastic_corners = True
+        self.stochastic_corners_until: Optional[int] = cfg.get(
+            "encoding", {}).get("stochastic_corners_until", None)
+
+        # camera, focal-length and exposure optimisation
         self.optimize_extrinsics = False
         self.optimize_focal_length = False
         self.optimize_exposure = False
+        self.extrinsic_learning_rate = 1e-3
+        self.extrinsic_l2_reg = 1e-4
+        self.intrinsic_l2_reg = 1e-4
+        self.exposure_l2_reg = 0.0
+        self.n_steps_between_cam_updates = 16
+        # the pose and focal gradients are taken on one step per interval
+        # and scaled by it (clamped to the update window; 1 = every step);
+        # exposure gradients rebuild no rays and come from every step
+        self.cam_grad_interval = 16
+        n_img = self.data.n_images
+        self.cam_pos_offset = np.zeros((n_img, 3), np.float32)
+        self.cam_rot_offset = np.zeros((n_img, 3), np.float32)
+        self.cam_focal_offset = np.zeros(2, np.float32)
+        self._cam_pos_adam = HostAdam(1e-4)
+        self._cam_rot_adam = RotationHostAdam(1e-4)
+        self._focal_adam = HostAdam(1e-5)
+        self._exposure_adam = HostAdam(1e-3)
+        self._cam_grad_accum = None
+        self._exposure_grad_accum = None
+        self._n_steps_since_cam_update = 0
+        self._cam_on_device = None   # (the three host arrays, their copies)
+
+        # error-map importance sampling
+        self.use_error_map_sampling = bool(
+            self.dataset.wants_importance_sampling)
+        self.n_steps_between_error_map_updates = 128
+        self._error_map = None
+        self._error_cdfs = None
+        self._n_steps_since_error_update = 0
+        self._error_map_res = (0, 0)
+        # reads of the device by the two host-side updates
+        self.host_syncs = {"camera_updates": 0, "error_cdfs": 0}
+
+        # switches of what is not ported yet: each raises when set
         self.optimize_extra_dims = False
         self.train_envmap = False
         self.optimize_distortion = False
-        self.use_error_map_sampling = False
         self.steps_per_dispatch = 1
 
         self.timers = PhaseTimers()
@@ -257,19 +325,34 @@ class NerfTestbed:
 
     @torch.no_grad()
     def update_density_grid(self, indices: torch.Tensor,
-                            jitter: torch.Tensor, decay: float = 0.95
-                            ) -> None:
+                            jitter: torch.Tensor, decay: float = 0.95,
+                            corners: Union[CornerDraws, torch.Generator,
+                                           None] = None) -> None:
         """Query the density (inference parameters) at a point of each cell
         in `indices`, offset by `jitter` (n, 3) in [0, 1), max-EMA merge it
         into the grid and rebuild the bitfield (what the JAX testbed's
-        `_density_update_body` does after sampling the cells)."""
+        `_density_update_body` does after sampling the cells). With
+        `corners` (the draws of all n cells, or a generator to draw each
+        chunk's from) the encode samples one corner per cell and level."""
         idx = indices.to(self.device, torch.long)
         act = self.scene.density_activation
         net = self.inference_model
+
+        def density(pos, start):
+            if corners is None:
+                raw = net.density(pos)
+            elif isinstance(corners, torch.Generator):
+                raw = net.density(pos, encode_generator=corners,
+                                  exact_axes=0)
+            else:
+                raw = net.density(
+                    pos, exact_axes=0,
+                    encode_draws=corners.rows(start, start + pos.shape[0]))
+            return network_to_density(raw, act)
+
         dens = cell_densities(
-            lambda pos: network_to_density(net.density(pos), act),
-            idx, jitter.to(self.device, torch.float32), self.aabb_min,
-            self.aabb_max)
+            density, idx, jitter.to(self.device, torch.float32),
+            self.aabb_min, self.aabb_max)
         self.density_grid = splat_and_ema(self.density_grid, idx, dens,
                                           decay)
         self.bitfield = update_bitfield(self.density_grid,
@@ -277,22 +360,31 @@ class NerfTestbed:
         self.mean_density = density_grid_mean(self.density_grid)
 
     def _prep_draws(self, n_uniform: int, n_nonuniform: int
-                    ) -> Tuple[Optional[CellDraws], torch.Tensor]:
+                    ) -> Tuple[Optional[CellDraws], torch.Tensor,
+                               Union[CornerDraws, torch.Generator, None]]:
         """The random numbers of one `training_prep`: the cell probes (none
-        for a full sweep) and the (n, 3) jitter inside the cells."""
+        for a full sweep), the (n, 3) jitter inside the cells, and the
+        source of the encode's corner draws (asked for only while the
+        stochastic encode is on): the generator, so that each chunk of
+        cells draws its own, or all the cells' draws."""
         n_cascades = self.scene.max_cascade + 1
         draws = None
         if (n_uniform, n_nonuniform) != (NERF_GRID_N_CELLS * n_cascades, 0):
             draws = draw_cell_randoms(self._train_generator, n_uniform,
                                       n_nonuniform, n_cascades)
-        return draws, torch.rand(n_uniform + n_nonuniform, 3,
-                                 device=self.device,
-                                 generator=self._train_generator)
+        jitter = torch.rand(n_uniform + n_nonuniform, 3, device=self.device,
+                            generator=self._train_generator)
+        return draws, jitter, self._train_generator
 
-    def _train_draws(self, n_rays: int) -> TrainDraws:
-        """The random numbers of one train step."""
-        return draw_train_randoms(self._train_generator, n_rays,
-                                  self.data.n_images)
+    def _train_draws(self, n_rays: int) -> StepDraws:
+        """The random numbers of one train step: the rays' (those of the
+        CDF pick once there are CDFs) and the source of the encode's."""
+        return StepDraws(
+            draw_train_randoms(self._train_generator, n_rays,
+                               self.data.n_images,
+                               with_cdf=self.use_error_map_sampling
+                               and self._error_cdfs is not None),
+            self._train_generator)
 
     @torch.no_grad()
     def training_prep(self, decay: float = 0.95) -> None:
@@ -318,9 +410,10 @@ class NerfTestbed:
             counts = (n_cells, 0)
         else:
             counts = (n_cells // 4, n_cells // 4)
-        draws, jitter = self._prep_draws(*counts)
+        draws, jitter, corners = self._prep_draws(*counts)
         idx = sample_cells(draws, self.density_grid, *counts, n_cascades)
-        self.update_density_grid(idx, jitter, decay)
+        self.update_density_grid(
+            idx, jitter, decay, corners if self._stoch_now() else None)
         self.density_grid_ema_step += 1
 
     # ------------------------------------------------------------------
@@ -331,6 +424,37 @@ class NerfTestbed:
             raise RuntimeError("this testbed was built from a scene config "
                                "and only renders; build it from a "
                                "NerfDataset to train")
+
+    def _stoch_now(self) -> bool:
+        """Whether train steps and density updates use the stochastic
+        encode at the current training step."""
+        if not self.stochastic_corners:
+            return False
+        until = self.stochastic_corners_until
+        return until is None or self.training_step < until
+
+    def _cam_grad_interval_eff(self) -> int:
+        """The camera-gradient interval, clamped so that every update
+        window sees at least one gradient step."""
+        return max(1, min(self.cam_grad_interval,
+                          self.n_steps_between_cam_updates))
+
+    def _cam_dict(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The camera offsets on the device (copied when the host arrays
+        were replaced), or None while nothing of the camera is optimised."""
+        if not (self.optimize_extrinsics or self.optimize_focal_length
+                or self.optimize_exposure):
+            return None
+        host = (self.cam_pos_offset, self.cam_rot_offset,
+                self.cam_focal_offset)
+        cached = self._cam_on_device
+        if cached is None or any(a is not b for a, b in zip(cached[0],
+                                                            host)):
+            self._cam_on_device = cached = (host, {
+                k: torch.as_tensor(np.asarray(v, np.float32),
+                                   device=self.device)
+                for k, v in zip(("pos", "rot", "focal"), host)})
+        return cached[1]
 
     def _train_cfg(self, n_rays: int, max_k: int) -> NerfTrainStepConfig:
         for name, what in (
@@ -365,20 +489,153 @@ class NerfTestbed:
             optimize_exposure=self.optimize_exposure,
             optimize_extra_dims=self.optimize_extra_dims,
             use_error_map=self.use_error_map_sampling,
-            stochastic_corners=self.stochastic_corners)
+            error_map_res=self._error_map_res,
+            stochastic_corners=self._stoch_now())
 
-    def train_step(self) -> Dict[str, torch.Tensor]:
-        """One train step without the prep, the sync or the adaptation:
-        -> the step's stats, on the device."""
+    def train_step(self) -> Dict[str, Any]:
+        """One train step without the density update, the stats' sync or
+        the adaptation, but with what follows a step on the device and on
+        its own cadence: the camera and exposure gradients accumulate and
+        are applied every `n_steps_between_cam_updates` steps, the error
+        map takes the step's deposit and becomes CDFs every
+        `n_steps_between_error_map_updates` steps. -> the step's stats, on
+        the device."""
         self._require_training()
+        self._maybe_init_error_map()
         n_rays = self.rays_per_batch
         cfg = self._train_cfg(n_rays, self._bucket_k(n_rays))
+        interval = self._cam_grad_interval_eff()
+        if cfg.optimize_camera and \
+                self._n_steps_since_cam_update % interval != interval - 1:
+            # an off-interval step: no pose or focal gradient, and so no
+            # second ray build and no exact encode; the rays still go
+            # through the current offsets
+            cfg = cfg._replace(optimize_camera=False)
         stats = nerf_train_step(
             self.model, self.optimizer, cfg, self.aabb_min, self.aabb_max,
             self.opt_state, self.data, self.bitfield, self.mean_density,
-            self._train_draws(n_rays))
+            self._train_draws(n_rays), cam=self._cam_dict(),
+            error_cdfs=self._error_cdfs, error_map=self._error_map)
         self.training_step += 1
+
+        if "cam_gradient" in stats:
+            g = stats["cam_gradient"]
+            if interval > 1:    # one step stands for the interval's
+                g = {k: v * float(interval) for k, v in g.items()}
+            acc = self._cam_grad_accum
+            self._cam_grad_accum = g if acc is None \
+                else {k: acc[k] + g[k] for k in g}
+        if "exposure_gradient" in stats:
+            g, acc = stats["exposure_gradient"], self._exposure_grad_accum
+            self._exposure_grad_accum = g if acc is None else acc + g
+        self._n_steps_since_cam_update += 1
+        if self._n_steps_since_cam_update >= \
+                self.n_steps_between_cam_updates:
+            self._apply_camera_updates()
+            self._n_steps_since_cam_update = 0
+        if "error_map" in stats:
+            self._error_map = stats["error_map"]
+            self._n_steps_since_error_update += 1
+            if self._n_steps_since_error_update >= \
+                    self.n_steps_between_error_map_updates:
+                self._rebuild_error_cdfs()
+                self._n_steps_since_error_update = 0
         return stats
+
+    def _maybe_init_error_map(self) -> None:
+        """The error map, (n_images, H_c * W_c) zeros, made at the first
+        step and again after a rebuild of the CDFs if the rays per batch
+        ask for another size: a side of sqrt(sqrt(rays per image between
+        rebuilds)) * 3.5 cells, rounded up to a multiple of 8, at most the
+        images' own."""
+        if not self.use_error_map_sampling:
+            return
+        if self._error_map is None or self._n_steps_since_error_update == 0:
+            n_samples_per_image = (self.n_steps_between_error_map_updates
+                                   * self.rays_per_batch
+                                   // max(self.data.n_images, 1))
+            w0, h0 = self.data.resolution
+            side = int(math.sqrt(math.sqrt(max(n_samples_per_image, 1)))
+                       * 3.5)
+            side = max((side + 7) // 8 * 8, 8)
+            res = (min(side, w0), min(side, h0))
+            if res != self._error_map_res or self._error_map is None:
+                self._error_map_res = res
+                self._error_map = torch.zeros(
+                    self.data.n_images, res[0] * res[1], device=self.device)
+
+    def _rebuild_error_cdfs(self) -> None:
+        """The error map -> the CDFs `sample_rays` follows, on the host in
+        float64 (one read of the device): every cell gets a floor of 1e-8,
+        then per row the normalised prefix sum over x, per image the one
+        over the rows' sums, and over the images' sums the image CDF. The
+        map starts again from zero."""
+        self.host_syncs["error_cdfs"] += 1
+        cw, ch = self._error_map_res
+        em = self._error_map.cpu().numpy().reshape(
+            self.data.n_images, ch, cw).astype(np.float64) + 1e-8
+        cdf_x = np.cumsum(em, axis=2)
+        row_sum = cdf_x[:, :, -1:]
+        cdf_x = cdf_x / row_sum
+        cdf_y = np.cumsum(row_sum[:, :, 0], axis=1)
+        img_sum = cdf_y[:, -1:]
+        cdf_y = cdf_y / img_sum
+        cdf_img = np.cumsum(img_sum[:, 0])
+        cdf_img = cdf_img / cdf_img[-1]
+        self._error_cdfs = {
+            k: torch.from_numpy(v.astype(np.float32)).to(self.device)
+            for k, v in (("cdf_x_cond_y", cdf_x), ("cdf_y", cdf_y),
+                         ("cdf_img", cdf_img))}
+        self._error_map = torch.zeros_like(self._error_map)
+
+    def _apply_camera_updates(self) -> None:
+        """Adam on the host over the gradients accumulated since the last
+        update (one read of the device): scaled by n_images / window, plus
+        the L2 terms; the extrinsics' rate decays as 0.33^(t / 128); the
+        exposures are brought back to zero mean."""
+        if self._cam_grad_accum is None and self._exposure_grad_accum is None:
+            return
+        self.host_syncs["camera_updates"] += 1
+        n = max(self.data.n_images, 1)
+        scale = n / float(self.n_steps_between_cam_updates)
+        if self._cam_grad_accum is not None:
+            g = {k: v.cpu().numpy() * scale
+                 for k, v in self._cam_grad_accum.items()}
+            if self.optimize_extrinsics:
+                g["pos"] += self.cam_pos_offset * self.extrinsic_l2_reg
+                g["rot"] += self.cam_rot_offset * self.extrinsic_l2_reg
+                lr = self.extrinsic_learning_rate * math.pow(
+                    0.33, self._cam_pos_adam.t / 128)
+                self._cam_pos_adam.learning_rate = lr
+                self._cam_rot_adam.learning_rate = lr
+                self.cam_pos_offset = self._cam_pos_adam.step(
+                    self.cam_pos_offset, g["pos"])
+                self.cam_rot_offset = self._cam_rot_adam.step(
+                    self.cam_rot_offset, g["rot"])
+            if self.optimize_focal_length:
+                g["focal"] += self.cam_focal_offset * self.intrinsic_l2_reg
+                self.cam_focal_offset = self._focal_adam.step(
+                    self.cam_focal_offset, g["focal"])
+        if self._exposure_grad_accum is not None and self.optimize_exposure:
+            g = self._exposure_grad_accum.cpu().numpy() * scale
+            exposures = self.data.exposures.cpu().numpy()
+            g += exposures * self.exposure_l2_reg
+            new_exp = self._exposure_adam.step(exposures, g)
+            new_exp -= new_exp.mean(0, keepdims=True)
+            self.data.exposures = torch.from_numpy(new_exp).to(self.device)
+        self._cam_grad_accum = None
+        self._exposure_grad_accum = None
+
+    def effective_xform(self, img_idx: int) -> np.ndarray:
+        """A training camera (3, 4) with its optimised offsets applied."""
+        cam = self.data.xforms_start[img_idx].cpu().numpy()
+        if self.optimize_extrinsics:
+            rot = rotvec_to_matrix(self.cam_rot_offset[img_idx])
+            cam = np.concatenate(
+                [rot @ cam[:3, :3],
+                 (cam[:3, 3] + self.cam_pos_offset[img_idx])[:, None]],
+                axis=1).astype(np.float32)
+        return cam
 
     def train(self, n_steps: int) -> float:
         """n_steps full training iterations (prep, step, adapt) -> the
@@ -499,7 +756,8 @@ class NerfTestbed:
             rgb_activation=self.scene.rgb_activation,
             density_activation=self.scene.density_activation,
             min_transmittance=min_transmittance,
-            query_budget=self.render_query_budget)
+            query_budget=self.render_query_budget,
+            stochastic_corners=self.render_stochastic_corners)
         return WavefrontRenderer(self.inference_model, cfg, self.aabb_min,
                                  self.aabb_max)
 
@@ -536,6 +794,10 @@ class NerfTestbed:
         n_pixels = width * height
         acc = torch.zeros(n_pixels, 4, device=self.device)
         self.last_frame_n_samples = 0
+        corner_gen = None
+        if self.render_stochastic_corners:
+            corner_gen = torch.Generator(device=self.device).manual_seed(
+                self.seed ^ 0x7E4D)
         for s in range(spp):
             jitter = None if spp == 1 else ld_pixel_offset(s)
             origins, dirs = camera_rays_for_frame(
@@ -544,7 +806,7 @@ class NerfTestbed:
                 screen_center=screen_center)
             for i in range(0, n_pixels, tile):
                 out = renderer.render(origins[i:i + tile], dirs[i:i + tile],
-                                      self.bitfield, bg)
+                                      self.bitfield, bg, corner_gen)
                 acc[i:i + tile, :3] += out["rgb"]
                 acc[i:i + tile, 3] += out["alpha"]
                 self.last_frame_n_samples += out["n_samples"]
@@ -568,8 +830,8 @@ class NerfTestbed:
         fl = self.data.focal_lengths[img_idx].cpu().numpy() \
             * np.array([width / w0, height / h0], np.float32)
         return self.render_frame(
-            width, height, self.data.xforms_start[img_idx].cpu().numpy(), fl,
-            spp=spp, min_transmittance=min_transmittance,
+            width, height, self.effective_xform(img_idx), fl, spp=spp,
+            min_transmittance=min_transmittance,
             background_color=background_color,
             screen_center=self.data.principal_points[img_idx].tolist())
 
@@ -608,7 +870,6 @@ class NerfTestbed:
         from ..data.snapshot import save_snapshot
 
         self._require_training()
-        n_img = self.data.n_images
         save_snapshot(path, {
             "mode": self.mode.value,
             "config": self.config,
@@ -621,9 +882,9 @@ class NerfTestbed:
             "aabb_scale": self.scene.aabb_scale,
             "dataset_paths": list(self.dataset.paths),
             "camera": {
-                "pos_offset": np.zeros((n_img, 3), np.float32),
-                "rot_offset": np.zeros((n_img, 3), np.float32),
-                "focal_offset": np.zeros(2, np.float32),
+                "pos_offset": self.cam_pos_offset,
+                "rot_offset": self.cam_rot_offset,
+                "focal_offset": self.cam_focal_offset,
                 "exposures": self.data.exposures,
             },
             "extra_dims": None,
@@ -637,3 +898,14 @@ class NerfTestbed:
         self.training_step = int(snapshot.get("training_step", 0))
         self.density_grid_ema_step = int(
             snapshot.get("density_grid_ema_step", 0))
+        cam = snapshot.get("camera")
+        # per-image state is restored only for the same dataset; the host
+        # Adams' moments are not part of the format and start afresh
+        if cam is not None and self.data is not None and \
+                snapshot.get("dataset_paths") == list(self.dataset.paths):
+            self.cam_pos_offset = np.array(cam["pos_offset"], np.float32)
+            self.cam_rot_offset = np.array(cam["rot_offset"], np.float32)
+            self.cam_focal_offset = np.array(cam["focal_offset"],
+                                             np.float32)
+            self.data.exposures = torch.as_tensor(
+                np.array(cam["exposures"], np.float32), device=self.device)

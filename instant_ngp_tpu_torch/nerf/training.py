@@ -18,26 +18,42 @@
 - Background: a random colour per ray (drawn in sRGB, composited in the
   space the network trains in), applied only to rays that composited all
   their samples.
+- Stochastic corners (`cfg.stochastic_corners`): the position encoding
+  runs its stochastic-corner estimator with the step's draws.
+- Camera optimisation (`cfg.optimize_camera` with `cam` offsets): the rays
+  are rebuilt under autograd from the offsets, and the samples' positions
+  and directions recomputed from them at the FIXED distances the march
+  chose; the encode is then the exact one, whatever `stochastic_corners`
+  says, because its estimator passes no gradient to positions. The
+  gradients of the loss with respect to the offsets come back in the stats
+  as "cam_gradient" {"pos", "rot", "focal"}; with `cfg.optimize_exposure`
+  the per-image exposures are a leaf too ("exposure_gradient"). The
+  testbed applies both with Adam on the host.
+- Error map (`cfg.use_error_map` with `error_map`): every ray's loss is
+  deposited bilinearly at its pixel into a coarse per-image map ("error_map"
+  in the stats), from which the testbed rebuilds the CDFs that
+  `sample_rays` follows.
 
-Camera, exposure, extra-dims, envmap and distortion optimisation, depth
-supervision, the error map and stochastic-corner encoding are not ported
-yet: their switches raise.
+Extra-dims, envmap and distortion optimisation and depth supervision are
+not ported yet: their switches raise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..common import NERF_MIN_OPTICAL_THICKNESS
+from ..ops.grid_encoding import CornerDraws
 from ..ops.losses import LossType, loss_and_gradient
 from ..ops.optimizers import Optimizer, tree_leaves, tree_map
 from ..ops.trainer import default_l2_mask
 from .dataset import NerfTrainingData
 from .model import NerfNetwork, network_to_density, network_to_rgb
-from .sampler import (RayBatch, SampleBatch, TrainDraws, compact_samples,
-                      draw_train_randoms, generate_rays, march_rays)
+from .sampler import (RayBatch, SampleBatch, TrainDraws, build_rays,
+                      compact_samples, draw_train_randoms, generate_rays,
+                      march_rays)
 
 EPSILON = 1e-4  # training transmittance cutoff
 
@@ -174,26 +190,21 @@ class NerfTrainStepConfig(NamedTuple):
     random_bg_color: bool = True
     snap_to_pixel_centers: bool = False
     disable_regularizers: bool = False
+    optimize_camera: bool = False      # "cam_gradient" in the stats
+    optimize_exposure: bool = False    # "exposure_gradient" in the stats
+    use_error_map: bool = False        # CDF sampling and the deposit
+    error_map_res: Tuple[int, int] = (0, 0)   # (W_c, H_c) of the error map
+    stochastic_corners: bool = False   # the estimator instead of the exact
+    #                                    encode, unless rays are rebuilt
     # not ported yet: each raises when switched on
     depth_supervision_lambda: float = 0.0
-    optimize_camera: bool = False
-    optimize_exposure: bool = False
     optimize_extra_dims: bool = False
-    use_error_map: bool = False
-    stochastic_corners: bool = False
 
 
 REMAINDER = "ROADMAP queue 1: the training chain's remainder"
 NOT_PORTED = {
     "depth_supervision_lambda": f"depth supervision ({REMAINDER})",
-    "optimize_camera": f"extrinsics and focal-length optimisation with "
-                       f"ops/host_adam.py ({REMAINDER})",
-    "optimize_exposure": f"exposure optimisation with ops/host_adam.py "
-                         f"({REMAINDER})",
     "optimize_extra_dims": f"per-image extra dims ({REMAINDER})",
-    "use_error_map": f"error-map importance sampling ({REMAINDER})",
-    "stochastic_corners": "stochastic-corner grid encoding (ROADMAP queue "
-                          "1: stochastic corners)",
 }
 
 
@@ -203,49 +214,131 @@ def check_ported(cfg: NerfTrainStepConfig) -> None:
             raise NotImplementedError(f"{name}: {what} is not ported yet")
 
 
+def deposit_error_map(error_map: torch.Tensor, rays: RayBatch,
+                      per_ray_loss: torch.Tensor, res: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """error_map (n_images, H_c * W_c) plus each ray's loss, spread
+    bilinearly over the four cells around its pixel (`res` = (W_c, H_c))."""
+    cw, ch = res
+    scale = torch.tensor([cw, ch], dtype=torch.float32,
+                         device=error_map.device)
+    pos = torch.minimum((rays.uv * scale - 0.5).clamp(min=0.0),
+                        scale - 1.001)
+    p0 = pos.to(torch.int32).long()
+    w = pos - p0
+    flat_img = rays.img_idx * (cw * ch)
+    delta = torch.zeros(error_map.numel(), dtype=error_map.dtype,
+                        device=error_map.device)
+    for dx, dy, weight in ((0, 0, (1 - w[:, 0]) * (1 - w[:, 1])),
+                           (1, 0, w[:, 0] * (1 - w[:, 1])),
+                           (0, 1, (1 - w[:, 0]) * w[:, 1]),
+                           (1, 1, w[:, 0] * w[:, 1])):
+        idx = flat_img + (p0[:, 1] + dy) * cw + (p0[:, 0] + dx)
+        delta.index_add_(0, idx, weight * per_ray_loss)
+    return (error_map.reshape(-1) + delta).view_as(error_map)
+
+
+class StepDraws(NamedTuple):
+    """A train step's random numbers: the rays' and, where the encode is
+    the stochastic one, its corners' for the `sample_capacity` samples (or
+    the generator to draw those from when the samples are known)."""
+
+    rays: TrainDraws
+    corners: Union[CornerDraws, torch.Generator, None] = None
+
+
 def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
                     cfg: NerfTrainStepConfig, aabb_min: torch.Tensor,
                     aabb_max: torch.Tensor, opt_state: Dict[str, Any],
                     data: NerfTrainingData, bitfield: torch.Tensor,
                     mean_density: torch.Tensor,
-                    draws: Union[TrainDraws, torch.Generator]
-                    ) -> Dict[str, torch.Tensor]:
+                    draws: Union[StepDraws, TrainDraws, torch.Generator],
+                    cam: Optional[Dict[str, torch.Tensor]] = None,
+                    error_cdfs: Optional[Dict[str, torch.Tensor]] = None,
+                    error_map: Optional[torch.Tensor] = None
+                    ) -> Dict[str, Any]:
     """One training step: updates the model's parameters (which must
     require grad) and `opt_state` in place and returns the step's stats,
     all on the device: "loss", "measured_batch_size",
     "measured_batch_size_before_compaction", "n_rays" and "fused", the
-    four as one float32 vector so that the host reads them in one copy.
+    four as one float32 vector so that the host reads them in one copy;
+    besides, "cam_gradient", "exposure_gradient" and "error_map" where
+    the configuration asks for them (the module docstring says when).
 
-    draws: the step's random numbers, or the generator to draw them
-    from (on the data's device)."""
+    draws: the step's random numbers (a `StepDraws`, or the rays' alone
+    where no corner is sampled), or the generator to draw them all from
+    (on the data's device).
+    cam: the current per-image camera offsets; the rays are built through
+    them whether or not their gradient is taken."""
     check_ported(cfg)
+    use_cdfs = cfg.use_error_map and error_cdfs is not None
+    rebuild = cfg.optimize_camera and cam is not None
+    stochastic = cfg.stochastic_corners and not rebuild
     if isinstance(draws, torch.Generator):
-        draws = draw_train_randoms(draws, cfg.n_rays, data.n_images)
+        draws = StepDraws(draw_train_randoms(draws, cfg.n_rays,
+                                             data.n_images, use_cdfs),
+                          draws)
+    elif isinstance(draws, TrainDraws):
+        draws = StepDraws(draws)
+    ray_draws, corners = draws
+    if stochastic and corners is None:
+        raise ValueError("stochastic_corners needs the corners' draws, or "
+                         "a generator to make them from")
 
     with torch.no_grad():
-        rays, _ = generate_rays(draws, data, aabb_min, aabb_max,
-                                cfg.cone_angle, cfg.lens_mode,
-                                cfg.snap_to_pixel_centers)
+        rays, motionblur_time = generate_rays(
+            ray_draws, data, aabb_min, aabb_max, cfg.cone_angle,
+            cfg.lens_mode, cfg.snap_to_pixel_centers, cam=cam,
+            error_cdfs=error_cdfs if use_cdfs else None)
         ts, dts, emits = march_rays(rays, bitfield, aabb_min, aabb_max,
                                     cfg.cone_angle, cfg.max_mip, cfg.n_march,
                                     cfg.max_samples_per_ray)
         samples = compact_samples(rays, ts, emits, aabb_min, aabb_max,
                                   cfg.sample_capacity, cfg.cone_angle)
-        bg = draws.bg_color if cfg.random_bg_color \
-            else torch.zeros_like(draws.bg_color)
+        bg = ray_draws.bg_color if cfg.random_bg_color \
+            else torch.zeros_like(ray_draws.bg_color)
         bg = _srgb_to_linear(bg)
-        exposure = data.exposures[rays.img_idx]
 
     params = model.param_tree()
     leaves = tree_leaves(params)
+    # the step's own leaves for what the host optimizes
+    aux = {}
+    if rebuild:
+        aux.update({f"cam.{k}": v.detach().clone().requires_grad_(True)
+                    for k, v in cam.items()})
+    if cfg.optimize_exposure:
+        aux["exposure"] = data.exposures.detach().clone().requires_grad_(
+            True)
     with torch.enable_grad():
-        raw = model.apply_components(samples.positions, samples.dirs)
+        if rebuild:
+            # rays again, differentiably in the offsets; the samples stay
+            # at the distances the march chose
+            origins, dirs, _ = build_rays(
+                data, rays.img_idx, rays.uv, motionblur_time, cfg.lens_mode,
+                {k: aux[f"cam.{k}"] for k in cam})
+            d_s = dirs[samples.ray_id]
+            positions = (origins[samples.ray_id]
+                         + samples.t_mid[:, None] * d_s
+                         - aabb_min) / (aabb_max - aabb_min)
+            dirs_warped = (d_s + 1.0) * 0.5
+        else:
+            positions, dirs_warped = samples.positions, samples.dirs
+        encode = {}
+        if stochastic:
+            key = "encode_generator" if isinstance(corners, torch.Generator) \
+                else "encode_draws"
+            encode[key] = corners
+        raw = model.apply_components(positions, dirs_warped, **encode)
+        exposure = aux.get("exposure", data.exposures)[rays.img_idx]
         result = composite_loss(
             raw, samples, ts, dts, rays, bg, exposure, cfg.rgb_activation,
             cfg.density_activation, cfg.loss_type, mean_density,
             cfg.near_distance, cfg.train_in_linear_colors,
             cfg.disable_regularizers)
-        grads = iter(torch.autograd.grad(result.loss_for_grad, leaves))
+        grads = torch.autograd.grad(result.loss_for_grad,
+                                    leaves + list(aux.values()))
+    aux_grads = dict(zip(aux, grads[len(leaves):]))
+    grads = iter(grads[:len(leaves)])
     optimizer.step(opt_state, params, tree_map(lambda _: next(grads), params),
                    l2_mask=default_l2_mask(params))
 
@@ -258,4 +351,12 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
         }
         stats["fused"] = torch.stack([v.to(torch.float32)
                                       for v in stats.values()])
+        if rebuild:
+            stats["cam_gradient"] = {k: aux_grads[f"cam.{k}"] for k in cam}
+        if cfg.optimize_exposure:
+            stats["exposure_gradient"] = aux_grads["exposure"]
+        if cfg.use_error_map and error_map is not None:
+            stats["error_map"] = deposit_error_map(
+                error_map, rays, result.per_ray_loss.detach(),
+                cfg.error_map_res)
     return stats

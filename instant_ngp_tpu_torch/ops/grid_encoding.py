@@ -1,6 +1,6 @@
-"""Multiresolution hash/dense/tiled grid encoding, forward and table
-gradient (counterpart of instant_ngp_tpu/ops/grid_encoding.py, exact
-d-linear path).
+"""Multiresolution hash/dense/tiled grid encoding: the exact d-linear
+encode with both of its gradients, and the stochastic-corner estimator of
+it (counterpart of instant_ngp_tpu/ops/grid_encoding.py).
 
 - L levels; level l has scale s_l = N_min * 2^(l * log2(b)) - 1 and
   resolution r_l = ceil(s_l) + 1.
@@ -22,17 +22,42 @@ each level's indices and d-linear weights and deposits grad * weight into
 the table gradient with `index_add_` (atomic adds on a CUDA device, so the
 summation order varies between runs). Autograd through `table[idx]` would
 instead keep every level's gather alive and sort all indices in
-`index_put_`. The gradient with respect to x is not implemented.
+`index_put_`. Where x requires grad (camera optimisation), the backward
+also returns the hand-derived gradient with respect to x: per corner, the
+feature times d(weight)/dx_k, which is the interpolant's derivative along
+axis k (1, Smoothstep's 6w(1-w), or 0 for Nearest) times the other axes'
+weights times the level's scale.
 
-This is plain PyTorch: one gather per level. Its CUDA kernel, for both
-directions, is the next kernel the port needs (the JAX package has no TPU
-kernel for it).
+The stochastic-corner estimator (`forward(x, draws=...)` or
+`generator=...`; training only) fetches fewer corners per (sample, level).
+Along each axis k the upper corner is taken with probability w_k
+(`u_k < w_k`), so a fully sampled corner with weight 1 is an unbiased
+estimate of the d-linear interpolation. `stochastic_exact_axes` = j keeps
+j axes exact: their two endpoints are both fetched and weighted, 2^j
+fetches instead of 2^d.
+- j = 0: one fetch at the sampled corner, weight 1;
+- j = 1: a uniformly drawn axis a is exact, the others sampled;
+- j = 2 (3D): a is the sampled axis, the other two are exact; the
+  enumeration's low bit goes to the axis after a in cyclic order, the high
+  bit to the one after that.
+Its backward gives the table gradient only (the gradient with respect to x
+is zero by design: callers that need it use the exact path). With
+`stochastic_bwd` and j > 0 the deposit goes to ONE corner, the fully
+sampled one, with weight 1, which is unbiased too; otherwise to every
+corner the forward fetched, with its weight. The Function saves x and the
+draws and recomputes the indices.
+
+This is plain PyTorch: one gather per level and fetched corner. The CUDA
+kernel for the three variants (exact with both gradients, the j-axis
+stochastic forward, the one-corner deposit) is the next kernel the port
+needs (the JAX package has no TPU kernel for it).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,14 +88,47 @@ def convert_layout(params, n_features: int, src: str, dst: str):
     raise ValueError(f"unknown grid layouts {src!r} -> {dst!r}")
 
 
+@dataclasses.dataclass
+class CornerDraws:
+    """The random numbers of one stochastic-corner encode of N points over
+    L levels."""
+
+    u: torch.Tensor                 # (d, N, L) float32 uniforms in [0, 1)
+    axis: Optional[torch.Tensor]    # (N, L) integer in [0, d); unused, and
+    #                                 may be None, at exact_axes = 0
+
+    def rows(self, lo: int, hi: int) -> "CornerDraws":
+        """The draws of points lo..hi."""
+        return CornerDraws(self.u[:, lo:hi], None if self.axis is None
+                           else self.axis[lo:hi])
+
+
+def draw_corner_randoms(generator: torch.Generator, n: int, n_dims: int,
+                        n_levels: int, exact_axes: int = 1) -> CornerDraws:
+    """Draws for n points on the generator's device."""
+    dev = generator.device
+    u = torch.rand(n_dims, n, n_levels, generator=generator, device=dev)
+    axis = None
+    if exact_axes > 0:
+        axis = torch.randint(0, n_dims, (n, n_levels), generator=generator,
+                             device=dev)
+    return CornerDraws(u, axis)
+
+
 class GridEncoding(nn.Module):
     """Grid encoding whose table is the flat float32 parameter `params`
-    (interleaved layout)."""
+    (interleaved layout).
+
+    stochastic_exact_axes, stochastic_bwd: the defaults of the
+    stochastic-corner estimator (see the module docstring); they change
+    nothing unless `forward` is given draws or a generator."""
 
     def __init__(self, n_dims: int, n_levels: int = 16,
                  n_features_per_level: int = 2, log2_hashmap_size: int = 19,
                  base_resolution: int = 16, per_level_scale: float = 2.0,
-                 grid_type: str = "Hash", interpolation: str = "Linear"):
+                 grid_type: str = "Hash", interpolation: str = "Linear",
+                 stochastic_exact_axes: int = 0,
+                 stochastic_bwd: bool = False):
         super().__init__()
         if n_dims not in (2, 3):
             raise ValueError("grid encoding supports 2D and 3D inputs")
@@ -84,6 +142,8 @@ class GridEncoding(nn.Module):
         self.grid_type = grid_type
         self.interpolation = interpolation
         self.n_output_dims = n_levels * n_features_per_level
+        self.stochastic_exact_axes = int(stochastic_exact_axes)
+        self.stochastic_bwd = bool(stochastic_bwd)
 
         log2_pls = math.log2(per_level_scale)
         hashmap_size = 1 << log2_hashmap_size
@@ -134,7 +194,10 @@ class GridEncoding(nn.Module):
                    log2_hashmap_size=config.get("log2_hashmap_size", 19),
                    base_resolution=base_res, per_level_scale=pls,
                    grid_type=gtype,
-                   interpolation=config.get("interpolation", "Linear"))
+                   interpolation=config.get("interpolation", "Linear"),
+                   stochastic_exact_axes=config.get("stochastic_exact_axes",
+                                                    0),
+                   stochastic_bwd=config.get("stochastic_bwd", False))
 
     @property
     def n_params(self) -> int:
@@ -146,19 +209,25 @@ class GridEncoding(nn.Module):
         with torch.no_grad():
             self.params.copy_(p)
 
-    def _level_corners(self, x: torch.Tensor, lvl: int):
-        """Table rows and d-linear weights of the 2^d corners around each
-        point at one level -> (idx (N, C) int64, weight (N, C))."""
-        scale, res, size, offset, hashed = self.levels[lvl]
-        corners = self.corners                                   # (C, d)
-        pos = x * scale + 0.5
+    def _level_weights(self, x: torch.Tensor, lvl: int):
+        """-> (pos0 (N, d) int64 lower corner, w (N, d) weight of the upper
+        corner along each axis, dw (N, d) = dw/dpos)."""
+        pos = x * self.levels[lvl][0] + 0.5
         pos0 = torch.floor(pos)
         w = pos - pos0
         if self.interpolation == "Smoothstep":
+            dw = 6.0 * w * (1.0 - w)
             w = w * w * (3.0 - 2.0 * w)
         elif self.interpolation == "Nearest":
+            dw = torch.zeros_like(w)
             w = torch.round(w)
-        coords = pos0.long()[:, None, :] + corners[None]         # (N, C, d)
+        else:
+            dw = torch.ones_like(w)
+        return pos0.long(), w, dw
+
+    def _index(self, coords: torch.Tensor, lvl: int) -> torch.Tensor:
+        """Integer grid coordinates (..., d) -> table rows (...)."""
+        _, res, size, offset, hashed = self.levels[lvl]
         if hashed:
             # uint32 wraparound: the low 32 bits of the int64 product
             # (|coord| < 2^31, so the product itself cannot overflow)
@@ -175,13 +244,29 @@ class GridEncoding(nn.Module):
             for k in range(1, self.n_dims):
                 stride *= res
                 idx = idx + coords[..., k] * stride
-        idx = idx % size + offset
+        return idx % size + offset
+
+    def _level_corners(self, x: torch.Tensor, lvl: int, parts: bool = False):
+        """Table rows and d-linear weights of the 2^d corners around each
+        point at one level -> (idx (N, C) int64, weight (N, C)); with
+        `parts` also the per-axis corner-selected weights w_sel (N, C, d)
+        and their derivatives with respect to x (N, C, d)."""
+        pos0, w, dw = self._level_weights(x, lvl)
+        corners = self.corners                                   # (C, d)
+        idx = self._index(pos0[:, None, :] + corners[None], lvl)
         sel = corners[None] == 1                                 # (1, C, d)
         w_sel = torch.where(sel, w[:, None, :], 1.0 - w[:, None, :])
         weight = w_sel[..., 0]
         for k in range(1, self.n_dims):
             weight = weight * w_sel[..., k]
-        return idx, weight
+        if not parts:
+            return idx, weight
+        dw_sel = torch.where(sel, dw[:, None, :], -dw[:, None, :]) \
+            * self.levels[lvl][0]
+        return idx, weight, w_sel, dw_sel
+
+    def _masked(self, max_level: Optional[float], lvl: int) -> bool:
+        return max_level is not None and not max_level >= lvl
 
     def _encode(self, params: torch.Tensor, x: torch.Tensor,
                 max_level: Optional[float]) -> torch.Tensor:
@@ -189,7 +274,7 @@ class GridEncoding(nn.Module):
         outs = []
         for lvl in range(self.n_levels):
             idx, weight = self._level_corners(x, lvl)
-            if max_level is not None and not max_level >= lvl:
+            if self._masked(max_level, lvl):
                 weight = torch.zeros_like(weight)
             feats = table[idx]                                   # (N, C, F)
             outs.append((feats * weight[..., None]).sum(dim=1))
@@ -202,7 +287,7 @@ class GridEncoding(nn.Module):
         grad = torch.zeros(self.n_entries, n_feat, dtype=grad_out.dtype,
                            device=grad_out.device)
         for lvl in range(self.n_levels):
-            if max_level is not None and not max_level >= lvl:
+            if self._masked(max_level, lvl):
                 continue       # the forward zeroed this level's features
             idx, weight = self._level_corners(x, lvl)
             g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]     # (N, F)
@@ -211,33 +296,179 @@ class GridEncoding(nn.Module):
                             deposit.reshape(-1, n_feat))
         return grad.view(-1)
 
-    def forward(self, x: torch.Tensor,
-                max_level: Optional[float] = None) -> torch.Tensor:
-        """x (N, d) in [0,1]^d -> (N, L*F) float32 features."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "the grid encoding's gradient with respect to its input is "
-                "not ported yet (camera optimisation and the Normals mode "
-                "need it)")
+    def _input_gradient(self, params: torch.Tensor, x: torch.Tensor,
+                        grad_out: torch.Tensor, max_level: Optional[float]
+                        ) -> torch.Tensor:
+        """d(loss)/d(x) (N, d) of the exact encode from grad_out (N, L*F):
+        sum over levels and corners of (grad . feature) * d(weight)/dx_k,
+        with d(weight)/dx_k = dw_sel_k * prod of the other axes' w_sel."""
+        n_feat = self.n_features_per_level
+        table = params.view(-1, n_feat)
+        grad = torch.zeros_like(x)
+        for lvl in range(self.n_levels):
+            if self._masked(max_level, lvl):
+                continue
+            idx, _, w_sel, dw_sel = self._level_corners(x, lvl, parts=True)
+            g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]
+            dweight = (table[idx] * g[:, None, :]).sum(dim=-1)   # (N, C)
+            for k in range(self.n_dims):
+                term = dweight * dw_sel[..., k]
+                for j in range(self.n_dims):
+                    if j != k:
+                        term = term * w_sel[..., j]
+                grad[:, k] += term.sum(dim=1)
+        return grad
+
+    # ---- the stochastic-corner estimator --------------------------------
+    def _stochastic_corners(self, x: torch.Tensor, lvl: int,
+                            draws: CornerDraws, j: int,
+                            sampled_only: bool = False
+                            ) -> List[Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]]:
+        """One level's corners as (rows (N,), weight (N,) or None for 1):
+        the 2^j corners the forward fetches, or with `sampled_only` the
+        fully sampled corner alone (which is all there is at j = 0)."""
+        d = self.n_dims
+        pos0, w, _ = self._level_weights(x, lvl)
+        bern = (draws.u[:, :, lvl].T < w).long()                 # (N, d)
+        if j == 0 or sampled_only:
+            return [(self._index(pos0 + bern, lvl), None)]
+        axes = torch.arange(d, device=x.device)[None, :]         # (1, d)
+        a = draws.axis[:, lvl].long()[:, None]                   # (N, 1)
+        if j == 1:
+            exact = axes == a
+            low = exact                # the one exact axis takes bit 0
+        else:
+            exact = axes != a
+            # enumeration bits go to the exact axes in cyclic order after
+            # the sampled axis a: bit 0 to axis a + 1, bit 1 to axis a + 2
+            low = torch.remainder(axes - a - 1, d) == 0
+        pairs = []
+        for combo in range(1 << j):
+            e_bit = torch.where(low, combo & 1, (combo >> 1) & 1)
+            bits = torch.where(exact, e_bit, bern)
+            w_k = torch.where(exact, torch.where(e_bit == 1, w, 1.0 - w),
+                              1.0)
+            weight = w_k[:, 0]
+            for k in range(1, d):
+                weight = weight * w_k[:, k]
+            pairs.append((self._index(pos0 + bits, lvl), weight))
+        return pairs
+
+    def _encode_stochastic(self, params: torch.Tensor, x: torch.Tensor,
+                           max_level: Optional[float], draws: CornerDraws,
+                           j: int) -> torch.Tensor:
+        table = params.view(-1, self.n_features_per_level)
+        outs = []
+        for lvl in range(self.n_levels):
+            if self._masked(max_level, lvl):
+                outs.append(torch.zeros(x.shape[0],
+                                        self.n_features_per_level,
+                                        dtype=params.dtype, device=x.device))
+                continue
+            out = None
+            for idx, weight in self._stochastic_corners(x, lvl, draws, j):
+                # (N, F) at a time
+                feats = table[idx]
+                if weight is not None:
+                    feats = feats * weight[:, None]
+                out = feats if out is None else out + feats
+            outs.append(out)
+        return torch.cat(outs, dim=-1)
+
+    def _table_gradient_stochastic(self, x: torch.Tensor,
+                                   grad_out: torch.Tensor,
+                                   max_level: Optional[float],
+                                   draws: CornerDraws, j: int
+                                   ) -> torch.Tensor:
+        n_feat = self.n_features_per_level
+        grad = torch.zeros(self.n_entries, n_feat, dtype=grad_out.dtype,
+                           device=grad_out.device)
+        for lvl in range(self.n_levels):
+            if self._masked(max_level, lvl):
+                continue
+            g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]
+            for idx, weight in self._stochastic_corners(
+                    x, lvl, draws, j, sampled_only=self.stochastic_bwd):
+                grad.index_add_(0, idx, g if weight is None
+                                else g * weight[:, None])
+        return grad.view(-1)
+
+    def forward(self, x: torch.Tensor, max_level: Optional[float] = None,
+                draws: Optional[CornerDraws] = None,
+                generator: Optional[torch.Generator] = None,
+                exact_axes: Optional[int] = None) -> torch.Tensor:
+        """x (N, d) in [0,1]^d -> (N, L*F) float32 features.
+
+        With `draws`, or a `generator` to make them from, the
+        stochastic-corner estimator with `exact_axes` exact axes (default:
+        the configuration's `stochastic_exact_axes`); with neither, the
+        exact d-linear encode."""
         x = x.reshape(-1, self.n_dims).float()
-        if torch.is_grad_enabled() and self.params.requires_grad:
-            return _GridEncode.apply(self.params, x, self, max_level)
-        return self._encode(self.params, x, max_level)
+        train = torch.is_grad_enabled() and self.params.requires_grad
+        if draws is None and generator is None:
+            if train or (torch.is_grad_enabled() and x.requires_grad):
+                return _GridEncode.apply(self.params, x, self, max_level)
+            return self._encode(self.params, x, max_level)
+        j = self.stochastic_exact_axes if exact_axes is None \
+            else int(exact_axes)
+        if not 0 <= j < self.n_dims:
+            raise ValueError(f"exact_axes must be in [0, {self.n_dims}), "
+                             f"got {j}")
+        if draws is None:
+            draws = draw_corner_randoms(generator, x.shape[0], self.n_dims,
+                                        self.n_levels, j)
+        if train:
+            return _StochasticGridEncode.apply(self.params, x, self,
+                                               max_level, draws, j)
+        # no gradient reaches x on this path either
+        return self._encode_stochastic(self.params, x.detach(), max_level,
+                                       draws, j)
 
 
 class _GridEncode(torch.autograd.Function):
-    """The encode with a hand-written table gradient; saves x only."""
+    """The exact encode with hand-written gradients; saves x only, and the
+    table besides when x wants a gradient."""
 
     @staticmethod
     def forward(ctx, params, x, encoding, max_level):
-        ctx.save_for_backward(x)
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x, params)
+        else:
+            ctx.save_for_backward(x)
         ctx.encoding = encoding
         ctx.max_level = max_level
         return encoding._encode(params, x, max_level)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (x,) = ctx.saved_tensors
-        grad = ctx.encoding._table_gradient(x, grad_out.contiguous(),
-                                            ctx.max_level)
-        return grad, None, None, None
+        x = ctx.saved_tensors[0]
+        grad_out = grad_out.contiguous()
+        grad = grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad = ctx.encoding._table_gradient(x, grad_out, ctx.max_level)
+        if ctx.needs_input_grad[1]:
+            grad_x = ctx.encoding._input_gradient(
+                ctx.saved_tensors[1], x, grad_out, ctx.max_level)
+        return grad, grad_x, None, None
+
+
+class _StochasticGridEncode(torch.autograd.Function):
+    """The stochastic-corner encode: table gradient only (zero for x);
+    saves x and the draws."""
+
+    @staticmethod
+    def forward(ctx, params, x, encoding, max_level, draws, j):
+        saved = [x, draws.u] + ([] if draws.axis is None else [draws.axis])
+        ctx.save_for_backward(*saved)
+        ctx.encoding, ctx.max_level, ctx.j = encoding, max_level, j
+        return encoding._encode_stochastic(params, x, max_level, draws, j)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, u, *axis = ctx.saved_tensors
+        draws = CornerDraws(u, axis[0] if axis else None)
+        grad = ctx.encoding._table_gradient_stochastic(
+            x, grad_out.contiguous(), ctx.max_level, draws, ctx.j)
+        grad_x = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        return grad, grad_x, None, None, None, None

@@ -1,13 +1,19 @@
-"""The table gradient of the port's GridEncoding (its hand-written
+"""The gradients of the port's exact GridEncoding (its hand-written
 `torch.autograd.Function` backward) against `jax.grad` of the JAX
 package's GridEncoding.apply, and against PyTorch's autograd through the
 plain forward (`table[idx]`), on the same seeded table, points and
-cotangent: Hash, Dense and Tiled grids x Linear and Smoothstep, with and
-without `max_level`.
+cotangent: Hash, Dense and Tiled grids x Linear and Smoothstep (and, for
+the input gradient, Nearest), with and without `max_level`.
 
-All three accumulate the same float32 deposits into each table entry in a
-different order; with up to a few hundred deposits of order 1 per entry,
-rtol 1e-5 / atol 1e-5."""
+Table gradient: all three accumulate the same float32 deposits into each
+table entry in a different order; with up to a few hundred deposits of
+order 1 per entry, rtol 1e-5 / atol 1e-5.
+
+Input gradient: per point a sum over levels and corners of products of
+order scale (up to 31 here) x feature x weight, in float32 on both sides:
+rtol 1e-4 of the gradient's own scale against `jax.grad`; the same formula
+evaluated in float64 agrees with float64 autograd through the plain
+forward to 1e-9."""
 
 import jax
 import jax.numpy as jnp
@@ -78,14 +84,79 @@ def test_forward_value_is_the_same_under_grad():
         assert enc(xt).grad_fn is None
 
 
-def test_input_gradient_raises():
-    _, enc, _, x, _ = _case("Hash", "Linear")
+def _points_off_the_cell_faces(enc, x, margin=1e-3):
+    """Drop points within `margin` of a cell face at some level: there the
+    interpolant has a kink (Linear) and the two sides may land in
+    different cells."""
+    frac = np.stack([np.mod(x * np.float32(s) + 0.5, 1.0)
+                     for s, *_ in enc.levels])
+    return x[((frac > margin) & (frac < 1 - margin)).all(axis=(0, 2))]
+
+
+@pytest.mark.parametrize("max_level", [None, 1])
+@pytest.mark.parametrize("interpolation", ["Linear", "Smoothstep",
+                                           "Nearest"])
+@pytest.mark.parametrize("grid_type", ["Hash", "Dense", "Tiled"])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_input_gradient_matches_jax_and_float64_autograd(
+        n_dims, grid_type, interpolation, max_level):
+    jax_enc, enc, table, x, cot = _case(grid_type, interpolation, n_dims)
+    x = _points_off_the_cell_faces(enc, x)
+    cot = cot[:len(x)]
+    assert len(x) > 300
+    ref = np.asarray(jax.grad(lambda p: jnp.sum(
+        jax_enc.apply(jnp.asarray(table), p, max_level=max_level)
+        * jnp.asarray(cot)))(jnp.asarray(x)))
+
     enc.params.requires_grad_(True)
     xt = torch.from_numpy(x).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="input"):
-        enc(xt)
-    with torch.no_grad():          # no gradient asked for: fine
-        enc(xt)
+    ct = torch.from_numpy(cot)
+    out = enc(xt, max_level=max_level)
+    g_table, g_x = torch.autograd.grad((out * ct).sum(), (enc.params, xt))
+    assert g_x.shape == xt.shape
+    scale = np.abs(ref).max()
+    if interpolation == "Nearest":
+        assert scale == 0 and (g_x == 0).all()
+    else:
+        assert scale > 1.0
+        np.testing.assert_allclose(g_x.numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * scale)
+    # the table gradient is what it is without the input gradient
+    (alone,) = torch.autograd.grad(
+        (enc(xt.detach(), max_level=max_level) * ct).sum(), enc.params)
+    assert torch.equal(alone, g_table)
+    # a frozen table: the input gradient alone, the same
+    enc.params.requires_grad_(False)
+    (g_x2,) = torch.autograd.grad((enc(xt, max_level=max_level) * ct).sum(),
+                                  xt)
+    assert torch.equal(g_x2, g_x)
+
+    # the formula in float64 against float64 autograd through table[idx]
+    p64 = enc.params.detach().double()
+    x64 = xt.detach().double().requires_grad_(True)
+    (auto,) = torch.autograd.grad(
+        (enc._encode(p64, x64, max_level) * ct.double()).sum(), x64)
+    hand = enc._input_gradient(p64, x64.detach(), ct.double(), max_level)
+    np.testing.assert_allclose(hand.numpy(), auto.numpy(), rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_allclose(g_x.numpy(), auto.numpy(), rtol=1e-4,
+                               atol=1e-4 * max(scale, 1e-30))
+
+
+def test_input_gradient_raises():
+    """It no longer does: a point that requires grad gets its gradient, a
+    finite one at the edges of the domain too, and none is computed where
+    none is asked for."""
+    _, enc, _, x, _ = _case("Hash", "Linear")
+    enc.params.requires_grad_(True)
+    x[:4] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-0.05, 0.5, 1.05],
+             [0.5, 0.5, 0.5]]
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = enc(xt)
+    (g,) = torch.autograd.grad(out.sum(), xt)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    with torch.no_grad():          # no gradient asked for: a plain call
+        assert enc(xt).grad_fn is None
 
 
 def test_backward_saves_the_points_only():
@@ -96,3 +167,8 @@ def test_backward_saves_the_points_only():
     out = enc(xt)
     saved = out.grad_fn.saved_tensors
     assert len(saved) == 1 and saved[0].shape == xt.shape
+    # with an input gradient it keeps the table too, still no gather
+    out = enc(xt.clone().requires_grad_(True))
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [tuple(xt.shape),
+                                               (enc.n_params,)]

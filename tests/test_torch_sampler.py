@@ -60,18 +60,47 @@ def _t(a, dtype=None):
         else torch.from_numpy(np.array(a))
 
 
-def jax_train_draws(key, n_rays: int, n_images: int) -> TrainDraws:
-    """The numbers nerf_train_step(key) draws, by its own key splits."""
+def jax_train_draws(key, n_rays: int, n_images: int,
+                    with_cdf: bool = False) -> TrainDraws:
+    """The numbers nerf_train_step(key) draws for its rays, by its own key
+    splits; `with_cdf`: those of sample_rays' error-CDF branch."""
     k_rays, k_bg, _ = jax.random.split(key, 3)
     k_pick, k_t = jax.random.split(k_rays)
-    k_img, k_uv, k_mb, _ = jax.random.split(k_pick, 4)
-    return TrainDraws(
-        img_idx=_t(jax.random.randint(k_img, (n_rays,), 0, n_images),
-                   torch.long),
-        uv=_t(jax.random.uniform(k_uv, (n_rays, 2))),
+    k_img, k_uv, k_mb, k_mix = jax.random.split(k_pick, 4)
+    common = dict(
         motionblur_time=_t(jax.random.uniform(k_mb, (n_rays,))),
         start_jitter=_t(jax.random.uniform(k_t, (n_rays,))),
         bg_color=_t(jax.random.uniform(k_bg, (n_rays, 3))))
+    if with_cdf:
+        return TrainDraws(
+            img_idx=None, uv=None,
+            u_img=_t(jax.random.uniform(k_img, (n_rays,))),
+            use_cdf=_t(jax.random.uniform(k_mix, (n_rays,)) >= 0.5),
+            u2=_t(jax.random.uniform(k_uv, (n_rays, 2))),
+            u_mix=_t(jax.random.uniform(jax.random.fold_in(k_mix, 1),
+                                        (n_rays, 2))),
+            jitter=_t(jax.random.uniform(jax.random.fold_in(k_uv, 1),
+                                         (n_rays, 2))), **common)
+    return TrainDraws(
+        img_idx=_t(jax.random.randint(k_img, (n_rays,), 0, n_images),
+                   torch.long),
+        uv=_t(jax.random.uniform(k_uv, (n_rays, 2))), **common)
+
+
+def jax_error_cdfs(error_map: np.ndarray, res):
+    """The CDFs the JAX testbed's `_rebuild_error_cdfs` makes of an error
+    map (n_images, H_c * W_c) with `res` = (W_c, H_c): run on a stand-in
+    that carries just the attributes it reads -> (jax dict, port dict)."""
+    import types
+
+    from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed as JaxTestbed
+
+    holder = types.SimpleNamespace(
+        _error_map_res=res, _error_map=jnp.asarray(error_map),
+        data=types.SimpleNamespace(n_images=error_map.shape[0]))
+    JaxTestbed._rebuild_error_cdfs(holder)
+    return holder._error_cdfs, {k: _t(v)
+                                for k, v in holder._error_cdfs.items()}
 
 
 def jax_cell_draws(key, n_uniform: int, n_nonuniform: int, n_cascades: int
@@ -302,11 +331,164 @@ def test_mark_untrained_and_visible_cells_match_jax(datasets):
                                              jnp.asarray(ref))))
 
 
+def _error_map(rng, n_images, res, flat_images=()):
+    cw, ch = res
+    em = rng.uniform(0.0, 1.0, (n_images, ch * cw)).astype(np.float32) ** 4
+    em[:, 5::7] = 0.0              # cells at the floor among large ones:
+    #                                their float32 CDF steps are ties
+    em[:, 3 * cw:5 * cw] = 0.0     # and two rows of them
+    for i in flat_images:
+        em[i] = 0.0                # a whole image at the floor
+    return em
+
+
+@pytest.mark.parametrize("snap", [False, True], ids=["free", "snapped"])
+def test_sample_rays_cdf_branch_matches_jax(datasets, snap):
+    """Error-map importance sampling, exactly: image, row and column by
+    `searchsorted` (the first entry not below the lookup) on float32 CDFs
+    that have ties where the map is at its floor."""
+    _, jdata, _, data = datasets
+    n_rays, res = 4096, (16, 8)
+    em = _error_map(np.random.default_rng(21), 4, res, flat_images=(2,))
+    jcdfs, cdfs = jax_error_cdfs(em, res)
+    assert cdfs["cdf_x_cond_y"].shape == (4, 8, 16)
+    assert cdfs["cdf_y"].shape == (4, 8) and cdfs["cdf_img"].shape == (4,)
+    assert (np.diff(cdfs["cdf_x_cond_y"].numpy(), axis=2) == 0).any()
+    key = jax.random.PRNGKey(5)
+    k_pick = jax.random.split(jax.random.split(key, 3)[0])[0]
+    ref_img, ref_uv, ref_mb = jsampler.sample_rays(
+        k_pick, jdata, n_rays, snap, jcdfs)
+    draws = jax_train_draws(key, n_rays, 4, with_cdf=True)
+    img, uv, mb = sampler.sample_rays(draws, data, snap, cdfs)
+    np.testing.assert_array_equal(img.numpy(), np.asarray(ref_img))
+    np.testing.assert_array_equal(mb.numpy(), np.asarray(ref_mb))
+    np.testing.assert_allclose(uv.numpy(), np.asarray(ref_uv), rtol=1e-6,
+                               atol=1e-7)
+    # both halves of both mixes were taken, and the map shows in the pick:
+    # image 2 (all floor) gets about half of a uniform share
+    assert 0.3 < draws.use_cdf.float().mean() < 0.7
+    assert 0.3 < (draws.u_mix < 0.5).float().mean() < 0.7
+    share = np.bincount(img.numpy(), minlength=4) / n_rays
+    assert 0.09 < share[2] < 0.16 and share[[0, 1, 3]].min() > 0.25
+    # the whole ray generation with CDFs
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    jrays, _ = jsampler.generate_rays(
+        jax.random.split(key, 3)[0], jdata, n_rays, jnp.asarray(lo),
+        jnp.asarray(hi), 0.0, 0, snap, error_cdfs=jcdfs)
+    rays, _ = sampler.generate_rays(draws, data, _t(lo), _t(hi), 0.0, 0,
+                                    snap, error_cdfs=cdfs)
+    np.testing.assert_array_equal(rays.valid.numpy(),
+                                  np.asarray(jrays.valid))
+    for f in ("origins", "dirs", "t_start", "uv", "rgba"):
+        np.testing.assert_allclose(getattr(rays, f).numpy(),
+                                   np.asarray(getattr(jrays, f)),
+                                   err_msg=f, **FLOAT_TOL)
+
+
+def test_draw_train_randoms_with_cdf_fields():
+    gen = torch.Generator().manual_seed(3)
+    plain = sampler.draw_train_randoms(gen, 64, 4)
+    assert plain.u_img is None and plain.img_idx.shape == (64,)
+    d = sampler.draw_train_randoms(gen, 64, 4, with_cdf=True)
+    assert d.img_idx is None and d.uv is None
+    assert d.use_cdf.dtype == torch.bool
+    for f, shape in (("u_img", (64,)), ("u2", (64, 2)), ("u_mix", (64, 2)),
+                     ("jitter", (64, 2)), ("bg_color", (64, 3))):
+        v = getattr(d, f)
+        assert v.shape == shape and 0 <= v.min() and v.max() < 1
+    assert d.to("cpu").u2.shape == (64, 2)
+
+
+def test_rotvec_matrix_value_and_gradient_match_jax():
+    """At zero (where camera offsets start), just around the Taylor
+    switch, and away from it."""
+    rng = np.random.default_rng(4)
+    r = rng.normal(size=(40, 3)).astype(np.float32)
+    r[:5] = 0.0
+    r[5:10] *= 1e-5                       # below t^2 = 1e-8
+    r[10:15] *= 2e-4                      # just above
+    cot = rng.normal(size=(40, 3, 3)).astype(np.float32)
+    ref = np.asarray(jsampler.rotvec_matrix(jnp.asarray(r)))
+    ref_g = np.asarray(jax.grad(lambda v: jnp.sum(
+        jsampler.rotvec_matrix(v) * jnp.asarray(cot)))(jnp.asarray(r)))
+    rt = _t(r).requires_grad_(True)
+    out = sampler.rotvec_matrix(rt)
+    (g,) = torch.autograd.grad((out * _t(cot)).sum(), rt)
+    assert torch.isfinite(g).all() and g[:5].abs().max() > 0.1
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-6,
+                               atol=1e-7)
+    # just above the switch (1 - cos t) / t^2 cancels in float32 on either
+    # side: those rows' gradients to 1e-3, the others' to 1e-5
+    near = np.zeros(40, bool)
+    near[10:15] = True
+    np.testing.assert_allclose(g.numpy()[~near], ref_g[~near], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(g.numpy()[near], ref_g[near], rtol=1e-3,
+                               atol=1e-3)
+    # a rotation: orthonormal, and the Rodrigues matrix of the host side
+    from instant_ngp_tpu_torch.ops.host_adam import rotvec_to_matrix
+    np.testing.assert_allclose(out.detach().numpy()[15:],
+                               rotvec_to_matrix(r[15:]), rtol=1e-5,
+                               atol=1e-6)
+    eye = out.detach() @ out.detach().transpose(-1, -2)
+    np.testing.assert_allclose(eye.numpy(), np.broadcast_to(np.eye(3),
+                                                            eye.shape),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("at_zero", [True, False], ids=["zero", "offset"])
+def test_build_rays_with_camera_offsets_matches_jax(datasets, at_zero):
+    """Origins and directions through the offsets, and the gradients of a
+    linear functional of them with respect to pos, rot and focal."""
+    _, jdata, _, data = datasets
+    n = 300
+    rng = np.random.default_rng(8)
+    img = rng.integers(0, 4, n)
+    uv = rng.uniform(size=(n, 2)).astype(np.float32)
+    mb = rng.uniform(size=n).astype(np.float32)
+    c_o, c_d = (rng.normal(size=(n, 3)).astype(np.float32) for _ in "od")
+    scale = 0.0 if at_zero else 1.0
+    cam = {"pos": scale * rng.normal(0, 0.05, (4, 3)).astype(np.float32),
+           "rot": scale * rng.normal(0, 0.1, (4, 3)).astype(np.float32),
+           "focal": scale * rng.normal(0, 0.05, 2).astype(np.float32)}
+
+    def jax_f(c):
+        o, d, _ = jsampler.build_rays(jdata, jnp.asarray(img),
+                                      jnp.asarray(uv), jnp.asarray(mb), 0, c)
+        return jnp.sum(o * jnp.asarray(c_o) + d * jnp.asarray(c_d)), (o, d)
+
+    (_, (ref_o, ref_d)), ref_g = jax.value_and_grad(jax_f, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in cam.items()})
+    cam_t = {k: _t(v).requires_grad_(True) for k, v in cam.items()}
+    o, d, ok = sampler.build_rays(data, _t(img), _t(uv), _t(mb), 0, cam_t)
+    g = torch.autograd.grad((o * _t(c_o) + d * _t(c_d)).sum(),
+                            list(cam_t.values()))
+    assert ok.all()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o),
+                               **FLOAT_TOL)
+    np.testing.assert_allclose(d.detach().numpy(), np.asarray(ref_d),
+                               **FLOAT_TOL)
+    for (k, ours) in zip(cam_t, g):
+        ref = np.asarray(ref_g[k])
+        assert np.abs(ref).max() > 0.1, k
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    if at_zero:      # zero offsets are no offsets
+        o0, d0, _ = sampler.build_rays(data, _t(img), _t(uv), _t(mb), 0)
+        np.testing.assert_allclose(o.detach().numpy(), o0.numpy(), atol=1e-7)
+        np.testing.assert_allclose(d.detach().numpy(), d0.numpy(), atol=1e-6)
+
+
 def test_error_map_and_camera_offsets_raise(datasets):
+    """They no longer raise: what is left to raise on this path is a lens
+    other than the pinhole, with or without offsets."""
     _, _, _, data = datasets
     draws = jax_train_draws(jax.random.PRNGKey(0), 8, 4)
-    with pytest.raises(NotImplementedError, match="error-map"):
-        sampler.sample_rays(draws, data, error_cdfs={"cdf_img": None})
-    with pytest.raises(NotImplementedError, match="camera offsets"):
+    cam = {"pos": torch.zeros(4, 3), "rot": torch.zeros(4, 3),
+           "focal": torch.zeros(2)}
+    o, d, ok = sampler.build_rays(data, draws.img_idx, draws.uv,
+                                  draws.motionblur_time, 0, cam=cam)
+    assert o.shape == d.shape == (8, 3) and ok.all()
+    with pytest.raises(NotImplementedError, match="lens mode"):
         sampler.build_rays(data, draws.img_idx, draws.uv,
-                           draws.motionblur_time, 0, cam={"pos": None})
+                           draws.motionblur_time, 1, cam=cam)

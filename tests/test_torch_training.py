@@ -2,11 +2,15 @@
 synthetic dataset of tests/test_nerf_training.py (4 cameras of 32x32, L=4
 hash grid with 2^12 entries, 32-wide MLPs, 256-1024 rays).
 
-The JAX testbed runs with `stochastic_corners = False` (the port's default
-until that estimator is ported), without error-map sampling and through
-its eager loop (`steps_per_dispatch = 1`). Where JAX draws random numbers
-the port is fed the same draws (tests/test_torch_sampler.py makes them
-from the step's own key splits).
+Both testbeds run with the JAX testbed's defaults unless a test says
+otherwise: the stochastic-corner encode with base.json's keys (one exact
+axis, one-corner backward) and error-map sampling; the cases named "exact"
+switch both off on both sides. The JAX testbed runs its eager loop
+(`steps_per_dispatch = 1`). Where JAX draws random numbers the port is
+fed the same draws (tests/test_torch_sampler.py and
+tests/test_torch_grid_stochastic.py make them from the step's own key
+splits), the sampled corners included, so a step is compared value for
+value and not in expectation.
 
 Tolerances, by what differs between the two sides:
 - the composite alone (same raw inputs): summation order and ulps of
@@ -38,6 +42,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_gradient_parity import (identity_samples, make_case,  # noqa: E402
                                   reference_backward)
 from test_nerf_training import CFG, make_dataset  # noqa: E402
+from test_torch_grid_stochastic import jax_corner_draws  # noqa: E402
 from test_torch_sampler import (jax_cell_draws, jax_cell_jitter,  # noqa: E402
                                 jax_train_draws, port_dataset)
 
@@ -54,13 +59,17 @@ from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops import mlp as mlp_module
 from instant_ngp_tpu_torch.ops.losses import LossType
 from instant_ngp_tpu_torch.ops.mlp import MLP
+from instant_ngp_tpu_torch.ops.grid_encoding import CornerDraws
 from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# base.json's stochastic keys on the tiny grid
 TRAIN_CFG = dict(CFG, encoding=dict(CFG["encoding"],
-                                    n_features_per_level=4))
+                                    n_features_per_level=4,
+                                    stochastic_exact_axes=1,
+                                    stochastic_bwd=True))
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 N_RAYS = 512
@@ -85,18 +94,27 @@ def _set_knobs(tb, prep_every=16):
     tb.steps_per_dispatch = 1
 
 
-def make_jax_tb(dtype, prep_every=16):
+def _set_mode(tb, exact):
+    """exact: the exact encode and uniform rays; else the defaults."""
+    assert tb.stochastic_corners is True
+    assert tb.use_error_map_sampling is True      # the dataset's default
+    if exact:
+        tb.stochastic_corners = False
+        tb.use_error_map_sampling = False
+
+
+def make_jax_tb(dtype, prep_every=16, exact=False):
     tb = JaxTestbed(make_dataset(), TRAIN_CFG, compute_dtype=dtype)
     _set_knobs(tb, prep_every)
-    tb.stochastic_corners = False
-    tb.use_error_map_sampling = False
+    _set_mode(tb, exact)
     return tb
 
 
-def make_port_tb(dtype, prep_every=16, jax_tb=None):
+def make_port_tb(dtype, prep_every=16, jax_tb=None, exact=False):
     tb = NerfTestbed(port_dataset(make_dataset()), TRAIN_CFG, device="cpu",
                      compute_dtype=dtype)
     _set_knobs(tb, prep_every)
+    _set_mode(tb, exact)
     if jax_tb is not None:
         state = _numpy_tree(jax_tb.state)
         tb.load_state(params_from_jax(state["params"]),
@@ -110,17 +128,31 @@ def make_port_tb(dtype, prep_every=16, jax_tb=None):
 def feed_jax_draws(tb, seed=1337):
     """Make a port testbed draw what the JAX testbed of the same seed
     draws at the same step counts."""
+    enc = tb.model.pos_encoding
+
     def train_draws(n_rays):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), tb.training_step)
-        return jax_train_draws(key, n_rays, tb.data.n_images)
+        k_enc = jax.random.split(key, 3)[2]
+        capacity = tb.target_batch_size * tb.sample_capacity_multiplier
+        return training.StepDraws(
+            jax_train_draws(key, n_rays, tb.data.n_images,
+                            with_cdf=tb._error_cdfs is not None),
+            jax_corner_draws(k_enc, capacity, 3, enc.n_levels))
 
     def prep_draws(n_uniform, n_nonuniform):
         rng = jax.random.fold_in(jax.random.PRNGKey(seed ^ 0xD3),
                                  tb.density_grid_ema_step)
-        k_cells, k_pos, _ = jax.random.split(rng, 3)
+        k_cells, k_pos, k_enc = jax.random.split(rng, 3)
+        n = n_uniform + n_nonuniform
+        # the JAX update encodes chunks of 2^19 cells (the last one
+        # padded), each with the draws of the same key
+        chunk = 1 << 19
+        one = jax_corner_draws(k_enc, chunk, 3, enc.n_levels)
+        corners = CornerDraws(one.u.repeat(1, -(-n // chunk), 1)[:, :n],
+                              None)
         return (jax_cell_draws(k_cells, n_uniform, n_nonuniform,
                                tb.scene.max_cascade + 1),
-                jax_cell_jitter(k_pos, n_uniform + n_nonuniform))
+                jax_cell_jitter(k_pos, n), corners)
 
     tb._train_draws = train_draws
     tb._prep_draws = prep_draws
@@ -297,24 +329,173 @@ def _assert_step_close(tb, jstate, jstats, stats, dtype):
         np.testing.assert_allclose(ours["loss"], ref["loss"], rtol=2e-2)
 
 
+def _jax_step(jtb, cam_now=True):
+    """One step of the JAX testbed's jitted train function, as its eager
+    loop calls it -> the step's stats."""
+    key = jax.random.fold_in(jax.random.PRNGKey(jtb.seed),
+                             jtb.training_step)
+    jtb._maybe_init_error_map()
+    fn = jtb._get_train_fn(N_RAYS, jtb._bucket_k(N_RAYS), cam_now)
+    jtb.state, jstats = fn(jtb.state, jtb.data, jtb.bitfield,
+                           jtb.mean_density, key, jtb._cam_dict(),
+                           jtb._error_cdfs, jtb._error_map, None, None)
+    jtb.training_step += 1
+    if "error_map" in jstats:
+        jtb._error_map = jstats["error_map"]
+    return jstats
+
+
+@pytest.mark.parametrize("mode", ["exact", "default"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_train_step_matches_jax(dtype):
+def test_train_step_matches_jax(dtype, mode):
+    """default: the stochastic-corner encode (j = 1, one-corner backward)
+    with the JAX step's own corner draws, and the error map's deposit."""
     jdt, tdt = DTYPES[dtype]
-    jtb = make_jax_tb(jdt)
+    exact = mode == "exact"
+    jtb = make_jax_tb(jdt, exact=exact)
     jtb.train(3)                  # a state with moments, an EMA and a grid
-    tb = make_port_tb(tdt, jax_tb=jtb)
+    tb = make_port_tb(tdt, jax_tb=jtb, exact=exact)
     feed_jax_draws(tb)
+    if not exact:
+        assert jtb._error_map is not None
+        tb._maybe_init_error_map()
+        tb._error_map = _t(jtb._error_map)
+        tb._n_steps_since_error_update = jtb._n_steps_since_error_update
     for _ in range(2):
-        key = jax.random.fold_in(jax.random.PRNGKey(jtb.seed),
-                                 jtb.training_step)
-        fn = jtb._get_train_fn(N_RAYS, jtb._bucket_k(N_RAYS))
-        jtb.state, jstats = fn(jtb.state, jtb.data, jtb.bitfield,
-                               jtb.mean_density, key, None, None, None, None,
-                               None)
-        jtb.training_step += 1
+        jstats = _jax_step(jtb)
         stats = tb.train_step()
-        _assert_step_close(tb, jtb.state, jstats, stats, dtype)
+        scalars = {k: v for k, v in stats.items() if k != "error_map"}
+        _assert_step_close(tb, jtb.state, jstats, scalars, dtype)
+        assert ("error_map" in stats) == (not exact)
+        if not exact and dtype == "f32":
+            em, ref = stats["error_map"].numpy(), np.asarray(
+                jstats["error_map"])
+            assert em.shape == ref.shape == (4, 32 * 32) and ref.max() > 0
+            np.testing.assert_allclose(em, ref, rtol=1e-3, atol=1e-8)
     assert tb.training_step == jtb.training_step == 5
+
+
+def test_error_map_deposit_matches_jax():
+    """The bilinear deposit alone, exactly the JAX step's arithmetic on
+    the same rays and losses: pixels at the map's edges (clipped to
+    cw - 1.001) included."""
+    rng = np.random.default_rng(2)
+    n, n_img, res = 500, 3, (16, 8)
+    uv = rng.uniform(size=(n, 2)).astype(np.float32)
+    uv[:6] = [[0, 0], [1, 1], [0.999, 0.001], [0.03, 0.97], [0.5, 0.5],
+              [1 - 1e-7, 0.5]]
+    img = rng.integers(0, n_img, n)
+    loss = rng.uniform(size=n).astype(np.float32)
+    em0 = rng.uniform(size=(n_img, res[0] * res[1])).astype(np.float32)
+    rays = RayBatch(None, None, None, None, img_idx=_t(img), uv=_t(uv))
+    out = training.deposit_error_map(_t(em0), rays, _t(loss), res).numpy()
+    # the reference, with numpy in float32 as nerf_train_step writes it
+    cw, ch = res
+    pos = np.clip(uv * np.array([cw, ch], np.float32) - np.float32(0.5),
+                  0.0, np.array([cw - 1.001, ch - 1.001], np.float32))
+    p0 = pos.astype(np.int32)
+    w = pos - p0
+    ref = np.zeros(em0.size, np.float32)
+    for dx, dy, wt in ((0, 0, (1 - w[:, 0]) * (1 - w[:, 1])),
+                       (1, 0, w[:, 0] * (1 - w[:, 1])),
+                       (0, 1, (1 - w[:, 0]) * w[:, 1]),
+                       (1, 1, w[:, 0] * w[:, 1])):
+        np.add.at(ref, img * (cw * ch) + (p0[:, 1] + dy) * cw
+                  + (p0[:, 0] + dx), wt * loss)
+    np.testing.assert_allclose(out, em0 + ref.reshape(em0.shape),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.sum() - em0.sum(), loss.sum(),
+                               rtol=1e-4)         # the weights sum to 1
+
+
+@pytest.mark.parametrize("switches", [
+    ("optimize_extrinsics",), ("optimize_focal_length",),
+    ("optimize_exposure",),
+    ("optimize_extrinsics", "optimize_focal_length", "optimize_exposure")],
+    ids=["extrinsics", "focal", "exposure", "all"])
+def test_camera_and_exposure_gradients_match_jax(switches):
+    """A full step from converted state with `cam_grad_interval = 1`: the
+    rays are rebuilt from the offsets, the encode is the exact one although
+    stochastic corners are on, and the three camera gradients and the
+    exposure gradient agree with JAX's (rtol 2e-3 of each gradient's
+    largest entry: float32 sums over ~4000 samples of terms of both
+    signs). Non-zero offsets and exposures, so that the offsets' own path
+    (rotation on the left, the focal factor) is exercised."""
+    jtb = make_jax_tb(jnp.float32)
+    jtb.train(3)
+    tb = make_port_tb(torch.float32, jax_tb=jtb)
+    feed_jax_draws(tb)
+    rng = np.random.default_rng(6)
+    pos = rng.normal(0, 0.01, (4, 3)).astype(np.float32)
+    rot = rng.normal(0, 0.01, (4, 3)).astype(np.float32)
+    focal = rng.normal(0, 0.01, 2).astype(np.float32)
+    exposures = rng.normal(0, 0.2, (4, 3)).astype(np.float32)
+    for t in (jtb, tb):
+        for name in switches:
+            setattr(t, name, True)
+        t.cam_grad_interval = 1
+        t.cam_pos_offset, t.cam_rot_offset = pos.copy(), rot.copy()
+        t.cam_focal_offset = focal.copy()
+    jtb.data.exposures = jnp.asarray(exposures)
+    tb.data.exposures = _t(exposures)
+    tb._maybe_init_error_map()
+    tb._error_map = _t(jtb._error_map)
+    tb._n_steps_since_error_update = jtb._n_steps_since_error_update
+
+    jstats = _jax_step(jtb)
+    stats = tb.train_step()
+    cam_on = "optimize_exposure" != switches[0] or len(switches) > 1
+    assert ("cam_gradient" in jstats) == ("cam_gradient" in stats) == cam_on
+    assert ("exposure_gradient" in jstats) == \
+        ("exposure_gradient" in stats) == ("optimize_exposure" in switches)
+    if cam_on:
+        assert tb._cam_grad_accum is not None
+        for k in ("pos", "rot", "focal"):
+            ours = stats["cam_gradient"][k].numpy()
+            ref = np.asarray(jstats["cam_gradient"][k])
+            assert ours.shape == ref.shape and np.abs(ref).max() > 1e-8, k
+            np.testing.assert_allclose(ours, ref, rtol=2e-3,
+                                       atol=2e-3 * np.abs(ref).max(),
+                                       err_msg=k)
+    if "optimize_exposure" in switches:
+        ours = stats["exposure_gradient"].numpy()
+        ref = np.asarray(jstats["exposure_gradient"])
+        assert np.abs(ref).max() > 1e-6
+        np.testing.assert_allclose(ours, ref, rtol=2e-3,
+                                   atol=2e-3 * np.abs(ref).max())
+    scalars = {k: v for k, v in stats.items()
+               if k in ("loss", "measured_batch_size", "n_rays", "fused",
+                        "measured_batch_size_before_compaction")}
+    _assert_step_close(tb, jtb.state, jstats, scalars, "f32")
+
+
+def test_camera_step_uses_the_exact_encode_and_others_the_estimator():
+    """The rule `stochastic and not rebuild`: with extrinsics on and an
+    interval of 2, the step that takes the camera gradient encodes exactly
+    (its corner draws go unused), the other one stochastically."""
+    tb = make_port_tb(torch.float32)
+    tb.optimize_extrinsics = True
+    tb.cam_grad_interval = 2
+    tb.training_step = 5                      # no prep needed
+    tb.set_density_grid(np.full(128 ** 3, 0.02, np.float32))
+    seen = []
+    enc = tb.model.pos_encoding
+    real = enc.forward
+
+    def spy(x, max_level=None, draws=None, generator=None, exact_axes=None):
+        seen.append((draws is not None or generator is not None,
+                     x.requires_grad))
+        return real(x, max_level, draws, generator, exact_axes)
+
+    enc.forward = spy
+    s0, s1 = tb.train_step(), tb.train_step()
+    assert seen == [(True, False), (False, True)]
+    assert "cam_gradient" not in s0 and "cam_gradient" in s1
+    g = s1["cam_gradient"]
+    assert all(float(v.abs().max()) > 0 for v in g.values())
+    # the sampled gradient stands for the interval's two steps
+    np.testing.assert_allclose(tb._cam_grad_accum["pos"].numpy(),
+                               2.0 * g["pos"].numpy())
 
 
 # -- which path the MLP takes ---------------------------------------------
@@ -431,17 +612,88 @@ def test_inference_uses_ema_and_repacks_after_a_step():
 
 # -- what is not ported raises -------------------------------------------------
 @pytest.mark.parametrize("switch, value", [
-    ("stochastic_corners", True), ("optimize_extrinsics", True),
-    ("optimize_focal_length", True), ("optimize_exposure", True),
     ("optimize_extra_dims", True), ("train_envmap", True),
-    ("optimize_distortion", True), ("use_error_map_sampling", True),
-    ("steps_per_dispatch", 16)])
+    ("optimize_distortion", True), ("steps_per_dispatch", 16)])
 def test_out_of_scope_switch_raises(switch, value):
     tb = make_port_tb(torch.float32)
     tb.training_step = 5                      # no prep needed
     setattr(tb, switch, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.train(1)
+
+
+def assert_host_adam_close(ours, ref, what, n_updates):
+    """A variable stepped by a host Adam over several train steps, on both
+    sides. What each piece computes is held tightly elsewhere: one step's
+    gradients (`test_camera_and_exposure_gradients_match_jax`, 2e-3), the
+    update from given gradients and the Adams themselves
+    (tests/test_torch_camera_opt.py, 1e-6). Over several steps the two
+    runs' network parameters drift apart at the level the step tolerances
+    allow (Adam's eps of 1e-15 on noise-level gradients), the losses stay
+    within 2e-3, but a pose or focal gradient is a sum of terms of both
+    signs over the rays and moves by several percent with that drift; Adam
+    then normalises it to a full-size step. So: exposures (a gradient
+    without such cancellation) to 2e-3 of their largest entry; pose and
+    focal offsets to a quarter of their largest entry, with the same sign
+    wherever an entry is larger than that, and never further apart than
+    the steps Adam can have taken."""
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    top = np.abs(ref).max()
+    assert ours.shape == ref.shape and top > 0, what
+    tol = 2e-3 if what == "exposures" else 0.25
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=tol * top,
+                               err_msg=what)
+    big = np.abs(ref) > tol * top
+    assert big.any() and (np.sign(ours[big]) == np.sign(ref[big])).all()
+    assert np.abs(ours - ref).max() <= 2 * n_updates * 1e-3, what
+
+
+@pytest.mark.parametrize("switch", [
+    "stochastic_corners", "use_error_map_sampling", "optimize_extrinsics",
+    "optimize_focal_length", "optimize_exposure"])
+def test_ported_switch_matches_jax(switch):
+    """Each switch that used to raise, alone on top of the exact uniform
+    configuration, over 6 steps of `train` on both sides with updates
+    every 2 steps (camera, exposure) or CDFs after 3 (error map): losses to
+    rtol 2e-3, and what the switch moves (offsets, exposures, the error
+    CDFs) to the tolerance stated beside it."""
+    jtb = make_jax_tb(jnp.float32, prep_every=4, exact=True)
+    tb = make_port_tb(torch.float32, prep_every=4, exact=True)
+    tb.load_state(params_from_jax(_numpy_tree(jtb.state)["params"]))
+    feed_jax_draws(tb)
+    for t in (jtb, tb):
+        setattr(t, switch, True)
+        t.cam_grad_interval = 1
+        t.n_steps_between_cam_updates = 2
+        t.n_steps_between_error_map_updates = 3
+    ref = [jtb.train(1) for _ in range(6)]
+    ours = [tb.train(1) for _ in range(6)]
+    np.testing.assert_allclose(ours, ref, rtol=2e-3)
+    assert tb.measured_batch_size == jtb.measured_batch_size > 0
+    if switch == "use_error_map_sampling":
+        assert tb.host_syncs == {"camera_updates": 0, "error_cdfs": 2}
+        for k, v in jtb._error_cdfs.items():
+            np.testing.assert_allclose(tb._error_cdfs[k].numpy(),
+                                       np.asarray(v), rtol=2e-3, atol=1e-6,
+                                       err_msg=k)
+    elif switch.startswith("optimize"):
+        assert tb.host_syncs == {"camera_updates": 3, "error_cdfs": 0}
+        moved = {"optimize_extrinsics": ("cam_pos_offset",
+                                         "cam_rot_offset"),
+                 "optimize_focal_length": ("cam_focal_offset",),
+                 "optimize_exposure": ("exposures",)}[switch]
+        for name, adam in (("cam_pos_offset", "_cam_pos_adam"),
+                           ("cam_rot_offset", "_cam_rot_adam"),
+                           ("cam_focal_offset", "_focal_adam"),
+                           ("exposures", "_exposure_adam")):
+            a, b = (tb.data.exposures.numpy(), jtb.data.exposures) \
+                if name == "exposures" \
+                else (getattr(tb, name), getattr(jtb, name))
+            if name in moved:
+                assert getattr(tb, adam).t == getattr(jtb, adam).t == 3
+                assert_host_adam_close(a, b, name, 3)
+            else:
+                assert not np.asarray(b).any() and not a.any(), name
 
 
 def test_out_of_scope_datasets_and_mesh_raise():
