@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's NeRF render and training paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF render and training paths, and the
+path from a capture on disk to every render mode, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -15,7 +15,9 @@ Phases, each of which raises on failure (a non-zero exit):
    then the path shapes at 2^20 rows, where the kernel, the general
    kernel on the same shape and the plain version are timed with CUDA
    events beside the card's bound; then times at 2^14, 2^17 and 2^21 rows
-   and with the input ring at each depth and without it;
+   and with the input ring at each depth and without it; then the RGB
+   net of a capture with latent dims (36-64-64-3), whose path is the
+   general kernel, at 2^20 rows;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -43,20 +45,46 @@ Phases, each of which raises on failure (a non-zero exit):
    the same random draws, on the card and on the CPU: the losses and a
    48x48 frame agree within the stated tolerance; then 2 steps with pose,
    focal and exposure optimisation on and the camera gradient taken on
-   every step: losses and the gradients agree as well;
+   every step: losses and the gradients agree as well; then 2 steps on a
+   small capture loaded from disk with envmap, distortion-map, latent and
+   depth training on: losses, the three buffers' gradients and a 48x48
+   frame in each render mode through `render_tile`;
 8. pose recovery: the scene at 200x200 with every training camera moved
    by a seeded N(0, 0.01) translation trains 256 steps with
    `optimize_extrinsics`; the mean distance of the cameras
    (`effective_xform`) to the true ones must fall. It prints the
    distance before and after and how often the two host-side updates
-   read the device.
+   read the device;
+9. a capture from disk: the scene is written to a temporary directory as
+   a user's capture would lie there (`transforms.json` with an OpenCV
+   lens and 4 latent dims per image, 64 views of 400x400 raytraced
+   through that lens over a sky, as half EXR files), read back with
+   `load_nerf`, given the raytracer's depths, and trained at base.json's
+   full width and batch 2^18 for 128 steps with `train_envmap`,
+   `optimize_distortion`, `optimize_extra_dims` and
+   `depth_supervision_lambda` on. It fails unless the loss fell, the
+   envmap, the distortion map and the latent codes moved, PSNR of view 0
+   through its own lens reached CAPTURE_MIN_PSNR, a 400x400 frame in each
+   of Shade, Depth, AO, Normals, Positions, EncodingVis, Cost, Distortion
+   and the density slice is finite and not constant, the Depth and
+   Normals frames agree with the raytracer on the opaque pixels, Shade by
+   `render_tile` agrees with Shade by the wavefront renderer, the kernel
+   was launched by the density updates and the renders, by no train step
+   and not by the Normals frame (which differentiates the density
+   network), and every launch went to the expected variant: the density
+   net's instantiation of the mma kernel, and the general kernel for the
+   36-wide RGB net. It prints the seconds to write and load the capture,
+   the steps per second, and the time, samples and launches of a warm
+   frame per mode; `eval_nerf_views` scores two views at the end.
 
     python3 chip_smoke.py --profile OUT.txt
 
 adds a last phase: one warm frame with CUDA-event spans around each
 layer, one under torch.profiler (its table goes to OUT.txt), a warm
 density pass; then the same for training: the spans of one warm train
-step and of one density update, and 16 steps under torch.profiler.
+step and of one density update, and 16 steps under torch.profiler; and
+where a warm frame of the trained capture spends its time in each render
+mode.
 
     python3 chip_smoke.py --curve
 
@@ -120,13 +148,35 @@ TRAIN_MIN_PSNR = {"default": 21.4, "exact": 20.0}
 # (lr) wherever the gradient is not zero, so the frames get the same
 # tolerance as phase 5's
 CPU_LOSS_REL = 2e-2
-# the same for a camera or exposure gradient, relative to the gradient's
-# largest entry (a sum over the rays of terms of both signs): at the first
+# the same for a camera, exposure or trainable-buffer gradient, relative to
+# the gradient's largest entry (a sum over the rays of terms of both signs): at the first
 # step, from identical parameters, and at the second, after an Adam step
 # whose eps of 1e-15 has turned float32 noise in near-zero gradients into
 # full-size parameter steps of either sign (the first readings were 2.0e-2
 # and 9.5e-2)
 CPU_CAM_GRAD_REL = (5e-2, 2e-1)
+# phase 9, the capture on disk: its OpenCV lens, latent dims per image and
+# the depth term's weight
+CAPTURE_LENS = {"k1": 0.08, "k2": -0.02, "p1": 0.004, "p2": -0.003}
+CAPTURE_EXTRA_DIMS = 4
+CAPTURE_DEPTH_LAMBDA = 0.5
+# dB on view 0 through its lens after TRAIN_STEPS steps: 2 dB under the
+# first reading, 17.55 (the views have no transparent pixel, so the sky is
+# learned partly as fog, and the envmap is composited behind a frame
+# without the sRGB transfer the training loss gives it, as in the JAX
+# package)
+CAPTURE_MIN_PSNR = 15.5
+# the trained Depth and Normals frames against the raytracer on view 0's
+# opaque pixels: the mean abs difference of the distance (first reading
+# 0.0092 of a mean distance of 0.689) and the mean cosine between the
+# normals (first reading 0.265: after 128 steps the finest levels of the
+# hash grid are still noise, and a normal is a gradient)
+CAPTURE_DEPTH_TOL, CAPTURE_NORMAL_COS = 0.03, 0.15
+# the share of the sphere's pixels that must be opaque (alpha > 0.99)
+CAPTURE_MIN_OPAQUE = 0.5
+# Shade by render_tile against the wavefront renderer: the same samples
+# through the same kernel, composited in another order
+CAPTURE_TILE_MAX_ABS = 1e-3
 POSE_NOISE, POSE_STEPS, POSE_SIZE = 0.01, 256, 200
 # cam_grad_interval: the default, and the gradient on every step (which
 # also means the exact encode on every step)
@@ -162,17 +212,38 @@ def orbit_camera(angle, elevation, radius=0.85):
     return look_at(eye, c, np.array([0, 1, 0], np.float32))
 
 
-def raytrace_view(cam, size, focal):
-    """The scene's ground truth: a lambertian sphere (r = 0.22 at the
+def undistort_opencv(xd, yd, k1, k2, p1, p2, n_iterations=12):
+    """The undistorted image-plane point whose OpenCV-distorted image is
+    (xd, yd): the fixed point of x = xd - delta(x), in float64 (the
+    raytracer's own inverse, independent of the port's Newton solver)."""
+    import numpy as np
+
+    xd, yd = np.asarray(xd, np.float64), np.asarray(yd, np.float64)
+    x, y = xd.copy(), yd.copy()
+    for _ in range(n_iterations):
+        r2 = x * x + y * y
+        radial = k1 * r2 + k2 * r2 * r2
+        dx = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = y * radial + 2 * p2 * x * y + p1 * (r2 + 2 * y * y)
+        x, y = xd - dx, yd - dy
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def trace_sphere(cam, size, focal, lens=None):
+    """The scene's ground truth through a pinhole, or through the OpenCV
+    lens `lens` = (k1, k2, p1, p2): a lambertian sphere (r = 0.22 at the
     box's centre) with an octant-checker albedo and a smooth band, lit
-    from the camera, over transparent black -> (H, W, 4) uint8 sRGB."""
+    from the camera -> (hit (H, W) bool, distance t along the normalized
+    ray, the sphere's normal n, the rays' directions, the linear shade)."""
     import numpy as np
 
     c = np.array([0.5, 0.5, 0.5], np.float32)
     r = 0.22
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) + 0.5
-    dirs = np.stack([(xx - size / 2) / focal, (yy - size / 2) / focal,
-                     np.ones_like(xx)], -1)
+    px, py = (xx - size / 2) / focal, (yy - size / 2) / focal
+    if lens is not None:
+        px, py = undistort_opencv(px, py, *lens)
+    dirs = np.stack([px, py, np.ones_like(xx)], -1)
     dirs = dirs @ cam[:3, :3].T
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     o = cam[:3, 3]
@@ -193,12 +264,39 @@ def raytrace_view(cam, size, focal):
     albedo = palette[octant] * (0.6 + 0.4 * band[..., None])
     lam = np.clip(-np.einsum("hwc,hwc->hw", n, dirs), 0.0, 1.0)
     shade = albedo * (0.25 + 0.75 * lam[..., None])
+    return hit, t, n, dirs, shade
+
+
+def raytrace_view(cam, size, focal):
+    """A pinhole view of the scene over transparent black -> (H, W, 4)
+    uint8 sRGB."""
+    import numpy as np
+
+    hit, _, _, _, shade = trace_sphere(cam, size, focal)
     srgb = np.where(shade <= 0.0031308, shade * 12.92,
                     1.055 * shade ** (1 / 2.4) - 0.055)
     img = np.zeros((size, size, 4), np.float32)
     img[..., :3] = np.where(hit[..., None], srgb, 0.0)
     img[..., 3] = hit.astype(np.float32)
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def scene_cameras(n_cams):
+    """The orbit of `make_scene`: n_cams cameras at a radius of 0.85 and
+    seeded elevations, looking at the box's centre."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    cams = []
+    for i in range(n_cams):
+        ang = i / n_cams * 2 * np.pi
+        elev = 0.15 + 0.5 * rng.rand()
+        eye = np.array([0.5 + 0.85 * np.cos(ang) * np.cos(elev),
+                        0.5 + 0.85 * np.sin(elev),
+                        0.5 + 0.85 * np.sin(ang) * np.cos(elev)], np.float32)
+        cams.append(look_at(eye, np.array([0.5, 0.5, 0.5], np.float32),
+                            np.array([0, 1, 0], np.float32)))
+    return cams
 
 
 def make_scene(n_cams=64, size=400):
@@ -212,15 +310,7 @@ def make_scene(n_cams=64, size=400):
 
     focal = size * 1.1
     imgs, xforms, metas = [], [], []
-    rng = np.random.RandomState(7)
-    for i in range(n_cams):
-        ang = i / n_cams * 2 * np.pi
-        elev = 0.15 + 0.5 * rng.rand()
-        eye = np.array([0.5 + 0.85 * np.cos(ang) * np.cos(elev),
-                        0.5 + 0.85 * np.sin(elev),
-                        0.5 + 0.85 * np.sin(ang) * np.cos(elev)], np.float32)
-        cam = look_at(eye, np.array([0.5, 0.5, 0.5], np.float32),
-                      np.array([0, 1, 0], np.float32))
+    for cam in scene_cameras(n_cams):
         imgs.append(raytrace_view(cam, size, focal))
         xforms.append(cam)
         metas.append(FrameMetadata(
@@ -232,6 +322,315 @@ def make_scene(n_cams=64, size=400):
                        rays=[None] * n_cams, metadata=metas,
                        xforms_start=np.stack(xforms),
                        xforms_end=np.stack(xforms), aabb_scale=1)
+
+
+def sky_color(dirs):
+    """The capture's background: a smooth linear colour by direction."""
+    return 0.35 + 0.25 * dirs
+
+
+def write_capture(root, n_cams, size, n_extra_dims):
+    """Write the scene to `root` as a capture on disk, as a user's would
+    lie there: `transforms.json` (aabb_scale, focal length and principal
+    point in pixels, the OpenCV lens CAPTURE_LENS, n_extra_learnable_dims,
+    one NeRF-convention camera matrix per frame) and the views as half
+    EXR files, linear, over the sky instead of transparent black. The
+    views are raytraced through the lens by `trace_sphere`.
+    -> (the transforms path, per view: the hit mask, the distance along
+    the ray and the sphere's normal)."""
+    import numpy as np
+
+    from instant_ngp_tpu_torch.data.exr import write_exr
+    from instant_ngp_tpu_torch.data.nerf_loader import NerfDataset
+
+    focal = size * 1.1
+    lens = tuple(CAPTURE_LENS[k] for k in ("k1", "k2", "p1", "p2"))
+    to_nerf = NerfDataset([], [], [], [], [], None, None).ngp_matrix_to_nerf
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    frames, truth = [], []
+    for i, cam in enumerate(scene_cameras(n_cams)):
+        hit, t, n, dirs, shade = trace_sphere(cam, size, focal, lens)
+        rgba = np.ones((size, size, 4), np.float32)
+        rgba[..., :3] = np.where(hit[..., None], shade, sky_color(dirs))
+        name = f"images/{i:04d}.exr"
+        write_exr(os.path.join(root, name), rgba, half=True)
+        matrix = np.concatenate([to_nerf(cam), [[0, 0, 0, 1]]]).tolist()
+        frames.append({"file_path": name, "transform_matrix": matrix})
+        truth.append((hit, np.where(hit, t, 0.0).astype(np.float32), n))
+    path = os.path.join(root, "transforms.json")
+    with open(path, "w") as f:
+        json.dump(dict(CAPTURE_LENS, aabb_scale=1, w=size, h=size,
+                       fl_x=focal, fl_y=focal, cx=size / 2, cy=size / 2,
+                       n_extra_learnable_dims=n_extra_dims, frames=frames),
+                  f)
+    return path, truth
+
+
+def load_capture(path, truth):
+    """`load_nerf` the capture and put the raytracer's depths into it."""
+    from instant_ngp_tpu_torch.data.nerf_loader import load_nerf
+
+    ds = load_nerf(path)
+    ds.depths = [depth for _, depth, _ in truth]
+    return ds
+
+
+def counting_launches(fused_mlp_forward, counts, kind, fn):
+    """`fn`, with the kernel launches it makes added to counts[kind]."""
+    def wrapper(*args, **kwargs):
+        before = fused_mlp_forward.launches
+        out = fn(*args, **kwargs)
+        counts[kind] += fused_mlp_forward.launches - before
+        return out
+    return wrapper
+
+
+def check_variants(by_variant, expected, what):
+    """Fail unless the kernel's launches went to exactly the variants
+    `expected` {shape's name: variant}, each at least once: the general
+    kernel is the expected path of the shapes named so here, and of no
+    other."""
+    wrong = set(by_variant) - set(expected.values())
+    missing = [name for name, v in expected.items()
+               if by_variant.get(v, 0) == 0]
+    if wrong or missing:
+        raise RuntimeError(
+            f"{what}: launches by variant {by_variant}; expected "
+            f"{expected}" + (f", not {sorted(wrong)}" if wrong else "")
+            + (f"; none for {missing}" if missing else ""))
+
+
+def capture_from_disk(cfg, dev, smi, fused_mlp_forward, variants, profile):
+    """Phase 9 -> (the kernel's launches by variant over the phase, the
+    times of one warm frame per render mode)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.eval import eval_nerf_views
+    from instant_ngp_tpu_torch.nerf.render import RENDER_TILE_MODES
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    root = tempfile.mkdtemp(prefix="capture_")
+    try:
+        t0 = time.perf_counter()
+        path, truth = write_capture(root, 64, WIDTH, CAPTURE_EXTRA_DIMS)
+        write_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(root, "images", f))
+                      for f in os.listdir(os.path.join(root, "images")))
+        t0 = time.perf_counter()
+        ds = load_capture(path, truth)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    print(f"capture: {ds.n_images} views of {WIDTH}x{HEIGHT} raytraced "
+          f"through the lens {CAPTURE_LENS} and written as half EXR "
+          f"({n_bytes / 2 ** 20:.1f} MiB) in {write_s:.2f} s; load_nerf "
+          f"{load_s:.2f} s on the host: lens {ds.metadata[0].lens.mode}, "
+          f"HDR {ds.is_hdr}, {ds.images[0].dtype} pixels, "
+          f"{ds.n_extra_learnable_dims} latent dims", flush=True)
+    if not (ds.is_hdr and ds.metadata[0].lens.mode == "OpenCV"
+            and ds.n_extra_learnable_dims == CAPTURE_EXTRA_DIMS
+            and ds.images[0].shape == (HEIGHT, WIDTH, 4)):
+        raise RuntimeError("load_nerf did not read the capture as written")
+
+    tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                     seed=SEED)
+    tb.train_envmap = tb.optimize_distortion = True
+    tb.depth_supervision_lambda = CAPTURE_DEPTH_LAMBDA
+    rgb_dims = [tb.model.rgb_net.weights[0].shape[0]] \
+        + [w.shape[1] for w in tb.model.rgb_net.weights]
+    if not (tb.optimize_extra_dims and tb.scene.lens_mode == 1
+            and tb.scene.rgb_activation == "Exponential"
+            and rgb_dims == [32 + CAPTURE_EXTRA_DIMS, 64, 64, 3]):
+        raise RuntimeError(f"the capture's testbed is not an HDR, OpenCV "
+                           f"lens, latent-dims one (RGB net {rgb_dims})")
+    start = {"envmap": tb.envmap.params.clone(),
+             "distortion map": tb.distortion_map.params.clone(),
+             "latent codes": tb.data.extra_dims.clone()}
+    psnr_before = tb.eval_psnr(0)
+
+    counts = {"prep": 0, "step": 0}
+    tb.training_prep = counting_launches(fused_mlp_forward, counts, "prep",
+                                         tb.training_prep)
+    tb.train_step = counting_launches(fused_mlp_forward, counts, "step",
+                                      tb.train_step)
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    first_loss = tb.train(1)
+    tb.train(TRAIN_WARMUP - 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last_loss = tb.train(TRAIN_STEPS - TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del tb.training_prep, tb.train_step
+    launches_train = fused_mlp_forward.launches
+    n_timed = TRAIN_STEPS - TRAIN_WARMUP
+    moved = {k: (now - start[k]).abs().max().item() for k, now in (
+        ("envmap", tb.envmap.params),
+        ("distortion map", tb.distortion_map.params),
+        ("latent codes", tb.data.extra_dims))}
+    psnr_after = tb.eval_psnr(0)
+    print(f"capture: {TRAIN_STEPS} steps with train_envmap, "
+          f"optimize_distortion, optimize_extra_dims and "
+          f"depth_supervision_lambda {CAPTURE_DEPTH_LAMBDA}; the last "
+          f"{n_timed} in {train_s:.3f} s: {n_timed / train_s:.2f} steps/s "
+          f"(every step rebuilds its rays through the distortion map and "
+          f"encodes exactly) [{smi}]")
+    print(f"capture: loss {first_loss:.6f} -> {last_loss:.6f}; largest "
+          f"change of the " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in moved.items())
+          + f"; PSNR of view 0 through its lens {psnr_before:.2f} dB -> "
+          f"{psnr_after:.2f} dB; kernel launches: {counts['prep']} by "
+          f"density updates, {counts['step']} by train steps", flush=True)
+    if not last_loss < first_loss:
+        raise RuntimeError("the capture's training loss did not fall")
+    if min(moved.values()) <= 0.0:
+        raise RuntimeError(f"a trainable buffer did not move: {moved}")
+    if counts["prep"] == 0 or counts["step"] != 0 \
+            or launches_train != counts["prep"]:
+        raise RuntimeError("the kernel must be launched by the density "
+                           "updates and never by a train step")
+    if not (psnr_after > psnr_before and psnr_after >= CAPTURE_MIN_PSNR):
+        raise RuntimeError(f"PSNR of view 0 is {psnr_after:.2f} dB (from "
+                           f"{psnr_before:.2f}; at least {CAPTURE_MIN_PSNR} "
+                           f"asked)")
+
+    # every render mode through view 0's own lens, principal point and
+    # latent code; the second frame of each is the timed one
+    hit, depth_true, normal_true = truth[0]
+    frames, times = {}, {}
+    for mode in RENDER_TILE_MODES + ("Distortion", "Slice"):
+        before = fused_mlp_forward.launches
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "Slice":
+                frame = tb.render_density_slice(WIDTH)
+                samples = WIDTH * WIDTH
+            else:
+                frame = tb.render_training_view(0, render_mode=mode)
+                samples = tb.last_frame_n_samples if mode != "Distortion" \
+                    else 0
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        launched = (fused_mlp_forward.launches - before) // 2
+        frames[mode] = frame
+        times[mode] = {"ms": 1e3 * sec, "samples": samples,
+                       "launches": launched,
+                       "by": "render_tile" if mode in RENDER_TILE_MODES
+                       and not tb._uses_wavefront(mode) else
+                       "wavefront" if mode in RENDER_TILE_MODES else "host"}
+        print(f"capture: {mode} frame {WIDTH}x{HEIGHT} ({times[mode]['by']}"
+              f"): {1e3 * sec:.1f} ms warm, {samples} samples, {launched} "
+              f"kernel launches [{smi}]", flush=True)
+        if frame.shape[:2] != (HEIGHT, WIDTH) \
+                or not np.isfinite(frame).all() \
+                or float(frame[..., :3].std()) <= 1e-4:
+            raise RuntimeError(f"the {mode} frame is not finite, constant "
+                               f"or of the wrong shape")
+        # Normals differentiate the density network: plain matmuls under
+        # grad, no kernel; Distortion marches nothing
+        if (launched == 0) != (mode in ("Normals", "Distortion")):
+            raise RuntimeError(f"the {mode} frame launched the kernel "
+                               f"{launched} times")
+
+    opaque = hit & (frames["AO"][..., 3] > 0.99)
+    depth_err = np.abs(frames["Depth"][..., 0] - depth_true)[opaque].mean()
+    normal = frames["Normals"][..., :3] * 2.0 - 1.0
+    normal_dot = (normal * normal_true).sum(-1)[opaque].mean()
+    print(f"capture: on the {opaque.sum()} opaque pixels of view 0 (of "
+          f"{hit.sum()} the sphere covers): Depth frame against the "
+          f"raytracer's distance, mean abs {depth_err:.4f} (of "
+          f"{depth_true[opaque].mean():.3f}); Normals frame against the "
+          f"sphere's normals, mean cosine {normal_dot:.3f}")
+    if opaque.sum() < CAPTURE_MIN_OPAQUE * hit.sum():
+        raise RuntimeError(f"less than {CAPTURE_MIN_OPAQUE} of the sphere's "
+                           f"pixels are opaque")
+    if depth_err > CAPTURE_DEPTH_TOL or normal_dot < CAPTURE_NORMAL_COS:
+        raise RuntimeError("the Depth or Normals frame disagrees with the "
+                           "raytracer")
+
+    # Shade by render_tile against Shade by the wavefront renderer
+    if not tb._uses_wavefront("Shade"):
+        raise RuntimeError("Shade must go through the wavefront renderer")
+    # with a budget that holds a whole tile's candidates (8192 rays of at
+    # most 512): where the budget binds, render_tile sheds every ray's deep
+    # tail, which the early-out renderer never does
+    budget = tb.render_query_budget
+    tb.render_wavefront, tb.render_query_budget = False, 1 << 22
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tile_frame = tb.render_training_view(0)
+        torch.cuda.synchronize()
+        tile_ms = 1e3 * (time.perf_counter() - t0)
+    tile_samples = tb.last_frame_n_samples
+    tb.render_wavefront, tb.render_query_budget = True, budget
+    tile_err = np.abs(tile_frame - frames["Shade"])
+    times["Shade by render_tile"] = {"ms": tile_ms, "samples": tile_samples}
+    print(f"capture: Shade by render_tile {tile_ms:.1f} ms warm, "
+          f"{tile_samples} samples, against the wavefront renderer's "
+          f"{times['Shade']['ms']:.1f} ms and {times['Shade']['samples']} "
+          f"samples: max abs {tile_err.max():.3g}, mean abs "
+          f"{tile_err.mean():.3g} [{smi}]")
+    if tile_err.max() > CAPTURE_TILE_MAX_ABS:
+        raise RuntimeError("render_tile and the wavefront renderer "
+                           "disagree")
+
+    scores = eval_nerf_views(tb, indices=[0, 32], spp=1, verbose=False)
+    print(f"capture: eval_nerf_views over views 0 and 32: PSNR "
+          f"{scores['psnr_avg']:.2f} dB, SSIM {scores['ssim_avg']:.4f}",
+          flush=True)
+    if not np.isfinite([scores["psnr_avg"], scores["ssim_avg"]]).all():
+        raise RuntimeError("the eval scores are not finite")
+
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    check_variants(by_variant, variants, "the capture's path")
+    print(f"capture: kernel launches by variant {by_variant}", flush=True)
+    if profile:
+        profile_modes(tb, smi)
+        profile_training(tb, smi, profile)
+    return by_variant, times
+
+
+def profile_modes(tb, smi):
+    """--profile: where a warm 400x400 frame's time goes in each marching
+    render mode (CUDA-event spans around the encode and the two MLPs)."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.render import RENDER_TILE_MODES
+
+    model = tb.inference_model
+    layers = [("hash-grid encode", model.pos_encoding),
+              ("density MLP", model.density_net),
+              ("direction encode", model.dir_encoding),
+              ("RGB MLP", model.rgb_net)]
+    for mode in RENDER_TILE_MODES:
+        spans = EventSpans()
+        for name, mod in layers:
+            mod.forward = spans.wrap(name, mod.forward)
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tb.render_training_view(0, render_mode=mode)
+            end.record()
+            end.synchronize()
+        finally:
+            for _, mod in layers:
+                del mod.forward
+        ms = start.elapsed_time(end)
+        parts = {name: spans.ms(name) for name, _ in layers}
+        print(f"profile: {mode} frame {ms:.1f} ms on the device's clock: "
+              + ", ".join(f"{k} {v:.1f} ms ({100 * v / ms:.0f} %)"
+                          for k, v in parts.items())
+              + f", the rest {ms - sum(parts.values()):.1f} ms (for "
+              f"Normals the encode's and the MLP's backward are in the "
+              f"rest) [{smi}]", flush=True)
 
 
 def occupied_bits(tb):
@@ -317,21 +716,15 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
     spans = EventSpans()
     prep, step = tb.training_prep, tb.train_step
 
-    def counted(kind, fn):
-        def wrapper(*args, **kwargs):
-            before = fused_mlp_forward.launches
-            out = fn(*args, **kwargs)
-            counts[kind] += fused_mlp_forward.launches - before
-            return out
-        return wrapper
-
     def timed_prep(*args, **kwargs):
         name = "full sweep" \
             if tb.training_step < tb.warmup_full_grid_preps else "1/4 + 1/4"
         return spans.wrap(name, prep)(*args, **kwargs)
 
-    tb.training_prep = counted("prep", timed_prep)
-    tb.train_step = counted("step", step)
+    tb.training_prep = counting_launches(fused_mlp_forward, counts, "prep",
+                                         timed_prep)
+    tb.train_step = counting_launches(fused_mlp_forward, counts, "step",
+                                      step)
     # the train step's encode on the device's clock (the density updates
     # go through the inference network's own encoding)
     enc = tb.model.pos_encoding
@@ -484,14 +877,19 @@ def train_curve(ds, cfg, dev, smi):
 def card_against_cpu(cfg, dev):
     """Phase 7: 2 train steps of a small network on the card and on the
     CPU, from the same seed with the same draws (the rays', the sampled
-    corners' of steps and density updates): with the defaults, then with
-    pose, focal and exposure optimisation and the camera gradient taken on
-    every step."""
+    corners' of steps and density updates): with the defaults; with pose,
+    focal and exposure optimisation and the camera gradient taken on every
+    step; and on a small capture loaded from disk (OpenCV lens, HDR, latent
+    dims, depths) with envmap, distortion-map, latent and depth training
+    on, followed by one small frame per render mode through `render_tile`."""
     import copy
+    import shutil
+    import tempfile
 
     import numpy as np
     import torch
 
+    from instant_ngp_tpu_torch.nerf.render import RENDER_TILE_MODES
     from instant_ngp_tpu_torch.nerf.sampler import draw_train_randoms
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
     from instant_ngp_tpu_torch.nerf.training import StepDraws
@@ -501,17 +899,28 @@ def card_against_cpu(cfg, dev):
     small = copy.deepcopy(cfg)
     small["encoding"].update(n_levels=4, log2_hashmap_size=12)
     ds = make_scene(n_cams=4, size=32)
+    root = tempfile.mkdtemp(prefix="capture_small_")
+    try:
+        capture = load_capture(*write_capture(root, 4, 32, 2))
+    finally:
+        shutil.rmtree(root)
+    gradient_keys = {
+        "defaults": (),
+        "camera": ("cam_gradient", "exposure_gradient"),
+        "switches": ("extra_dims_gradient", "envmap_gradient",
+                     "distortion_gradient")}
 
     def corners(gen, n, exact_axes, device):
         d = draw_corner_randoms(gen, n, 3, 4, exact_axes)   # on the CPU
         return CornerDraws(d.u.to(device), None if d.axis is None
                            else d.axis.to(device))
 
-    for case in ("defaults", "camera"):
+    for case, keys in gradient_keys.items():
         losses, frames, grads = {}, {}, {}
         for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            tb = NerfTestbed(ds, small, device=device,
-                             compute_dtype=torch.bfloat16, seed=SEED)
+            tb = NerfTestbed(capture if case == "switches" else ds, small,
+                             device=device, compute_dtype=torch.bfloat16,
+                             seed=SEED)
             tb.target_batch_size = 1 << 14
             tb.rays_per_batch = 1 << 10
             tb.adapt_ray_batch = False
@@ -519,6 +928,12 @@ def card_against_cpu(cfg, dev):
                 tb.optimize_extrinsics = tb.optimize_focal_length = True
                 tb.optimize_exposure = True
                 tb.cam_grad_interval = 1
+            if case == "switches":
+                tb.train_envmap = tb.optimize_distortion = True
+                tb.depth_supervision_lambda = CAPTURE_DEPTH_LAMBDA
+                tb.render_wavefront = False     # every mode by render_tile
+                if not tb.optimize_extra_dims:
+                    raise RuntimeError("the small capture has no latents")
             gen = torch.Generator().manual_seed(SEED + 7)   # on the CPU
 
             def train_draws(n_rays, tb=tb, gen=gen):
@@ -541,25 +956,34 @@ def card_against_cpu(cfg, dev):
                 stats = tb.train_step()
                 tb._sync_stats(stats)
                 losses[name].append(tb.loss_scalar)
-                if case == "camera":
-                    grads[name].append(dict(
-                        stats["cam_gradient"],
-                        exposure=stats["exposure_gradient"]))
-            frames[name] = tb.render_training_view(0, width=48, height=48)
+                step_grads = {}
+                for k in keys:
+                    g = stats[k]
+                    step_grads.update(g if isinstance(g, dict) else {
+                        k.replace("_gradient", ""): g})
+                grads[name].append(step_grads)
+            modes = RENDER_TILE_MODES if case == "switches" else ("Shade",)
+            frames[name] = {mode: tb.render_training_view(
+                0, width=48, height=48, render_mode=mode) for mode in modes}
             samples = tb.measured_batch_size
-        err = np.abs(frames["card"] - frames["cpu"])
         rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                    losses["cpu"])]
         print(f"card vs CPU [{case}], 2 train steps of a small network "
               f"({samples} samples a step): losses {losses['card']} vs "
-              f"{losses['cpu']} (relative difference {max(rel):.3g}); "
-              f"48x48 frame max abs {err.max():.3g}, mean abs "
-              f"{err.mean():.3g}", flush=True)
-        if not (max(rel) <= CPU_LOSS_REL and err.max() <= FRAME_MAX_ABS
-                and err.mean() <= FRAME_MEAN_ABS):
+              f"{losses['cpu']} (relative difference {max(rel):.3g})",
+              flush=True)
+        if max(rel) > CPU_LOSS_REL:
             raise RuntimeError("training on the card disagrees with the CPU")
-        if frames["cpu"][..., 3].max() <= 0.0:
-            raise RuntimeError("the small frame evaluated no samples")
+        for mode, on_cpu in frames["cpu"].items():
+            err = np.abs(frames["card"][mode] - on_cpu)
+            print(f"card vs CPU [{case}]: 48x48 {mode} frame max abs "
+                  f"{err.max():.3g}, mean abs {err.mean():.3g}", flush=True)
+            if not (err.max() <= FRAME_MAX_ABS
+                    and err.mean() <= FRAME_MEAN_ABS):
+                raise RuntimeError(f"the card's {mode} frame disagrees with "
+                                   f"the CPU's")
+            if on_cpu[..., 3].max() <= 0.0:
+                raise RuntimeError("the small frame evaluated no samples")
         for step, (on_card, on_cpu) in enumerate(zip(grads["card"],
                                                      grads["cpu"])):
             worst = {}
@@ -568,13 +992,15 @@ def card_against_cpu(cfg, dev):
                 if top <= 0.0:
                     raise RuntimeError(f"the {k} gradient is zero")
                 worst[k] = (on_card[k].cpu() - ref).abs().max().item() / top
+            if not worst:
+                continue
             print(f"card vs CPU [{case}], step {step + 1}: gradients' "
                   f"largest difference over their largest entry: "
                   + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()),
                   flush=True)
             if max(worst.values()) > CPU_CAM_GRAD_REL[step]:
-                raise RuntimeError("the camera gradients on the card "
-                                   "disagree with the CPU's")
+                raise RuntimeError(f"the {case} gradients on the card "
+                                   f"disagree with the CPU's")
 
 
 def pose_recovery(cfg, dev, smi, interval):
@@ -642,6 +1068,7 @@ def profile_training(tb, smi, out_path):
         (training, "generate_rays", "rays + march + compaction"),
         (training, "march_rays", "rays + march + compaction"),
         (training, "compact_samples", "rays + march + compaction"),
+        (training, "build_rays", "rays rebuilt under autograd"),
         (enc, "forward", "encode forward"),
         (model.density_net, "forward", "MLP forward (density + RGB)"),
         (model.rgb_net, "forward", "MLP forward (density + RGB)"),
@@ -1053,7 +1480,47 @@ def main():
             if not (ms < general_ms):
                 raise RuntimeError(f"the mma kernel is not faster than the "
                                    f"general kernel at the {name} shape")
-        del feats, rgb_in, path_shapes, x, x_all, ref
+        # the RGB net of a capture with latent dims: 16 + 16 + 4 inputs
+        # pad to 48, for which the mma kernel has no instantiation, so the
+        # general kernel is this shape's path
+        from instant_ngp_tpu_torch.ops.mlp import MLP
+
+        latent_net = MLP.from_config(32 + CAPTURE_EXTRA_DIMS, 3,
+                                     cfg["rgb_network"],
+                                     compute_dtype=torch.bfloat16)
+        latent_net.init_params(torch.Generator().manual_seed(SEED + 3))
+        latent_net.to(dev)
+        w = latent_net.kernel_weights()
+        codes = 0.1 * torch.randn(N_ROWS, CAPTURE_EXTRA_DIMS, generator=gen)
+        x = torch.cat([rgb_in[:N_ROWS], codes.to(dev)], -1).contiguous()
+        variant = kernel_variant(w.dims)
+        if variant != GENERAL:
+            raise RuntimeError(f"the latent-dims shape {w.dims} was expected "
+                               f"on the general kernel, not {variant}")
+        ref = fused_mlp_forward_plain(x, w.layers)
+        for n in SMALL_ROWS:
+            check_kernel(fused_mlp_forward(x[:n], w), ref[:n],
+                         f"rgb_latent x {n}")
+        max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w), ref,
+                                         f"rgb_latent x {N_ROWS}")
+        ms = [cuda_ms(lambda: fused_mlp_forward(x, w))]
+        plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers))
+        ms = min(ms + [cuda_ms(lambda: fused_mlp_forward(x, w))])
+        bound_ms, bound_by = mlp_bound_ms(N_ROWS, w.dims, 4)
+        shapes["rgb_latent"] = {
+            "dims": list(w.dims), "rows": N_ROWS, "variant": variant,
+            "max_abs_err": max_abs, "mean_abs_err": mean_abs,
+            "ref_max_abs": ref.abs().max().item(),
+            "ref_mean_abs": ref.abs().mean().item(),
+            "ms": ms, "general_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+        print(f"kernel rgb_latent {'-'.join(map(str, w.dims))} x {N_ROWS} "
+              f"[{variant}]: max abs {max_abs:.3g} mean abs {mean_abs:.3g} "
+              f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
+              f"reached) [{smi}]", flush=True)
+        del feats, rgb_in, path_shapes, x, x_all, ref, latent_net, codes
 
     # phase 4: the main path, through the testbed's entry points
     cam = orbit_camera(angle=0.3, elevation=0.4)
@@ -1077,7 +1544,11 @@ def main():
         frames.append((time.perf_counter() - t0, tb.last_frame_n_samples))
     launches = fused_mlp_forward.launches
     by_variant = dict(fused_mlp_forward.launches_by_variant)
-    for shape in shapes.values():
+    # the two shapes of the pinhole, LDR paths (phases 4 and 6), each on
+    # its instantiation of the mma kernel
+    main_shapes = {k: shapes[k] for k in ("density", "rgb")}
+    main_variants = {k: v["variant"] for k, v in main_shapes.items()}
+    for shape in main_shapes.values():
         v = shape["variant"]
         shape["launches_per_frame"] = (by_variant.get(v, 0)
                                        - by_variant_before.get(v, 0))
@@ -1094,11 +1565,11 @@ def main():
     if launches_density == 0 or launches <= launches_density:
         raise RuntimeError("the main path did not launch fused_mlp_forward "
                            "in both phases")
-    if (GENERAL in by_variant
-            or any(s["launches_per_frame"] == 0 for s in shapes.values())
-            or shapes["density"]["launches_per_density_pass"] == 0):
-        raise RuntimeError("the main path did not go through the mma "
-                           "kernel's instantiations for its two shapes")
+    check_variants(by_variant, main_variants, "the render path")
+    if any(s["launches_per_frame"] == 0 for s in main_shapes.values()) \
+            or shapes["density"]["launches_per_density_pass"] == 0:
+        raise RuntimeError("a frame or the density pass did not launch the "
+                           "mma kernel's instantiation for its shape")
     if frame.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(frame).all():
         raise RuntimeError("the frame is not finite or has the wrong shape")
     if frames[-1][1] <= 0 or frame[..., 3].max() <= 0.0:
@@ -1141,12 +1612,8 @@ def main():
     exact_tb, _, _ = train_on_card(ds, cfg, dev, smi, fused_mlp_forward,
                                    "exact")
     launches_train = sum(by_variant_train.values())
-    if GENERAL in by_variant_phase6 or any(
-            by_variant_phase6.get(s["variant"], 0) == 0
-            for s in shapes.values()):
-        raise RuntimeError("the training path did not go through the mma "
-                           "kernel's instantiations for its two shapes")
-    for shape in shapes.values():
+    check_variants(by_variant_phase6, main_variants, "the training path")
+    for shape in main_shapes.values():
         shape["launches_per_128_train_steps"] = by_variant_train.get(
             shape["variant"], 0)
     card_against_cpu(cfg, dev)
@@ -1158,6 +1625,18 @@ def main():
         profile_training(train_tb, smi, args.profile)
         profile_training(exact_tb, smi, args.profile)
     del exact_tb
+
+    # phase 9: a capture from disk; its RGB net has latent dims and takes
+    # the general kernel, its density net the mma kernel as before
+    by_variant_capture, mode_times = capture_from_disk(
+        cfg, dev, smi, fused_mlp_forward,
+        {"density": shapes["density"]["variant"],
+         "rgb_latent": shapes["rgb_latent"]["variant"]}, args.profile)
+    launches_capture = sum(by_variant_capture.values())
+    for name in ("density", "rgb_latent"):
+        shapes[name]["launches_on_the_capture_path"] = \
+            by_variant_capture[shapes[name]["variant"]]
+    shapes["rgb_latent"]["frames_400x400_by_mode"] = mode_times
     if args.curve:
         train_curve(ds, cfg, dev, smi)
 
@@ -1167,21 +1646,26 @@ def main():
         "source": "instant_ngp_tpu_torch/csrc/fused_mlp_mma.cu",
         "general_source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
-        # both main paths, each counted from 0: the render path (a
-        # density pass and two frames) and 128 training steps
-        "launches": launches + launches_train,
+        # the three main paths, each counted from 0: the render path (a
+        # density pass and two frames), 128 training steps, and the
+        # capture's path (128 steps, a frame per render mode, the eval)
+        "launches": launches + launches_train + launches_capture,
         "launches_render_path": launches,
         "launches_train_path": launches_train,
+        "launches_capture_path": launches_capture,
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
-        # one network evaluation of N_ROWS samples: both MLPs
-        "ms": sum(s["ms"] for s in shapes.values()),
-        "plain_ms": sum(s["plain_ms"] for s in shapes.values()),
-        "bound_ms": sum(s["bound_ms"] for s in shapes.values()),
+        # one network evaluation of N_ROWS samples of the pinhole paths:
+        # both MLPs (the latent-dims RGB shape has its own numbers under
+        # "shapes")
+        "ms": sum(s["ms"] for s in main_shapes.values()),
+        "plain_ms": sum(s["plain_ms"] for s in main_shapes.values()),
+        "bound_ms": sum(s["bound_ms"] for s in main_shapes.values()),
         "bound_by": "bytes" if all(s["bound_by"] == "bytes"
-                                   for s in shapes.values()) else "operations",
+                                   for s in main_shapes.values())
+        else "operations",
         # no one PyTorch call computes a fused multi-layer MLP
         "library_ms": None,
-        "general_ms": sum(s["general_ms"] for s in shapes.values()),
+        "general_ms": sum(s["general_ms"] for s in main_shapes.values()),
         "shapes": shapes,
         "other_shapes": other,
     }]

@@ -1,17 +1,24 @@
-"""uv -> ray for the pinhole lens, and the per-pixel camera of a rolling
-shutter (counterpart of instant_ngp_tpu/camera.py::uv_to_ray, perspective
-branch, and xform_with_rolling_shutter).
+"""Camera and lens math: uv <-> ray through every lens model, and the
+per-pixel camera of a rolling shutter (counterpart of
+instant_ngp_tpu/camera.py).
+
+- OpenCV radial/tangential distortion and the OpenCV fisheye model, undone
+  by a fixed number of Newton steps with a central-difference Jacobian;
+- the f-theta polynomial, latlong and equirectangular direction maps;
+- `uv_to_ray`: the pixel plane at z = 1 in camera space, an optional
+  trained distortion map added on the image plane, an optional aperture;
+- `pos_to_uv`: the forward projection (distortion applied, not undone).
 
 Conventions: uv in [0,1]^2 with x right and y DOWN; the camera matrix is
-(3, 4) [R|t] with columns x-right, y-down, z-forward in NGP world space;
-directions land on the z = 1 plane in camera space. The OpenCV, fisheye,
-f-theta, latlong and equirectangular lenses, the distortion map and the
-aperture are not ported yet: any lens but the pinhole raises.
+(3, 4) [R|t] with columns x-right, y-down, z-forward in NGP world space.
+Everything is plain differentiable tensor code: autograd reaches the
+distortion map and the camera through it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -28,32 +35,219 @@ _LENS_MODE_FROM_STR = {
     "OpenCVFisheye": LENS_OPENCV_FISHEYE, "Equirectangular": LENS_EQUIRECT,
 }
 
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
 
 def lens_mode_id(name: str) -> int:
     return _LENS_MODE_FROM_STR[name]
 
 
+def opencv_lens_distortion_delta(params: torch.Tensor, u: torch.Tensor,
+                                 v: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """params (..., >= 4) = (k1, k2, p1, p2): the displacement (du, dv) the
+    lens adds to the undistorted image-plane point (u, v)."""
+    k1, k2, p1, p2 = (params[..., 0], params[..., 1], params[..., 2],
+                      params[..., 3])
+    u2, v2, uv = u * u, v * v, u * v
+    r2 = u2 + v2
+    radial = k1 * r2 + k2 * r2 * r2
+    du = u * radial + 2 * p1 * uv + p2 * (r2 + 2 * u2)
+    dv = v * radial + 2 * p2 * uv + p1 * (r2 + 2 * v2)
+    return du, dv
+
+
+def opencv_fisheye_lens_distortion_delta(params: torch.Tensor,
+                                         u: torch.Tensor, v: torch.Tensor
+                                         ) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """params (..., >= 4) = (k1, k2, k3, k4) of the fisheye polynomial."""
+    k1, k2, k3, k4 = (params[..., 0], params[..., 1], params[..., 2],
+                      params[..., 3])
+    r = torch.sqrt(u * u + v * v)
+    safe_r = r.clamp(min=1e-12)
+    theta = torch.arctan(safe_r)
+    t2 = theta * theta
+    thetad = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+    scale = torch.where(r > 1e-12, thetad / safe_r - 1.0, 0.0)
+    return u * scale, v * scale
+
+
+def iterative_lens_undistortion(params: torch.Tensor, u: torch.Tensor,
+                                v: torch.Tensor, distortion_fn: Callable,
+                                n_iterations: int = 12
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The undistorted point whose distorted image is (u, v): a fixed
+    number of Newton steps with a central-difference Jacobian whose step is
+    max(eps, |1e-6 x|), and a guard on a vanishing determinant."""
+    rel = 1e-6
+    x0u, x0v = u, v
+    xu, xv = u, v
+    for _ in range(n_iterations):
+        s0 = (rel * xu).abs().clamp(min=_F32_EPS)
+        s1 = (rel * xv).abs().clamp(min=_F32_EPS)
+        du, dv = distortion_fn(params, xu, xv)
+        du0b, dv0b = distortion_fn(params, xu - s0, xv)
+        du0f, dv0f = distortion_fn(params, xu + s0, xv)
+        du1b, dv1b = distortion_fn(params, xu, xv - s1)
+        du1f, dv1f = distortion_fn(params, xu, xv + s1)
+        j00 = 1 + (du0f - du0b) / (2 * s0)
+        j01 = (du1f - du1b) / (2 * s1)
+        j10 = (dv0f - dv0b) / (2 * s0)
+        j11 = 1 + (dv1f - dv1b) / (2 * s1)
+        fu = xu + du - x0u
+        fv = xv + dv - x0v
+        det = j00 * j11 - j01 * j10
+        det = torch.where(det.abs() < 1e-20, 1e-20, det)
+        xu = xu - (j11 * fu - j01 * fv) / det
+        xv = xv - (-j10 * fu + j00 * fv) / det
+    return xu, xv
+
+
+def f_theta_undistortion(uv: torch.Tensor, params: torch.Tensor
+                         ) -> torch.Tensor:
+    """uv (..., 2), relative to the screen centre -> direction (..., 3);
+    the zero vector marks a pixel the lens does not see. params (..., 7):
+    the polynomial's five coefficients, then the width and height."""
+    xpix = uv[..., 0] * params[..., 5]
+    ypix = uv[..., 1] * params[..., 6]
+    norm = torch.sqrt(xpix * xpix + ypix * ypix)
+    alpha = params[..., 0] + norm * (params[..., 1] + norm * (
+        params[..., 2] + norm * (params[..., 3] + norm * params[..., 4])))
+    sin_a, cos_a = torch.sin(alpha), torch.cos(alpha)
+    ok = (cos_a > _F32_TINY) & (norm > 0)
+    s = sin_a / norm.clamp(min=1e-12)
+    d = torch.stack([s * xpix, s * ypix, cos_a], dim=-1)
+    return torch.where(ok[..., None], d, 0.0)
+
+
+def latlong_to_dir(uv: torch.Tensor) -> torch.Tensor:
+    theta = (uv[..., 1] - 0.5) * math.pi
+    phi = (uv[..., 0] - 0.5) * math.pi * 2.0
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([sp * ct, st, cp * ct], dim=-1)
+
+
+def equirectangular_to_dir(uv: torch.Tensor) -> torch.Tensor:
+    ct = (uv[..., 1] - 0.5) * 2.0
+    st = torch.sqrt((1.0 - ct * ct).clamp(min=0.0))
+    phi = (uv[..., 0] - 0.5) * math.pi * 2.0
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([sp * st, ct, cp * st], dim=-1)
+
+
+def square2disk_shirley(s: torch.Tensor) -> torch.Tensor:
+    """Shirley's concentric map of the square [-1, 1]^2 onto the disk."""
+    x, y = s[..., 0], s[..., 1]
+    use_x = x.abs() > y.abs()
+
+    def safe(a):
+        return torch.where(a.abs() < 1e-12, 1e-12, a)
+
+    r = torch.where(use_x, x, y)
+    phi = torch.where(use_x, (math.pi / 4) * (y / safe(x)),
+                      (math.pi / 2) - (math.pi / 4) * (x / safe(y)))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def _pair(value, device) -> torch.Tensor:
+    """(w, h), a screen centre or a focal length as a float32 tensor (2,)
+    or (N, 2) on `device`."""
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
 def uv_to_ray(uv: torch.Tensor, resolution, focal_length: torch.Tensor,
               camera_matrix: torch.Tensor, screen_center=(0.5, 0.5),
-              lens_mode: int = LENS_PERSPECTIVE
+              lens_mode: int = LENS_PERSPECTIVE,
+              lens_params: Optional[torch.Tensor] = None,
+              near_distance: float = 0.0,
+              aperture_size: float = 0.0, focus_z: float = 1.0,
+              aperture_samples: Optional[torch.Tensor] = None,
+              distortion_map: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uv (N, 2) -> (origin (N, 3), UNnormalized dir (N, 3), valid (N,)).
-    resolution (w, h), focal_length (2,) and camera_matrix (3, 4) are one
-    camera's, or carry a leading N for a camera per ray."""
-    if lens_mode != LENS_PERSPECTIVE:
-        raise NotImplementedError(f"lens mode {lens_mode} is not ported yet "
-                                  f"(only the pinhole lens)")
-    res = torch.as_tensor(resolution, dtype=torch.float32, device=uv.device)
-    x = (uv[:, 0] - float(screen_center[0])) * res[..., 0] \
-        / focal_length[..., 0]
-    y = (uv[:, 1] - float(screen_center[1])) * res[..., 1] \
-        / focal_length[..., 1]
-    d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    resolution (w, h), focal_length (2,), screen_center (2,), lens_params
+    (7,) and camera_matrix (3, 4) are one camera's, or carry a leading N
+    for a camera per ray. `distortion_map` (H, W, 2) is sampled bilinearly
+    at uv and added to the direction's x and y on the z = 1 plane;
+    `aperture_samples` (N, 2) in [0, 1) place each origin on the aperture's
+    disk and refocus its direction on the plane at `focus_z`."""
+    dev = uv.device
+    res = _pair(resolution, dev)
+    center = _pair(screen_center, dev)
+    valid = torch.ones(uv.shape[:-1], dtype=torch.bool, device=dev)
+
+    if lens_mode == LENS_FTHETA:
+        d = f_theta_undistortion(uv - center, lens_params)
+        valid = (d != 0.0).any(dim=-1)
+    elif lens_mode == LENS_LATLONG:
+        d = latlong_to_dir(uv)
+    elif lens_mode == LENS_EQUIRECT:
+        d = equirectangular_to_dir(uv)
+    else:
+        x = (uv[..., 0] - center[..., 0]) * res[..., 0] \
+            / focal_length[..., 0]
+        y = (uv[..., 1] - center[..., 1]) * res[..., 1] \
+            / focal_length[..., 1]
+        if lens_mode == LENS_OPENCV:
+            x, y = iterative_lens_undistortion(
+                lens_params, x, y, opencv_lens_distortion_delta)
+        elif lens_mode == LENS_OPENCV_FISHEYE:
+            x, y = iterative_lens_undistortion(
+                lens_params, x, y, opencv_fisheye_lens_distortion_delta)
+        d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+    if distortion_map is not None:
+        from .ops.trainable_buffer import bilerp_2d
+
+        delta = bilerp_2d(distortion_map, uv)
+        d = torch.cat([d[..., :2] + delta, d[..., 2:]], dim=-1)
+
     rot = camera_matrix[..., :3, :3]
-    d = (rot * d[:, None, :]).sum(dim=-1)
+    d = (rot * d[..., None, :]).sum(dim=-1)
     origin = camera_matrix[..., :3, 3].expand_as(d)
-    return origin, d, torch.ones(uv.shape[0], dtype=torch.bool,
-                                 device=uv.device)
+
+    if aperture_size != 0.0 and aperture_samples is not None:
+        lookat = origin + d * focus_z
+        blur = aperture_size * square2disk_shirley(
+            aperture_samples * 2.0 - 1.0)
+        origin = origin + (rot[..., :2] * blur[..., None, :]).sum(dim=-1)
+        d = (lookat - origin) / focus_z
+
+    origin = origin + d * near_distance
+    return origin, d, valid
+
+
+def pos_to_uv(pos: torch.Tensor, resolution, focal_length: torch.Tensor,
+              camera_matrix: torch.Tensor, screen_center=(0.5, 0.5),
+              lens_mode: int = LENS_PERSPECTIVE,
+              lens_params: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World positions (N, 3) -> (uv (N, 2), depth along the camera's z):
+    the forward projection, through the OpenCV and fisheye distortions
+    where the lens is one of them (the other lenses project as a
+    pinhole)."""
+    dev = pos.device
+    res = _pair(resolution, dev)
+    center = _pair(screen_center, dev)
+    rot = camera_matrix[..., :3, :3]
+    d = pos - camera_matrix[..., :3, 3]
+    d_cam = (rot * d[..., :, None]).sum(dim=-2)          # R^T d
+    z = d_cam[..., 2]
+    safe_z = torch.where(z.abs() < 1e-12, 1e-12, z)
+    x = d_cam[..., 0] / safe_z
+    y = d_cam[..., 1] / safe_z
+    if lens_mode == LENS_OPENCV:
+        du, dv = opencv_lens_distortion_delta(lens_params, x, y)
+        x, y = x + du, y + dv
+    elif lens_mode == LENS_OPENCV_FISHEYE:
+        du, dv = opencv_fisheye_lens_distortion_delta(lens_params, x, y)
+        x, y = x + du, y + dv
+    u = x * focal_length[..., 0] / res[..., 0] + center[..., 0]
+    v = y * focal_length[..., 1] / res[..., 1] + center[..., 1]
+    return torch.stack([u, v], dim=-1), z
 
 
 def _mat3_to_quat(m: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Shared NeRF grid and cone-stepping constants and `TestbedMode`.
+"""Shared NeRF grid and cone-stepping constants, `TestbedMode`, the render
+modes, the host-side `BoundingBox` and the sRGB transfer functions on numpy.
 
 Counterpart of instant_ngp_tpu/common.py; values and names are kept so
 configs and snapshots written by either package read the same.
@@ -8,6 +9,9 @@ from __future__ import annotations
 
 import enum
 import math
+from dataclasses import dataclass, field
+
+import numpy as np
 
 
 class TestbedMode(enum.Enum):
@@ -17,6 +21,18 @@ class TestbedMode(enum.Enum):
     Volume = "volume"
     Geometry = "geometry"
     NONE = "none"
+
+
+class RenderMode(enum.Enum):
+    AO = "AO"
+    Shade = "Shade"
+    Normals = "Normals"
+    Positions = "Positions"
+    Depth = "Depth"
+    Distortion = "Distortion"
+    Cost = "Cost"
+    Slice = "Slice"
+    EncodingVis = "EncodingVis"
 
 
 NERF_GRIDSIZE = 128                    # occupancy grid resolution per cascade
@@ -30,3 +46,42 @@ MIN_CONE_STEPSIZE = SQRT3 / STEPS_PER_UNIT
 MAX_CONE_STEPSIZE = SQRT3 * (1 << (NERF_CASCADES - 1)) / STEPS_PER_UNIT
 
 NERF_MIN_OPTICAL_THICKNESS = 0.01      # density threshold for the bitfield
+
+
+@dataclass
+class BoundingBox:
+    """Axis-aligned box on the host (scene setup, the loader's
+    `render_aabb`)."""
+
+    min: np.ndarray = field(
+        default_factory=lambda: np.full(3, np.inf, np.float32))
+    max: np.ndarray = field(
+        default_factory=lambda: np.full(3, -np.inf, np.float32))
+
+    @staticmethod
+    def unit() -> "BoundingBox":
+        return BoundingBox(np.zeros(3, np.float32), np.ones(3, np.float32))
+
+    @property
+    def center(self) -> np.ndarray:
+        return 0.5 * (self.min + self.max)
+
+    @property
+    def diag(self) -> np.ndarray:
+        return self.max - self.min
+
+    def contains(self, p: np.ndarray) -> np.ndarray:
+        return np.all((p >= self.min) & (p <= self.max), axis=-1)
+
+
+def srgb_to_linear(x):
+    """sRGB -> linear, elementwise, on numpy."""
+    x = np.asarray(x)
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(x):
+    """linear -> sRGB, elementwise, on numpy."""
+    x = np.asarray(x)
+    return np.where(x <= 0.0031308, 12.92 * x,
+                    1.055 * np.maximum(x, 1e-12) ** (1.0 / 2.4) - 0.055)

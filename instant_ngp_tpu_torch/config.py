@@ -52,9 +52,13 @@ def strip_json_comments(text: str) -> str:
     return "".join(out)
 
 
+def loads_json(text: str) -> Any:
+    return json.loads(strip_json_comments(text))
+
+
 def load_json(path: str) -> Any:
     with open(path, "r") as f:
-        return json.loads(strip_json_comments(f.read()))
+        return loads_json(f.read())
 
 
 def deep_merge(base: Dict[str, Any], override: Dict[str, Any]

@@ -6,7 +6,9 @@ bias-free (fan_in, fan_out) matrices, and a NeRF's keys are
 `pos_encoding`, `density_net`, `dir_encoding` and `rgb_net`. So converting
 is a copy into float32 tensors, or back into numpy arrays. The optimizer
 state is `{"step", "m", "v", "ema"}` with the three trees in the
-parameters' layout.
+parameters' layout. A trainable buffer (the envmap, the distortion map,
+the per-image latent codes) is one array with a state of the same form,
+`{"params", "opt": {"step", "m", "v", "ema"}}`, its trees single arrays.
 """
 
 from __future__ import annotations
@@ -65,3 +67,28 @@ def opt_state_to_jax(opt: Dict[str, Any]) -> Dict[str, Any]:
         if k in opt:
             out[k] = params_to_jax(opt[k])
     return out
+
+
+def buffer_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX TrainableBuffer's state of numpy arrays (or its parameters
+    alone, as an array) -> CPU tensors, ready for
+    `TrainableBuffer.load_state`."""
+    if not isinstance(state, dict):
+        return {"params": _tensor(state)}
+    out = {"params": _tensor(state["params"])}
+    opt = state.get("opt")
+    if opt:
+        out["opt"] = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                           dtype=torch.int32)}
+        out["opt"].update({k: _tensor(opt[k]) for k in ("m", "v", "ema")
+                           if k in opt})
+    return out
+
+
+def buffer_state_to_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A TrainableBuffer's state -> numpy arrays in the JAX layout."""
+    opt = state["opt"]
+    out_opt = {"step": np.asarray(int(opt["step"]), np.int32)}
+    out_opt.update({k: _numpy(opt[k]) for k in ("m", "v", "ema")
+                    if k in opt})
+    return {"params": _numpy(state["params"]), "opt": out_opt}

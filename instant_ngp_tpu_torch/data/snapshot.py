@@ -17,7 +17,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..convert import opt_state_from_jax, params_from_jax
+from ..convert import (buffer_state_from_jax, opt_state_from_jax,
+                       params_from_jax)
 from ..ops.grid_encoding import convert_layout
 
 SNAPSHOT_FORMAT_VERSION = 1
@@ -79,7 +80,10 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     ({"params", "opt"} as port tensors, for `NerfTestbed.
     load_snapshot_state`), "training_step", "density_grid_ema_step",
     "camera" ({"pos_offset", "rot_offset", "focal_offset", "exposures"} as
-    numpy arrays, or None) and "dataset_paths"}."""
+    numpy arrays, or None), "dataset_paths", and the trainable buffers
+    where the snapshot has them: "extra_dims" ({"params", "opt"}),
+    "envmap" and "distortion_map" ({"params"}), as CPU tensors for
+    `TrainableBuffer.load_state`."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -109,7 +113,11 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     state = {"params": params_from_jax(interleaved(trainer["params"]))}
     if "step" in opt:
         state["opt"] = opt_state_from_jax(opt)
+    buffers = {k: buffer_state_from_jax(payload[k])
+               for k in ("extra_dims", "envmap", "distortion_map")
+               if payload.get(k) is not None}
     return {
+        **buffers,
         "config": config,
         "aabb_scale": int(payload.get("aabb_scale", 1)),
         "params": state.get("opt", {}).get("ema") or state["params"],

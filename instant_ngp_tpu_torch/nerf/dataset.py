@@ -7,15 +7,17 @@ load (counterpart of instant_ngp_tpu/nerf/dataset.py).
   hot-pink mask to -1), plus the per-image camera tensors;
 - `NerfSceneConfig`: the aabb from aabb_scale, max_cascade =
   log2(aabb_scale), cone angle 0 for unit scenes else 1/256, Exponential
-  RGB for HDR data else Logistic.
-Depth images and per-image latent codes are not ported yet.
+  RGB for HDR data else Logistic, and the lens of the first image.
+Depth images pack as (N, H, W) metric depths (0 = no depth); a dataset with
+light directions carries them as per-image extra dims, one with
+`n_extra_learnable_dims` gets latent codes drawn from N(0, 0.1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,8 @@ class NerfTrainingData:
     rolling_shutter: torch.Tensor   # (N, 4)
     lens_params: torch.Tensor       # (N, 7)
     exposures: torch.Tensor         # (N, 3) log2-exposure per image
+    depths: Optional[torch.Tensor] = None      # (N, Hmax, Wmax) float32
+    extra_dims: Optional[torch.Tensor] = None  # (N, n_extra) latent codes
 
     @property
     def n_images(self) -> int:
@@ -88,19 +92,15 @@ def scene_config_from_dataset(ds: NerfDataset) -> NerfSceneConfig:
     return scene
 
 
-def pack_training_data(ds: NerfDataset, device) -> NerfTrainingData:
+def pack_training_data(ds: NerfDataset, device,
+                       generator: Optional[torch.Generator] = None,
+                       extra_dims=None) -> NerfTrainingData:
     """Pack the per-image host arrays into tensors on `device`. Images of
     different sizes are padded to the largest; `resolutions` keeps each
     image's true (w, h), and every uv is relative to it, so the padding
-    is never sampled."""
-    if any(d is not None for d in ds.depths):
-        raise NotImplementedError("depth supervision is not ported yet "
-                                  "(ROADMAP queue 1: the training chain's "
-                                  "remainder)")
-    if ds.n_extra_dims:
-        raise NotImplementedError("per-image extra dims are not ported yet "
-                                  "(ROADMAP queue 1: the training chain's "
-                                  "remainder)")
+    is never sampled. Learnable latent codes start at 0.1 * N(0, 1) drawn
+    from `generator` (a CPU generator; seed 0 by default), or at
+    `extra_dims` (N, n_extra) where the caller supplies them."""
     res_list = [m.resolution for m in ds.metadata]  # (w, h) per image
     w_max = max(r[0] for r in res_list)
     h_max = max(r[1] for r in res_list)
@@ -115,6 +115,27 @@ def pack_training_data(ds: NerfDataset, device) -> NerfTrainingData:
     def f32(a):
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
+    depths = None
+    if any(d is not None for d in ds.depths):
+        depths = np.zeros((len(ds.images), h_max, w_max), np.float32)
+        for i, d in enumerate(ds.depths):
+            if d is not None:
+                depths[i, :d.shape[0], :d.shape[1]] = d
+
+    extra = None
+    if ds.n_extra_dims:
+        if extra_dims is not None:
+            extra = np.asarray(extra_dims, np.float32).reshape(
+                ds.n_images, ds.n_extra_dims)
+        elif ds.has_light_dirs:
+            extra = np.stack([m.light_dir for m in ds.metadata])
+        else:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            extra = 0.1 * torch.randn(
+                ds.n_images, ds.n_extra_learnable_dims,
+                generator=generator).numpy()
+
     return NerfTrainingData(
         pixels=torch.from_numpy(imgs).to(device),
         resolutions=f32(res_list),
@@ -127,6 +148,8 @@ def pack_training_data(ds: NerfDataset, device) -> NerfTrainingData:
             np.stack([m.rolling_shutter for m in ds.metadata])),
         lens_params=f32(np.stack([m.lens.params for m in ds.metadata])),
         exposures=torch.zeros(ds.n_images, 3, device=device),
+        depths=None if depths is None else f32(depths),
+        extra_dims=None if extra is None else f32(extra),
     )
 
 

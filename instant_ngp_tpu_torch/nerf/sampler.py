@@ -11,17 +11,20 @@ compaction (counterpart of instant_ngp_tpu/nerf/sampler.py).
    of it follows them (`sample_rays`). `build_rays` is differentiable in
    the per-image camera offsets `cam` = {"pos" (N, 3) translations, "rot"
    (N, 3) axis-angle rotations applied on the left, "focal" (2,) relative
-   focal-length offset}.
+   focal-length offset} and in the trained `distortion_map`; the rays go
+   through the lens `lens_mode` names with each image's `lens_params`.
 2. `march_rays`: occupancy at the analytic (R, n_march) candidate grid.
    The sequential DDA march of the reference always lands on integer
    stepping-space coordinates, so every position it can visit is
    from_stepping_space(s0 + k). Testing occupancy at all k at once emits
    the same sample set; since the bitfield is max-pooled across mips, a
    candidate the DDA would skip tests empty at its own mip as well.
-3. `compact_samples`: ray-major prefix-sum compaction of the emitted
-   candidates into flat (capacity,) buffers: a prefix sum gives every
-   emitted candidate its slot, one scatter inverts slot -> candidate. No
-   host sync, no `torch.nonzero`.
+3. `compact_samples`: prefix-sum compaction of the emitted candidates
+   into flat (capacity,) buffers: a prefix sum gives every emitted
+   candidate its slot, one scatter inverts slot -> candidate. Ray-major
+   for training (each ray's samples contiguous), depth-major for
+   `render_tile` (a capacity that truncates sheds the deep tail of every
+   ray). No sort, no host sync, no `torch.nonzero`.
 
 A sample carries the warped position in [0,1]^3, the warped direction
 dir/2 + 0.5 and the warped dt.
@@ -175,10 +178,12 @@ def rotvec_matrix(r: torch.Tensor) -> torch.Tensor:
 def build_rays(data: NerfTrainingData, img_idx: torch.Tensor,
                uv: torch.Tensor, motionblur_time: torch.Tensor,
                lens_mode: int,
-               cam: Optional[Dict[str, torch.Tensor]] = None
+               cam: Optional[Dict[str, torch.Tensor]] = None,
+               distortion_map: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uv and image -> (origins, normalized dirs, valid); differentiable in
-    the camera offsets `cam` {"pos", "rot", "focal"} when given."""
+    the camera offsets `cam` {"pos", "rot", "focal"} and in the
+    `distortion_map` (H, W, 2) when given."""
     xform = xform_with_rolling_shutter(
         data.xforms_start[img_idx], data.xforms_end[img_idx],
         data.rolling_shutter[img_idx], uv, motionblur_time)
@@ -190,7 +195,9 @@ def build_rays(data: NerfTrainingData, img_idx: torch.Tensor,
         focal = focal * (1.0 + cam["focal"][None, :])
     origins, dirs_un, ray_ok = uv_to_ray(
         uv, data.resolutions[img_idx], focal, xform,
-        screen_center=(0.5, 0.5), lens_mode=lens_mode)
+        screen_center=(0.5, 0.5), lens_mode=lens_mode,
+        lens_params=data.lens_params[img_idx],
+        distortion_map=distortion_map)
     dirs = dirs_un / torch.linalg.norm(dirs_un, dim=-1, keepdim=True)
     return origins, dirs, ray_ok
 
@@ -199,7 +206,8 @@ def generate_rays(draws: TrainDraws, data: NerfTrainingData,
                   aabb_min: torch.Tensor, aabb_max: torch.Tensor,
                   cone_angle: float, lens_mode: int,
                   snap_to_pixel_centers: bool = False, cam=None,
-                  error_cdfs=None) -> Tuple[RayBatch, torch.Tensor]:
+                  error_cdfs=None, distortion_map=None
+                  ) -> Tuple[RayBatch, torch.Tensor]:
     """One ray per lane -> (rays, motionblur_time)."""
     img_idx, uv, motionblur_time = sample_rays(
         draws, data, snap_to_pixel_centers, error_cdfs)
@@ -209,7 +217,7 @@ def generate_rays(draws: TrainDraws, data: NerfTrainingData,
     valid = rgba[:, 0] >= 0.0          # the hot-pink mask skips the lane
 
     origins, dirs, ray_ok = build_rays(data, img_idx, uv, motionblur_time,
-                                       lens_mode, cam)
+                                       lens_mode, cam, distortion_map)
     tmin, tmax = ray_intersect_aabb(origins, dirs, aabb_min, aabb_max)
     tmin = tmin.clamp(min=0.0)
     valid = valid & ray_ok & (tmax >= tmin)
@@ -243,25 +251,41 @@ def compact_samples(rays: RayBatch, ts: torch.Tensor, emits: torch.Tensor,
                     capacity: int, cone_angle: float, order: str = "ray"
                     ) -> SampleBatch:
     """Compact the emitted candidates of the (R, n_march) grid into flat
-    (capacity,) buffers, ray-major: each ray's samples are contiguous and
-    time-ordered, and when capacity truncates, whole late rays starve.
+    (capacity,) buffers.
 
-    Every emitted candidate's slot is its ray's base (an exclusive prefix
-    sum of the per-ray counts) plus its rank within the ray; one scatter of
-    the candidate indices into a buffer with a spill slot past `capacity`
-    inverts the map. dt, positions and directions are
+    order="ray" (training): ray-major, each ray's samples contiguous and
+    time-ordered (the loss needs per-ray segments); when capacity
+    truncates, whole late rays starve. Every emitted candidate's slot is
+    its ray's base (an exclusive prefix sum of the per-ray counts) plus its
+    rank within the ray.
+    order="depth" (rendering): depth-major, every ray's step k before any
+    ray's step k + 1, so a capacity that is a query budget sheds the DEEP
+    tail of every ray alike instead of starving late rays. The slot is the
+    exclusive prefix sum over the transposed grid; `ray_base` is zero and
+    `ray_count` the samples kept per ray.
+
+    One scatter of the candidate indices into a buffer with a spill slot
+    past `capacity` inverts the map. dt, positions and directions are
     recomputed from (ray, t) on the compacted domain."""
-    if order != "ray":
-        raise NotImplementedError(
-            f"compact_samples order={order!r} is not ported (the renderer "
-            f"packs its own candidates; ROADMAP queue 1: render_tile)")
+    if order not in ("ray", "depth"):
+        raise ValueError(f"compact_samples order={order!r}")
     n_rays, n_march = emits.shape
     n = n_rays * n_march
     dev = emits.device
     e = emits.long()
     count = e.sum(dim=1)                                       # (R,)
-    base = torch.cumsum(count, dim=0) - count                  # (R,)
-    rank = base[:, None] + (torch.cumsum(e, dim=1) - e)        # (R, M)
+    if order == "depth":
+        e_t = e.t().reshape(-1)
+        rank = (torch.cumsum(e_t, dim=0) - e_t).view(n_march, n_rays).t()
+        n_samples = count.sum().clamp(max=capacity)
+        base_c = torch.zeros_like(count)
+        count_c = ((rank < capacity) & emits).sum(dim=1)
+    else:
+        base = torch.cumsum(count, dim=0) - count              # (R,)
+        rank = base[:, None] + (torch.cumsum(e, dim=1) - e)    # (R, M)
+        n_samples = (base[-1] + count[-1]).clamp(max=capacity)
+        base_c = base.clamp(max=capacity)
+        count_c = torch.minimum(count, capacity - base_c)
     cand_slot = torch.where(emits, rank, capacity).clamp(max=capacity)
 
     # slot -> candidate: kept candidates' slots are unique and < capacity;
@@ -279,9 +303,5 @@ def compact_samples(rays: RayBatch, ts: torch.Tensor, emits: torch.Tensor,
     positions = (rays.origins[ray_id] + t_flat[:, None] * d_r
                  - aabb_min) / (aabb_max - aabb_min)
     dirs = (d_r + 1.0) * 0.5
-
-    n_samples = (base[-1] + count[-1]).clamp(max=capacity)
-    base_c = base.clamp(max=capacity)
-    count_c = torch.minimum(count, capacity - base_c)
     return SampleBatch(positions, dirs, dt_flat, t_flat, ray_id, base_c,
                        count_c, n_samples, cand_slot, cand_src)

@@ -38,12 +38,25 @@ Training runs what the JAX testbed runs with its defaults:
   return. The pose and focal gradients need the exact encode and a second
   ray build, so they are taken on one step per `cam_grad_interval` and
   scaled by it. `effective_xform` is a training camera with its offsets.
+- `train_envmap`, `optimize_distortion` (off) and `optimize_extra_dims`
+  (on where the dataset has extra dims): the lat-long environment map
+  behind the scene, the lens-distortion map added on the image plane and
+  the per-image latent codes are `TrainableBuffer`s; every train step
+  returns their gradients and each buffer's own optimizer steps it on the
+  device. `depth_supervision_lambda` (0) weighs the depth term where the
+  dataset has depth images.
 The two host-side updates are the only reads of the device besides the
 stats: `host_syncs` counts them.
 
-Not ported yet, each raising `NotImplementedError` when switched on:
-envmap and distortion training, extra dims, depth supervision, the scanned
-multi-step block and a device mesh.
+Rendering: `render_frame` renders any mode of `common.RenderMode` through
+any lens. Shade, Depth and AO go through the wavefront renderer (unless
+`render_wavefront` is off), the other marching modes through
+`render_tile`; Distortion is a screen-space picture of the lens, Slice a
+false-colour density slice (`render_density_slice`).
+
+Not ported, each raising `NotImplementedError`: the scanned multi-step
+block (`steps_per_dispatch`), a device mesh, and the mesh tools
+(`compute_marching_cubes_mesh`, `optimise_mesh_step`).
 """
 
 from __future__ import annotations
@@ -55,8 +68,10 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..common import NERF_GRID_N_CELLS, TestbedMode
-from ..convert import opt_state_to_jax, params_to_jax
+from ..camera import lens_mode_id
+from ..common import (NERF_GRID_N_CELLS, NERF_MIN_OPTICAL_THICKNESS,
+                      TestbedMode, linear_to_srgb)
+from ..convert import buffer_state_to_jax, opt_state_to_jax, params_to_jax
 from ..data.nerf_loader import NerfDataset
 from ..metrics import mse, psnr
 from ..ops.grid_encoding import CornerDraws
@@ -64,19 +79,22 @@ from ..ops.host_adam import HostAdam, RotationHostAdam, rotvec_to_matrix
 from ..ops.losses import loss_type_from_string
 from ..ops.optimizers import create_optimizer, tree_map
 from ..ops.sampling import ld_pixel_offset
+from ..ops.trainable_buffer import TrainableBuffer, read_envmap
 from ..utils import Ema, PhaseTimers
 from .dataset import (NerfSceneConfig, pack_training_data,
                       scene_config_from_dataset)
-from .march import ray_intersect_aabb, to_stepping_space
+from .march import (cascaded_grid_idx_at, mip_from_pos, ray_intersect_aabb,
+                    to_stepping_space)
 from .model import NerfNetwork, network_to_density
 from .occupancy import (CellDraws, cell_densities, density_grid_mean,
                         draw_cell_randoms, init_bitfield, init_density_grid,
                         mark_untrained_cells, sample_cells, splat_and_ema,
                         update_bitfield)
-from .render import RenderConfig, WavefrontRenderer, camera_rays_for_frame
+from .render import (RENDER_TILE_MODES, RenderConfig, WavefrontRenderer,
+                     camera_rays_for_frame, distortion_flow_image,
+                     render_tile)
 from .sampler import build_rays, draw_train_randoms
-from .training import (REMAINDER, NerfTrainStepConfig, StepDraws,
-                       nerf_train_step)
+from .training import NerfTrainStepConfig, StepDraws, nerf_train_step
 from .visibility import compute_visible_cells
 
 
@@ -106,13 +124,13 @@ class NerfTestbed:
         if isinstance(dataset, NerfDataset):
             self.dataset: Optional[NerfDataset] = dataset
             self.scene = scene_config_from_dataset(dataset)
-            self.data = pack_training_data(dataset, self.device)
+            # learnable latent codes start from a generator of their own
+            self.data = pack_training_data(
+                dataset, self.device,
+                generator=torch.Generator().manual_seed(seed ^ 0xE7D1))
         else:
             self.dataset, self.scene, self.data = None, dataset, None
         scene = self.scene
-        if scene.n_extra_dims:
-            raise NotImplementedError("per-image latent dims are not "
-                                      "ported yet")
 
         def network():
             return NerfNetwork(
@@ -151,6 +169,9 @@ class NerfTestbed:
         self.render_max_samples_per_ray: Optional[int] = None
         # most network queries per call (the reference's target_n_queries)
         self.render_query_budget = 2 << 20
+        # Shade, Depth and AO through the early-out wavefront renderer;
+        # off = through render_tile like the other modes
+        self.render_wavefront = True
         # network evaluations of the last render_frame
         self.last_frame_n_samples = 0
         # render with the position encoding's stochastic-corner estimator
@@ -158,10 +179,50 @@ class NerfTestbed:
         # call; off = the exact encode
         self.render_stochastic_corners = False
 
+        # the render-time latent code: a training view's (view 0 unless
+        # set otherwise), or an explicit vector
+        self.rendering_extra_dims_from_training_view = 0
+        self._rendering_extra_dims: Optional[torch.Tensor] = None
+        self._init_buffers()
+
         self.training_step = 0
         self.loss_scalar = float("nan")
         if self.data is not None:
             self._init_training(network)
+
+    def _init_buffers(self) -> None:
+        """The trainable buffers: the environment map (sized and seeded by
+        the dataset's, else 8 x 16 of zeros), the distortion map (the
+        config's resolution, default 32 x 32, zeros) and the per-image
+        latent codes, each with the optimizer its config names (default
+        the network's)."""
+        cfg, dataset = self.config, self.dataset
+        self.train_envmap = False
+        self.optimize_distortion = False
+        self.optimize_extra_dims = self.scene.n_extra_dims > 0
+        default_opt = cfg.get("optimizer", {"otype": "Adam"})
+        env_cfg = cfg.get("envmap", {})
+        dist_cfg = cfg.get("distortion_map", {})
+        env_res, env_init = (8, 16), None      # (H, W)
+        if dataset is not None and dataset.envmap is not None:
+            env_init = np.asarray(dataset.envmap, np.float32)
+            env_res = env_init.shape[:2]
+        self.has_dataset_envmap = env_init is not None
+        self.envmap = TrainableBuffer(
+            (env_res[0], env_res[1], 4),
+            env_cfg.get("optimizer", default_opt), env_init,
+            device=self.device)
+        dist_res = dist_cfg.get("resolution", [32, 32])
+        self.distortion_map = TrainableBuffer(
+            (dist_res[1], dist_res[0], 2),
+            dist_cfg.get("optimizer", default_opt), device=self.device)
+        self._extra_dims_buf: Optional[TrainableBuffer] = None
+        if self.data is not None and self.data.extra_dims is not None:
+            self._extra_dims_buf = TrainableBuffer(
+                tuple(self.data.extra_dims.shape), default_opt,
+                self.data.extra_dims, device=self.device)
+            # the data's codes ARE the buffer's tensor, stepped in place
+            self.data.extra_dims = self._extra_dims_buf.params
 
     def _init_training(self, network) -> None:
         cfg = self.config
@@ -242,10 +303,9 @@ class NerfTestbed:
         # reads of the device by the two host-side updates
         self.host_syncs = {"camera_updates": 0, "error_cdfs": 0}
 
-        # switches of what is not ported yet: each raises when set
-        self.optimize_extra_dims = False
-        self.train_envmap = False
-        self.optimize_distortion = False
+        # weight of the depth term (needs depth images in the dataset)
+        self.depth_supervision_lambda = 0.0
+        # the scanned multi-step block is not ported: anything but 1 raises
         self.steps_per_dispatch = 1
 
         self.timers = PhaseTimers()
@@ -457,19 +517,11 @@ class NerfTestbed:
         return cached[1]
 
     def _train_cfg(self, n_rays: int, max_k: int) -> NerfTrainStepConfig:
-        for name, what in (
-                ("train_envmap", f"envmap training ({REMAINDER})"),
-                ("optimize_distortion",
-                 f"distortion-map training ({REMAINDER})")):
-            if getattr(self, name):
-                raise NotImplementedError(f"{name}: {what} is not ported "
-                                          f"yet")
         if self.steps_per_dispatch != 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1: the scanned multi-step block is a "
                 "dispatch workaround of the JAX package and is not ported "
                 "(ROADMAP: do not port TPU workarounds)")
-        # nerf_train_step raises on the switches it carries
         return NerfTrainStepConfig(
             n_rays=n_rays, n_march=self.n_march, max_samples_per_ray=max_k,
             sample_capacity=self.target_batch_size
@@ -487,7 +539,9 @@ class NerfTestbed:
             optimize_camera=(self.optimize_extrinsics
                              or self.optimize_focal_length),
             optimize_exposure=self.optimize_exposure,
-            optimize_extra_dims=self.optimize_extra_dims,
+            optimize_extra_dims=(self.optimize_extra_dims
+                                 and self.data.extra_dims is not None),
+            depth_supervision_lambda=self.depth_supervision_lambda,
             use_error_map=self.use_error_map_sampling,
             error_map_res=self._error_map_res,
             stochastic_corners=self._stoch_now())
@@ -498,8 +552,9 @@ class NerfTestbed:
         its own cadence: the camera and exposure gradients accumulate and
         are applied every `n_steps_between_cam_updates` steps, the error
         map takes the step's deposit and becomes CDFs every
-        `n_steps_between_error_map_updates` steps. -> the step's stats, on
-        the device."""
+        `n_steps_between_error_map_updates` steps; the envmap, the
+        distortion map and the latent codes take their optimizers' steps.
+        -> the step's stats, on the device."""
         self._require_training()
         self._maybe_init_error_map()
         n_rays = self.rays_per_batch
@@ -515,8 +570,18 @@ class NerfTestbed:
             self.model, self.optimizer, cfg, self.aabb_min, self.aabb_max,
             self.opt_state, self.data, self.bitfield, self.mean_density,
             self._train_draws(n_rays), cam=self._cam_dict(),
-            error_cdfs=self._error_cdfs, error_map=self._error_map)
+            error_cdfs=self._error_cdfs, error_map=self._error_map,
+            envmap=self.envmap.params if self.train_envmap else None,
+            distortion=self.distortion_map.params
+            if self.optimize_distortion else None)
         self.training_step += 1
+
+        if "extra_dims_gradient" in stats:
+            self._extra_dims_buf.step(stats["extra_dims_gradient"])
+        if "envmap_gradient" in stats:
+            self.envmap.step(stats["envmap_gradient"])
+        if "distortion_gradient" in stats:
+            self.distortion_map.step(stats["distortion_gradient"])
 
         if "cam_gradient" in stats:
             g = stats["cam_gradient"]
@@ -746,10 +811,41 @@ class NerfTestbed:
     # ------------------------------------------------------------------
     # rendering
     # ------------------------------------------------------------------
-    def _renderer(self, min_transmittance: float) -> WavefrontRenderer:
+    def set_rendering_extra_dims_from_training_view(self, trainview: int
+                                                   ) -> None:
+        """Render with training view `trainview`'s latent code."""
+        self._require_training()
+        if not 0 <= trainview < self.data.n_images:
+            raise ValueError(f"invalid training view {trainview}")
+        self.rendering_extra_dims_from_training_view = trainview
+        self._rendering_extra_dims = None
+
+    def set_rendering_extra_dims(self, vals) -> None:
+        """Render with an explicit latent vector (n_extra,)."""
+        vals = np.asarray(vals, np.float32).reshape(-1)
+        if vals.size != self.scene.n_extra_dims:
+            raise ValueError(f"expected {self.scene.n_extra_dims} extra dims")
+        self.rendering_extra_dims_from_training_view = -1
+        self._rendering_extra_dims = torch.from_numpy(vals).to(self.device)
+
+    def get_rendering_extra_dims(self) -> Optional[torch.Tensor]:
+        """The latent code renders use, (n_extra,), or None for a network
+        without latent dims."""
+        view = self.rendering_extra_dims_from_training_view
+        if self.data is not None and self.data.extra_dims is not None \
+                and view >= 0:
+            return self.data.extra_dims[view]
+        if self.scene.n_extra_dims and self._rendering_extra_dims is None:
+            raise ValueError("this network has latent dims and no training "
+                             "view to take them from: call "
+                             "set_rendering_extra_dims first")
+        return self._rendering_extra_dims
+
+    def _render_config(self, mode: str, min_transmittance: float,
+                       tile: int) -> RenderConfig:
         k_render = (self.render_max_samples_per_ray
                     or min(self.max_samples_per_ray, 512))
-        cfg = RenderConfig(
+        return RenderConfig(
             n_march=self.n_march, max_samples_per_ray=k_render,
             cone_angle=self.scene.cone_angle_constant,
             max_mip=self.scene.max_cascade,
@@ -757,25 +853,78 @@ class NerfTestbed:
             density_activation=self.scene.density_activation,
             min_transmittance=min_transmittance,
             query_budget=self.render_query_budget,
-            stochastic_corners=self.render_stochastic_corners)
-        return WavefrontRenderer(self.inference_model, cfg, self.aabb_min,
-                                 self.aabb_max)
+            stochastic_corners=(self.render_stochastic_corners
+                                and mode not in ("Normals", "EncodingVis")),
+            render_mode=mode,
+            # the budget, not tile x samples per ray: depth-major
+            # compaction sheds every ray's deep tail where it binds
+            sample_capacity=min(tile * k_render, self.render_query_budget))
+
+    def _uses_wavefront(self, mode: str) -> bool:
+        return self.render_wavefront and mode in ("Shade", "Depth", "AO")
+
+    def _get_render_fn(self, tile: int, mode: str, min_transmittance: float):
+        """fn(origins, dirs, bg, extra_dims, generator) -> render_tile's
+        dict for one tile of rays: the wavefront renderer for Shade, Depth
+        and AO (which are weighted sums of what it accumulates), else
+        `render_tile`."""
+        cfg = self._render_config(mode, min_transmittance, tile)
+        net = self.inference_model
+        if not self._uses_wavefront(mode):
+            return lambda o, d, bg, extra, gen: render_tile(
+                net, cfg, o, d, self.bitfield, self.aabb_min, self.aabb_max,
+                bg, extra, gen)
+        renderer = WavefrontRenderer(net, cfg, self.aabb_min, self.aabb_max)
+        if mode == "Shade":
+            return lambda o, d, bg, extra, gen: renderer.render(
+                o, d, self.bitfield, bg, gen, extra)
+
+        def fn(o, d, bg, extra, gen):
+            out = renderer.render(o, d, self.bitfield, torch.zeros_like(bg),
+                                  gen, extra)
+            value = out["depth"] if mode == "Depth" else out["alpha"]
+            out["rgb"] = value[:, None].expand(-1, 3) \
+                + (1.0 - out["alpha"])[:, None] * bg
+            return out
+        return fn
 
     @torch.no_grad()
     def render_frame(self, width: int, height: int, camera_matrix,
                      focal_length=None, spp: int = 1,
                      background_color=(0.0, 0.0, 0.0),
+                     render_mode: str = "Shade",
                      min_transmittance: float = 1e-2,
                      tile: Optional[int] = None,
-                     screen_center=(0.5, 0.5)) -> np.ndarray:
-        """Render a Shade frame with the inference parameters -> (H, W, 4)
-        linear float32 (rgb, alpha).
+                     lens_mode: int = 0, lens_params=None,
+                     screen_center=(0.5, 0.5),
+                     use_distortion_map: bool = False,
+                     aperture_size: float = 0.0, focus_z: float = 1.0,
+                     use_envmap_background: Optional[bool] = None,
+                     extra_dims=None) -> np.ndarray:
+        """Render a frame with the inference parameters -> (H, W, 4) linear
+        float32 (rgb, alpha).
 
         camera_matrix: (3, 4) NGP-space camera. focal_length: pixels, a
         scalar or (fx, fy); by default the first training camera's,
         scaled to the frame (a render-only testbed has none and requires
-        it). spp > 1 averages jittered subpixel samples. tile bounds the
-        rays rendered together (default 2^19)."""
+        it). spp > 1 averages jittered subpixel samples.
+        render_mode: a `common.RenderMode` or its name; Slice is
+        `render_density_slice`'s. tile bounds the rays rendered together:
+        by default 2^19 for the wavefront renderer, whose march is chunked
+        inside, and 2^13 for `render_tile`, whose planes are (tile,
+        n_march). lens_mode (a `camera.LENS_*` id or its name),
+        lens_params (7,), screen_center: the lens the rays go through;
+        use_distortion_map adds the trained distortion map (always added
+        while `optimize_distortion` is on).
+        aperture_size, focus_z: depth of field; every spp pass draws fresh
+        disk samples per pixel, so the average converges to the thin-lens
+        blur. use_envmap_background: the envmap behind the scene, by each
+        ray's direction; by default on while an envmap is trained or came
+        with the dataset. extra_dims: the latent code of the frame; by
+        default `get_rendering_extra_dims()`."""
+        mode = getattr(render_mode, "value", render_mode)
+        if isinstance(lens_mode, str):
+            lens_mode = lens_mode_id(lens_mode)
         if focal_length is None:
             if self.data is None:
                 raise ValueError("focal_length is required: a render-only "
@@ -787,10 +936,34 @@ class NerfTestbed:
             fl = np.array(focal_length, np.float32)
             if fl.ndim == 0:
                 fl = np.array([fl, fl], np.float32)
-        tile = tile or (1 << 19)
-        renderer = self._renderer(min_transmittance)
-        bg = torch.as_tensor(background_color, dtype=torch.float32,
-                             device=self.device)
+        cam = np.array(camera_matrix, np.float32)
+        dist_map = self.distortion_map.params \
+            if use_distortion_map or self.optimize_distortion else None
+
+        if mode == "Distortion":
+            # a screen-space picture of the lens: no marching
+            return distortion_flow_image(
+                width, height, fl, cam, device=self.device,
+                screen_center=screen_center, lens_mode=lens_mode,
+                lens_params=lens_params, distortion_map=dist_map
+            ).cpu().numpy()
+        if mode not in RENDER_TILE_MODES:
+            raise ValueError(f"render_frame has no mode {mode!r} (the Slice "
+                             f"mode is render_density_slice)")
+
+        if extra_dims is None:
+            extra_dims = self.get_rendering_extra_dims()
+        else:
+            extra_dims = torch.as_tensor(extra_dims, dtype=torch.float32,
+                                         device=self.device)
+        if tile is None:
+            tile = (1 << 19) if self._uses_wavefront(mode) else (1 << 13)
+        fn = self._get_render_fn(tile, mode, min_transmittance)
+        bg_const = torch.as_tensor(background_color, dtype=torch.float32,
+                                   device=self.device)
+        if use_envmap_background is None:
+            use_envmap_background = (self.train_envmap
+                                     or self.has_dataset_envmap)
         n_pixels = width * height
         acc = torch.zeros(n_pixels, 4, device=self.device)
         self.last_frame_n_samples = 0
@@ -798,75 +971,198 @@ class NerfTestbed:
         if self.render_stochastic_corners:
             corner_gen = torch.Generator(device=self.device).manual_seed(
                 self.seed ^ 0x7E4D)
+        aperture_gen = None
+        if aperture_size != 0.0:
+            aperture_gen = torch.Generator(device=self.device).manual_seed(
+                0xAB)
         for s in range(spp):
             jitter = None if spp == 1 else ld_pixel_offset(s)
             origins, dirs = camera_rays_for_frame(
-                width, height, fl, np.array(camera_matrix, np.float32),
-                jitter=jitter, device=self.device,
-                screen_center=screen_center)
+                width, height, fl, cam, device=self.device,
+                screen_center=screen_center, lens_mode=lens_mode,
+                lens_params=lens_params, distortion_map=dist_map,
+                jitter=jitter, aperture_size=aperture_size, focus_z=focus_z,
+                generator=aperture_gen)
             for i in range(0, n_pixels, tile):
-                out = renderer.render(origins[i:i + tile], dirs[i:i + tile],
-                                      self.bitfield, bg, corner_gen)
+                d_tile = dirs[i:i + tile]
+                bg = bg_const
+                if use_envmap_background:
+                    # the envmap over the constant colour, premultiplied
+                    env = read_envmap(self.envmap.params, d_tile)
+                    bg = env[:, :3] + bg_const * (1.0 - env[:, 3:4])
+                out = fn(origins[i:i + tile], d_tile, bg, extra_dims,
+                         corner_gen)
                 acc[i:i + tile, :3] += out["rgb"]
                 acc[i:i + tile, 3] += out["alpha"]
-                self.last_frame_n_samples += out["n_samples"]
+                self.last_frame_n_samples += int(out["n_samples"])
         return (acc / spp).reshape(height, width, 4).cpu().numpy()
 
     def render_training_view(self, img_idx: int, spp: int = 1,
                              width: Optional[int] = None,
                              height: Optional[int] = None,
                              min_transmittance: float = 1e-4,
-                             background_color=(0.0, 0.0, 0.0)
-                             ) -> np.ndarray:
-        """Render from a training camera, through its own focal length and
-        principal point."""
+                             background_color=(0.0, 0.0, 0.0),
+                             render_mode: str = "Shade") -> np.ndarray:
+        """Render from a training camera, through its own focal length,
+        principal point and lens, with its own latent code."""
         self._require_training()
-        if self.scene.lens_mode != 0:
-            raise NotImplementedError(f"lens mode {self.scene.lens_mode} is "
-                                      f"not ported yet (only the pinhole "
-                                      f"lens)")
         w0, h0 = (int(v) for v in self.data.resolutions[img_idx].tolist())
         width, height = width or w0, height or h0
         fl = self.data.focal_lengths[img_idx].cpu().numpy() \
             * np.array([width / w0, height / h0], np.float32)
+        extra = None if self.data.extra_dims is None \
+            else self.data.extra_dims[img_idx]
         return self.render_frame(
             width, height, self.effective_xform(img_idx), fl, spp=spp,
             min_transmittance=min_transmittance,
-            background_color=background_color,
-            screen_center=self.data.principal_points[img_idx].tolist())
+            background_color=background_color, render_mode=render_mode,
+            lens_mode=self.scene.lens_mode,
+            lens_params=self.data.lens_params[img_idx],
+            screen_center=self.data.principal_points[img_idx].tolist(),
+            extra_dims=extra)
 
-    def eval_psnr(self, img_idx: int, spp: int = 1, downscale: int = 1
-                  ) -> float:
-        """PSNR of a rendered training view against its image, in sRGB over
-        a black background. The network trains in sRGB, so the rendered
-        values are sRGB already."""
-        self._require_training()
-        if self.data.pixels.dtype != torch.uint8 \
-                or self.train_in_linear_colors:
-            raise NotImplementedError("eval_psnr of HDR images or of a "
-                                      "network trained in linear colours "
-                                      "is not ported yet")
+    def _gt_srgb(self, img_idx: int, w: int, h: int, downscale: int
+                 ) -> np.ndarray:
+        """A training image as sRGB over black, (h, w, 3), area-averaged
+        by `downscale`. uint8 images are sRGB with straight alpha; float
+        (HDR) images are linear, premultiplied."""
         w0, h0 = (int(v) for v in self.data.resolutions[img_idx].tolist())
-        w, h = w0 // downscale, h0 // downscale
-        render = self.render_training_view(img_idx, spp=spp, width=w,
-                                           height=h)
-        gt = self.data.pixels[img_idx, :h0, :w0].cpu().numpy() \
-            .astype(np.float32) / 255.0
-        gt_srgb = gt[..., :3] * gt[..., 3:4]   # premultiplied, on black
+        gt_raw = self.data.pixels[img_idx, :h0, :w0].cpu().numpy()
+        if gt_raw.dtype == np.uint8:
+            gt = gt_raw.astype(np.float32) / 255.0
+            gt_srgb = gt[..., :3] * gt[..., 3:4]
+        else:
+            gt_srgb = linear_to_srgb(gt_raw[..., :3].astype(np.float32))
         if downscale != 1:
             # area average: rendered pixel i spans source block
             # [i*ds, (i+1)*ds) and its ray passes through the block centre
             ds = downscale
             gt_srgb = gt_srgb[:h * ds, :w * ds] \
                 .reshape(h, ds, w, ds, 3).mean(axis=(1, 3))
-        return psnr(mse(np.clip(render[..., :3], 0.0, 1.0), gt_srgb))
+        return gt_srgb
+
+    def eval_psnr(self, img_idx: int, spp: int = 1, downscale: int = 1
+                  ) -> float:
+        """PSNR of a rendered training view against its image, in sRGB over
+        a black background. The network trains in sRGB, so the rendered
+        values are sRGB already; an HDR image is linear and is converted."""
+        self._require_training()
+        w0, h0 = (int(v) for v in self.data.resolutions[img_idx].tolist())
+        w, h = w0 // downscale, h0 // downscale
+        render = self.render_training_view(img_idx, spp=spp, width=w,
+                                           height=h)
+        return psnr(mse(np.clip(render[..., :3], 0.0, 1.0),
+                        self._gt_srgb(img_idx, w, h, downscale)))
+
+    def find_closest_training_view(self, camera_matrix) -> int:
+        """The training camera nearest in position and view direction."""
+        self._require_training()
+        cam = np.asarray(camera_matrix, np.float32)
+        xforms = self.data.xforms_start.cpu().numpy()
+        pos_d = np.linalg.norm(xforms[:, :3, 3] - cam[:3, 3], axis=-1)
+        dir_d = np.linalg.norm(xforms[:, :3, 2] - cam[:3, 2], axis=-1)
+        return int(np.argmin(pos_d + dir_d))
+
+    # ------------------------------------------------------------------
+    # the density field
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _raw_density(self, pos_world: torch.Tensor) -> torch.Tensor:
+        """Raw density of the inference network at world positions (n, 3),
+        in calls of at most the query budget."""
+        step = self.render_query_budget
+        span = self.aabb_max - self.aabb_min
+        return torch.cat([self.inference_model.density(
+            (pos_world[i:i + step] - self.aabb_min) / span)
+            for i in range(0, pos_world.shape[0], step)])
+
+    def _unit_steps(self, n: int) -> torch.Tensor:
+        """n steps over [0, 1] as numpy spaces them (torch.linspace rounds
+        some of them the other way, and a hash grid's density is steep)."""
+        return torch.from_numpy(np.linspace(0, 1, n, dtype=np.float32)).to(
+            self.device)
+
+    def render_density_slice(self, resolution: int = 256,
+                             plane_z: float = 0.5) -> np.ndarray:
+        """The Slice render mode -> (resolution, resolution, 3): the raw
+        density on the plane z = plane_z of the aabb (x right, y down), in
+        false colour."""
+        from ..geom.marching import density_slice_image
+
+        lin = self._unit_steps(resolution)
+        xx, yy = torch.meshgrid(lin, lin, indexing="xy")
+        pos = torch.stack([xx, yy, torch.full_like(xx, plane_z)],
+                          dim=-1).reshape(-1, 3) \
+            * (self.aabb_max - self.aabb_min) + self.aabb_min
+        raw = self._raw_density(pos).cpu().numpy()
+        return density_slice_image(raw.reshape(resolution, resolution, 1),
+                                   axis=2, index=0)
+
+    @torch.no_grad()
+    def density_on_grid(self, resolution=128, aabb=None) -> np.ndarray:
+        """Raw (pre-activation) density on a regular grid over `aabb`
+        (default the scene's) -> (rx, ry, rz); where the occupancy grid's
+        density is under its threshold the value is -10000. `resolution` is
+        one number or three."""
+        lo, hi = (self.aabb_min, self.aabb_max) if aabb is None else (
+            torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+            for a in aabb)
+        rx, ry, rz = (resolution,) * 3 if np.isscalar(resolution) \
+            else (int(v) for v in resolution)
+        lin = [self._unit_steps(r) for r in (rx, ry, rz)]
+        out = np.empty((rx, ry, rz), np.float32)
+        for ix in range(rx):
+            pos = torch.stack(torch.meshgrid(lin[0][ix:ix + 1], lin[1],
+                                             lin[2], indexing="ij"),
+                              dim=-1).reshape(-1, 3) * (hi - lo) + lo
+            mip = mip_from_pos(pos, self.scene.max_cascade)
+            idx, inside = cascaded_grid_idx_at(pos, mip)
+            grid_d = torch.where(
+                inside, self.density_grid[idx + mip * NERF_GRID_N_CELLS],
+                0.0)
+            raw = torch.where(grid_d < NERF_MIN_OPTICAL_THICKNESS, -10000.0,
+                              self._raw_density(pos))
+            out[ix] = raw.reshape(ry, rz).cpu().numpy()
+        return out
+
+    def compute_and_save_png_slices(self, filename: str,
+                                    resolution: int = 256, aabb=None,
+                                    thresh: float = 2.5,
+                                    density_range: float = 4.0,
+                                    flip_y_and_z_axes: bool = False):
+        """Write the raw density's slice atlas to
+        `<filename>.density_slices_<X>x<Y>x<Z>.png` (needs PIL) -> the
+        per-axis grid resolution in that name."""
+        from ..geom.marching import (marching_cubes_res,
+                                     save_density_slices_png)
+
+        lo = np.asarray(aabb[0] if aabb else self.scene.aabb_min)
+        hi = np.asarray(aabb[1] if aabb else self.scene.aabb_max)
+        res3d = marching_cubes_res(resolution, lo, hi)
+        field = self.density_on_grid(res3d, aabb=(lo, hi))
+        save_density_slices_png(
+            f"{filename}.density_slices_{res3d[0]}x{res3d[1]}x{res3d[2]}"
+            f".png", field, float(thresh), density_range, flip_y_and_z_axes)
+        return res3d
+
+    def compute_marching_cubes_mesh(self, *args, **kwargs):
+        raise NotImplementedError("compute_marching_cubes_mesh: the mesh "
+                                  "tools are not ported (ROADMAP queue 1: "
+                                  "the mesh tools)")
+
+    def optimise_mesh_step(self, *args, **kwargs):
+        raise NotImplementedError("optimise_mesh_step: the mesh tools are "
+                                  "not ported (ROADMAP queue 1: the mesh "
+                                  "tools)")
 
     # ------------------------------------------------------------------
     # snapshots
     # ------------------------------------------------------------------
     def save_snapshot(self, path: str) -> None:
         """A snapshot in the JAX package's format, with the config
-        embedded: parameters, optimizer state, density grid, step counts."""
+        embedded: parameters, optimizer state, density grid, step counts,
+        the per-image camera state, the latent codes with their optimizer
+        state, the envmap and the distortion map."""
         from ..data.snapshot import save_snapshot
 
         self._require_training()
@@ -887,7 +1183,10 @@ class NerfTestbed:
                 "focal_offset": self.cam_focal_offset,
                 "exposures": self.data.exposures,
             },
-            "extra_dims": None,
+            "extra_dims": None if self._extra_dims_buf is None
+            else buffer_state_to_jax(self._extra_dims_buf.state),
+            "envmap": self.envmap.params,
+            "distortion_map": self.distortion_map.params,
         })
 
     def load_snapshot_state(self, snapshot: Dict[str, Any]) -> None:
@@ -909,3 +1208,12 @@ class NerfTestbed:
                                              np.float32)
             self.data.exposures = torch.as_tensor(
                 np.array(cam["exposures"], np.float32), device=self.device)
+            extra = snapshot.get("extra_dims")
+            if extra is not None and self._extra_dims_buf is not None:
+                self._extra_dims_buf.load_state(extra)
+        # the two maps come without their optimizers' moments
+        for key, buf in (("envmap", self.envmap),
+                         ("distortion_map", self.distortion_map)):
+            if snapshot.get(key) is not None:
+                buf.state["params"].copy_(torch.as_tensor(
+                    snapshot[key]["params"], dtype=torch.float32))

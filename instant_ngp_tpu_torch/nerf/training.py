@@ -34,8 +34,21 @@
   in the stats), from which the testbed rebuilds the CDFs that
   `sample_rays` follows.
 
-Extra-dims, envmap and distortion optimisation and depth supervision are
-not ported yet: their switches raise.
+- Depth supervision (`cfg.depth_supervision_lambda` with depth images in
+  the data): the composited depth of each ray against the depth image's
+  value at its pixel (0 = no depth there), as one more loss term.
+- Per-image latent codes (`data.extra_dims`): every sample takes the code
+  of its ray's image into the direction encoding; with
+  `cfg.optimize_extra_dims` the codes are a leaf and their gradient, a
+  segment sum over each image's samples, comes back as
+  "extra_dims_gradient".
+- Environment map (`envmap` given): looked up by the rays' directions and
+  composited behind the random background; its gradient comes back as
+  "envmap_gradient".
+- Distortion map (`distortion` given): the rays are built through it, and
+  rebuilt under autograd as for the camera, so the exact encode runs; its
+  gradient comes back as "distortion_gradient".
+The testbed steps the three buffers with their own optimizers.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from ..common import NERF_MIN_OPTICAL_THICKNESS
 from ..ops.grid_encoding import CornerDraws
 from ..ops.losses import LossType, loss_and_gradient
 from ..ops.optimizers import Optimizer, tree_leaves, tree_map
+from ..ops.trainable_buffer import read_envmap
 from ..ops.trainer import default_l2_mask
 from .dataset import NerfTrainingData
 from .model import NerfNetwork, network_to_density, network_to_rgb
@@ -85,13 +99,18 @@ def composite_loss(raw: torch.Tensor, samples: SampleBatch,
                    loss_type: LossType, mean_density: torch.Tensor,
                    near_distance: float,
                    train_in_linear_colors: bool = False,
-                   disable_regularizers: bool = False) -> CompositeResult:
+                   disable_regularizers: bool = False,
+                   depth_target: Optional[torch.Tensor] = None,
+                   depth_supervision_lambda: float = 0.0,
+                   depth_loss_type: LossType = LossType.L1
+                   ) -> CompositeResult:
     """Composite in the (R, M) candidate domain.
 
     raw: (S, 4) pre-activation network outputs (r, g, b, sigma) on the
     compacted sample batch. ts, dts: (R, M) candidate times and raw step
     sizes. bg_color: (R, 3) LINEAR background. exposure: (R, 3)
-    log2-exposure of each ray's source image."""
+    log2-exposure of each ray's source image. depth_target: (R,) metric
+    depth of each ray's pixel, supervised where it is > 0."""
     n_lanes, n_march = samples.cand_slot.shape
     n_cand = n_lanes * n_march
     mask = samples.cand_slot < raw.shape[0]                     # (R, M)
@@ -148,6 +167,13 @@ def composite_loss(raw: torch.Tensor, samples: SampleBatch,
     per_ray_loss = torch.where(lane_valid, loss.sum(dim=-1) / 3.0, 0.0)
     loss_main = per_ray_loss.sum() / n_lanes
 
+    if depth_supervision_lambda > 0.0 and depth_target is not None:
+        d_elem, _ = loss_and_gradient(depth_loss_type, depth_target,
+                                      depth_ray)
+        has_depth = lane_valid & (depth_target > 0)
+        loss_main = loss_main + depth_supervision_lambda * torch.where(
+            has_depth, d_elem, 0.0).sum() / n_lanes
+
     measured = n_alive.sum()
     if disable_regularizers:
         return CompositeResult(loss_main, per_ray_loss, measured, ray_rgb,
@@ -196,22 +222,8 @@ class NerfTrainStepConfig(NamedTuple):
     error_map_res: Tuple[int, int] = (0, 0)   # (W_c, H_c) of the error map
     stochastic_corners: bool = False   # the estimator instead of the exact
     #                                    encode, unless rays are rebuilt
-    # not ported yet: each raises when switched on
     depth_supervision_lambda: float = 0.0
-    optimize_extra_dims: bool = False
-
-
-REMAINDER = "ROADMAP queue 1: the training chain's remainder"
-NOT_PORTED = {
-    "depth_supervision_lambda": f"depth supervision ({REMAINDER})",
-    "optimize_extra_dims": f"per-image extra dims ({REMAINDER})",
-}
-
-
-def check_ported(cfg: NerfTrainStepConfig) -> None:
-    for name, what in NOT_PORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name}: {what} is not ported yet")
+    optimize_extra_dims: bool = False  # "extra_dims_gradient" in the stats
 
 
 def deposit_error_map(error_map: torch.Tensor, rays: RayBatch,
@@ -255,24 +267,30 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
                     draws: Union[StepDraws, TrainDraws, torch.Generator],
                     cam: Optional[Dict[str, torch.Tensor]] = None,
                     error_cdfs: Optional[Dict[str, torch.Tensor]] = None,
-                    error_map: Optional[torch.Tensor] = None
+                    error_map: Optional[torch.Tensor] = None,
+                    envmap: Optional[torch.Tensor] = None,
+                    distortion: Optional[torch.Tensor] = None
                     ) -> Dict[str, Any]:
     """One training step: updates the model's parameters (which must
     require grad) and `opt_state` in place and returns the step's stats,
     all on the device: "loss", "measured_batch_size",
     "measured_batch_size_before_compaction", "n_rays" and "fused", the
     four as one float32 vector so that the host reads them in one copy;
-    besides, "cam_gradient", "exposure_gradient" and "error_map" where
-    the configuration asks for them (the module docstring says when).
+    besides, "cam_gradient", "exposure_gradient", "extra_dims_gradient",
+    "envmap_gradient", "distortion_gradient" and "error_map" where the
+    configuration asks for them (the module docstring says when).
 
     draws: the step's random numbers (a `StepDraws`, or the rays' alone
     where no corner is sampled), or the generator to draw them all from
     (on the data's device).
     cam: the current per-image camera offsets; the rays are built through
-    them whether or not their gradient is taken."""
-    check_ported(cfg)
+    them whether or not their gradient is taken.
+    envmap (H, W, 4), distortion (H, W, 2): the trainable buffers' current
+    values; given, they take part in the step and their gradients come
+    back."""
     use_cdfs = cfg.use_error_map and error_cdfs is not None
-    rebuild = cfg.optimize_camera and cam is not None
+    cam_grad = cfg.optimize_camera and cam is not None
+    rebuild = cam_grad or distortion is not None
     stochastic = cfg.stochastic_corners and not rebuild
     if isinstance(draws, torch.Generator):
         draws = StepDraws(draw_train_randoms(draws, cfg.n_rays,
@@ -289,7 +307,8 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
         rays, motionblur_time = generate_rays(
             ray_draws, data, aabb_min, aabb_max, cfg.cone_angle,
             cfg.lens_mode, cfg.snap_to_pixel_centers, cam=cam,
-            error_cdfs=error_cdfs if use_cdfs else None)
+            error_cdfs=error_cdfs if use_cdfs else None,
+            distortion_map=distortion)
         ts, dts, emits = march_rays(rays, bitfield, aabb_min, aabb_max,
                                     cfg.cone_angle, cfg.max_mip, cfg.n_march,
                                     cfg.max_samples_per_ray)
@@ -298,24 +317,40 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
         bg = ray_draws.bg_color if cfg.random_bg_color \
             else torch.zeros_like(ray_draws.bg_color)
         bg = _srgb_to_linear(bg)
+        sample_img = None if data.extra_dims is None \
+            else rays.img_idx[samples.ray_id]
+        depth_target = None
+        if cfg.depth_supervision_lambda > 0 and data.depths is not None:
+            px = (rays.uv * data.resolutions[rays.img_idx]).to(torch.int32)
+            x = px[:, 0].long().clamp(0, data.depths.shape[2] - 1)
+            y = px[:, 1].long().clamp(0, data.depths.shape[1] - 1)
+            depth_target = data.depths[rays.img_idx, y, x]
 
     params = model.param_tree()
     leaves = tree_leaves(params)
     # the step's own leaves for what the host optimizes
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
     aux = {}
-    if rebuild:
-        aux.update({f"cam.{k}": v.detach().clone().requires_grad_(True)
-                    for k, v in cam.items()})
+    if cam_grad:
+        aux.update({f"cam.{k}": leaf(v) for k, v in cam.items()})
     if cfg.optimize_exposure:
-        aux["exposure"] = data.exposures.detach().clone().requires_grad_(
-            True)
+        aux["exposure"] = leaf(data.exposures)
+    if cfg.optimize_extra_dims and data.extra_dims is not None:
+        aux["extra"] = leaf(data.extra_dims)
+    if envmap is not None:
+        aux["envmap"] = leaf(envmap)
+    if distortion is not None:
+        aux["distortion"] = leaf(distortion)
     with torch.enable_grad():
         if rebuild:
-            # rays again, differentiably in the offsets; the samples stay
-            # at the distances the march chose
+            # rays again, differentiably in the offsets and the distortion
+            # map; the samples stay at the distances the march chose
             origins, dirs, _ = build_rays(
                 data, rays.img_idx, rays.uv, motionblur_time, cfg.lens_mode,
-                {k: aux[f"cam.{k}"] for k in cam})
+                {k: aux[f"cam.{k}"] for k in cam} if cam_grad else cam,
+                distortion_map=aux.get("distortion"))
             d_s = dirs[samples.ray_id]
             positions = (origins[samples.ray_id]
                          + samples.t_mid[:, None] * d_s
@@ -328,13 +363,23 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             key = "encode_generator" if isinstance(corners, torch.Generator) \
                 else "encode_draws"
             encode[key] = corners
-        raw = model.apply_components(positions, dirs_warped, **encode)
+        extra = None
+        if sample_img is not None:
+            # each sample's latent: its ray's image's code (the backward of
+            # this gather is the segment sum over an image's samples)
+            extra = aux.get("extra", data.extra_dims)[sample_img]
+        raw = model.apply_components(positions, dirs_warped, extra, **encode)
         exposure = aux.get("exposure", data.exposures)[rays.img_idx]
+        if "envmap" in aux:
+            # the envmap behind the random background
+            env = read_envmap(aux["envmap"], rays.dirs)
+            bg = env[:, :3] + bg * (1.0 - env[:, 3:4])
         result = composite_loss(
             raw, samples, ts, dts, rays, bg, exposure, cfg.rgb_activation,
             cfg.density_activation, cfg.loss_type, mean_density,
             cfg.near_distance, cfg.train_in_linear_colors,
-            cfg.disable_regularizers)
+            cfg.disable_regularizers, depth_target,
+            cfg.depth_supervision_lambda)
         grads = torch.autograd.grad(result.loss_for_grad,
                                     leaves + list(aux.values()))
     aux_grads = dict(zip(aux, grads[len(leaves):]))
@@ -351,10 +396,14 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
         }
         stats["fused"] = torch.stack([v.to(torch.float32)
                                       for v in stats.values()])
-        if rebuild:
+        if cam_grad:
             stats["cam_gradient"] = {k: aux_grads[f"cam.{k}"] for k in cam}
-        if cfg.optimize_exposure:
-            stats["exposure_gradient"] = aux_grads["exposure"]
+        for key, name in (("exposure", "exposure_gradient"),
+                          ("extra", "extra_dims_gradient"),
+                          ("envmap", "envmap_gradient"),
+                          ("distortion", "distortion_gradient")):
+            if key in aux_grads:
+                stats[name] = aux_grads[key]
         if cfg.use_error_map and error_map is not None:
             stats["error_map"] = deposit_error_map(
                 error_map, rays, result.per_ray_loss.detach(),

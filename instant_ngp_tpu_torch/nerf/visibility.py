@@ -3,15 +3,20 @@ instant_ngp_tpu/nerf/visibility.py).
 
 A grid cell is trainable if at least one training camera sees any of its 8
 corners: the corner lies in front of the camera and projects inside
-(0, 1)^2 of its image. Run once per dataset, in chunks of cells, with a
-loop over the cameras. Only the pinhole lens is ported.
+(0, 1)^2 of its image, through the OpenCV or fisheye distortion where the
+lens is one of them. The f-theta, latlong and equirectangular lenses are
+taken to see everything. Run once per dataset, in chunks of cells, with a
+loop over the cameras.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..camera import LENS_PERSPECTIVE
+from ..camera import (LENS_EQUIRECT, LENS_FTHETA, LENS_LATLONG, LENS_OPENCV,
+                      LENS_OPENCV_FISHEYE,
+                      opencv_fisheye_lens_distortion_delta,
+                      opencv_lens_distortion_delta)
 from ..common import NERF_GRID_N_CELLS, NERF_GRIDSIZE
 from .dataset import NerfSceneConfig, NerfTrainingData
 from .march import morton3d_coords
@@ -21,11 +26,13 @@ from .march import morton3d_coords
 def compute_visible_cells(data: NerfTrainingData, scene: NerfSceneConfig,
                           chunk: int = 1 << 18) -> torch.Tensor:
     """-> (n_cascades * 128^3,) bool visibility, on the data's device."""
-    if scene.lens_mode != LENS_PERSPECTIVE:
-        raise NotImplementedError(f"lens mode {scene.lens_mode} is not "
-                                  f"ported yet (only the pinhole lens)")
     dev = data.xforms_start.device
     n_total = NERF_GRID_N_CELLS * (scene.max_cascade + 1)
+    if scene.lens_mode in (LENS_FTHETA, LENS_LATLONG, LENS_EQUIRECT):
+        return torch.ones(n_total, dtype=torch.bool, device=dev)
+    distortion = {LENS_OPENCV: opencv_lens_distortion_delta,
+                  LENS_OPENCV_FISHEYE: opencv_fisheye_lens_distortion_delta
+                  }.get(scene.lens_mode)
     offs = torch.tensor([[cx, cy, cz] for cx in (0, 1) for cy in (0, 1)
                          for cz in (0, 1)], dtype=torch.float32, device=dev)
     out = torch.zeros(n_total, dtype=torch.bool, device=dev)
@@ -51,8 +58,12 @@ def compute_visible_cells(data: NerfTrainingData, scene: NerfSceneConfig,
             safe_z = torch.where(cz.abs() < 1e-9, 1e-9, cz)
             fl, res, pp = (data.focal_lengths[i], data.resolutions[i],
                            data.principal_points[i])
-            u = cx / safe_z * fl[0] / res[0] + pp[0]
-            v = cy / safe_z * fl[1] / res[1] + pp[1]
+            px, py = cx / safe_z, cy / safe_z
+            if distortion is not None:
+                du, dv = distortion(data.lens_params[i], px, py)
+                px, py = px + du, py + dv
+            u = px * fl[0] / res[0] + pp[0]
+            v = py * fl[1] / res[1] + pp[1]
             inside = (u > 0) & (u < 1) & (v > 0) & (v < 1)
             seen |= (in_front & inside).any(dim=-1)
         out[start:start + chunk] = seen

@@ -55,7 +55,17 @@ CASES = [
     ([27, 64, 64, 5], "ReLU", "None"),           # inputs narrower than padded
     ([32, 64, 8], "ReLU", "None"),               # 8 outputs stored directly
     ([32, 128, 16], "ReLU", "None"),             # 128 wide, two layers
+    # the RGB net of a capture with 4 latent dims per image: 36 inputs pad
+    # to 48, which has no instantiation, so the general kernel takes it
+    ([36, 64, 64, 3], "ReLU", "None"),
 ]
+
+
+def test_latent_dims_rgb_shape_takes_the_general_kernel():
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import kernel_variant
+
+    assert kernel_variant([36, 64, 64, 3]) == GENERAL
+    assert kernel_variant([32, 64, 64, 3]) != GENERAL
 
 
 @pytest.mark.parametrize("n", [1, 127, 129, 100003])

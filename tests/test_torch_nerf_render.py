@@ -233,13 +233,13 @@ def test_ld_pixel_offset_matches_jax():
 
 
 def test_port_imports_without_jax():
-    """The port imports and renders with jax, msgpack and the JAX package
-    made unimportable, as on a machine that has none of them."""
+    """The port imports and renders with jax, msgpack, PIL and the JAX
+    package made unimportable, as on a machine that has none of them."""
     code = r"""
 import importlib, importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "msgpack",
+        if name.split(".")[0] in ("jax", "jaxlib", "msgpack", "PIL",
                                   "instant_ngp_tpu"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
@@ -259,7 +259,8 @@ tb.set_density_grid(np.full(128 ** 3, 0.02, np.float32))
 cam = np.array([[1, 0, 0, 0.5], [0, 1, 0, 0.5], [0, 0, 1, -1.0]], np.float32)
 frame = tb.render_frame(4, 4, cam, focal_length=4.0)
 assert frame.shape == (4, 4, 4) and np.isfinite(frame).all()
-assert not any(m.split(".")[0] in ("jax", "msgpack", "instant_ngp_tpu")
+assert not any(m.split(".")[0] in ("jax", "msgpack", "PIL",
+                                   "instant_ngp_tpu")
                for m in sys.modules)
 print("ok")
 """

@@ -234,9 +234,16 @@ def test_rolling_shutter_camera_matches_jax():
     for name in ("OpenCV", "FTheta", "LatLong", "OpenCVFisheye",
                  "Equirectangular"):
         assert camera.lens_mode_id(name) == jcamera.lens_mode_id(name)
-    with pytest.raises(NotImplementedError):
-        camera.uv_to_ray(_t(uv), (32, 32), _t(np.ones(2, np.float32)),
-                         _t(a[0]), lens_mode=camera.lens_mode_id("OpenCV"))
+    # every lens builds rays now (tests/test_torch_lenses.py holds them
+    # to the JAX package)
+    for name in ("OpenCV", "OpenCVFisheye", "LatLong", "Equirectangular"):
+        o, d, ok = camera.uv_to_ray(
+            _t(uv), (32, 32), _t(np.full(2, 30.0, np.float32)), _t(a[0]),
+            lens_mode=camera.lens_mode_id(name),
+            lens_params=_t(np.array([.05, .01, .001, .002, 0, 0, 0],
+                                    np.float32)))
+        assert o.shape == d.shape == (n, 3) and ok.all()
+        assert torch.isfinite(d).all()
 
 
 @pytest.mark.parametrize("capacity", [1 << 14, 1000],
@@ -285,9 +292,14 @@ def test_compact_samples_matches_jax(datasets, capacity):
         ref = np.stack([np.asarray(c) for c in getattr(js, f)], -1)
         np.testing.assert_allclose(getattr(s, f).numpy(), ref, err_msg=f,
                                    **FLOAT_TOL)
-    with pytest.raises(NotImplementedError):
+    # depth-major order keeps the same number of samples (which ones, and
+    # where, is in tests/test_torch_render_modes.py); no other order
+    sd = sampler.compact_samples(rays, ts, emit, _t(lo), _t(hi), capacity,
+                                 0.0, order="depth")
+    assert int(sd.n_samples) == n and int(sd.ray_count.sum()) == n
+    with pytest.raises(ValueError):
         sampler.compact_samples(rays, ts, emit, _t(lo), _t(hi), capacity,
-                                0.0, order="depth")
+                                0.0, order="time")
 
 
 def test_sample_cells_matches_jax():
@@ -480,8 +492,9 @@ def test_build_rays_with_camera_offsets_matches_jax(datasets, at_zero):
 
 
 def test_error_map_and_camera_offsets_raise(datasets):
-    """They no longer raise: what is left to raise on this path is a lens
-    other than the pinhole, with or without offsets."""
+    """They no longer raise, and neither does a lens other than the
+    pinhole, with or without offsets: a vanishing OpenCV distortion gives
+    the pinhole's rays."""
     _, _, _, data = datasets
     draws = jax_train_draws(jax.random.PRNGKey(0), 8, 4)
     cam = {"pos": torch.zeros(4, 3), "rot": torch.zeros(4, 3),
@@ -489,6 +502,8 @@ def test_error_map_and_camera_offsets_raise(datasets):
     o, d, ok = sampler.build_rays(data, draws.img_idx, draws.uv,
                                   draws.motionblur_time, 0, cam=cam)
     assert o.shape == d.shape == (8, 3) and ok.all()
-    with pytest.raises(NotImplementedError, match="lens mode"):
-        sampler.build_rays(data, draws.img_idx, draws.uv,
-                           draws.motionblur_time, 1, cam=cam)
+    o1, d1, ok1 = sampler.build_rays(data, draws.img_idx, draws.uv,
+                                     draws.motionblur_time, 1, cam=cam)
+    assert ok1.all()
+    np.testing.assert_allclose(o1.numpy(), o.numpy(), atol=1e-7)
+    np.testing.assert_allclose(d1.numpy(), d.numpy(), atol=1e-5)

@@ -610,16 +610,38 @@ def test_inference_uses_ema_and_repacks_after_a_step():
                for t in tree_leaves(tb.model.param_tree()))
 
 
-# -- what is not ported raises -------------------------------------------------
+# -- the switches of the remainder ----------------------------------------------
 @pytest.mark.parametrize("switch, value", [
     ("optimize_extra_dims", True), ("train_envmap", True),
     ("optimize_distortion", True), ("steps_per_dispatch", 16)])
 def test_out_of_scope_switch_raises(switch, value):
+    """Only the scanned multi-step block is left to raise. The three
+    buffers' switches train: a step returns the buffer's gradient and the
+    buffer moves (`optimize_extra_dims` on a dataset without extra dims
+    has nothing to move and changes nothing). Their values against the JAX
+    package are in tests/test_torch_nerf_extras.py."""
     tb = make_port_tb(torch.float32)
     tb.training_step = 5                      # no prep needed
     setattr(tb, switch, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.train(1)
+    if switch == "steps_per_dispatch":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tb.train(1)
+        return
+    buf = {"train_envmap": tb.envmap,
+           "optimize_distortion": tb.distortion_map}.get(switch)
+    before = None if buf is None else buf.params.clone()
+    tb.update_density_grid_full()
+    stats = tb.train_step()
+    assert np.isfinite(float(stats["loss"]))
+    if buf is None:
+        assert tb._extra_dims_buf is None
+        assert "extra_dims_gradient" not in stats
+    else:
+        name = {"train_envmap": "envmap_gradient",
+                "optimize_distortion": "distortion_gradient"}[switch]
+        assert stats[name].shape == buf.params.shape
+        assert stats[name].abs().max() > 0
+        assert not torch.equal(buf.params, before)
 
 
 def assert_host_adam_close(ours, ref, what, n_updates):
@@ -700,19 +722,26 @@ def test_out_of_scope_datasets_and_mesh_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         NerfTestbed(port_dataset(make_dataset()), TRAIN_CFG, device="cpu",
                     mesh=object())
+    # datasets with latent dims or depth images no longer raise: they pack
     ds = port_dataset(make_dataset())
     ds.n_extra_learnable_dims = 2
-    with pytest.raises(NotImplementedError, match="extra dims"):
-        NerfTestbed(ds, TRAIN_CFG, device="cpu")
+    composite = dict(TRAIN_CFG, dir_encoding={"otype": "Composite", "nested": [
+        {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 4},
+        {"otype": "Identity"}]})
+    tb = NerfTestbed(ds, composite, device="cpu")
+    assert tb.data.extra_dims.shape == (4, 2) and tb.optimize_extra_dims
+    assert tb.data.extra_dims is tb._extra_dims_buf.params
+    assert tb.model.rgb_net.weights[0].shape[0] == 16 + 16 + 2
     ds = port_dataset(make_dataset())
     ds.depths = [np.ones((32, 32), np.float32)] * 4
-    with pytest.raises(NotImplementedError, match="depth"):
-        NerfTestbed(ds, TRAIN_CFG, device="cpu")
-    cfg = training.NerfTrainStepConfig(
-        8, 8, 8, 8, 0, 0.0, 0, "Logistic", "Exponential", LossType.L2, 0.0,
-        depth_supervision_lambda=1.0)
-    with pytest.raises(NotImplementedError, match="depth"):
-        training.check_ported(cfg)
+    tb = NerfTestbed(ds, TRAIN_CFG, device="cpu")
+    assert tb.data.depths.shape == (4, 32, 32)
+    tb.depth_supervision_lambda = 1.0
+    assert tb._train_cfg(8, 8).depth_supervision_lambda == 1.0
+    assert not hasattr(training, "check_ported")
+    for name in ("compute_marching_cubes_mesh", "optimise_mesh_step"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(tb, name)()
     assert isinstance(ds, NerfDataset)
 
 
