@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's NeRF render and training paths, and the
-path from a capture on disk to every render mode, once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's NeRF render and training paths, the path
+from a capture on disk to every render mode, Image mode, and the mesh tools
+and FLIP, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -40,7 +41,11 @@ Phases, each of which raises on failure (a non-zero exit):
    encode's forward and backward times per step, the prep times, the peak
    memory and a warm frame of the trained model. Then the same 128 steps
    with `stochastic_corners = False` (the exact encode), and the same
-   lines, so that the two stand side by side;
+   lines, so that the two stand side by side. Last, the scene with
+   `aabb_scale` 4 (three occupancy cascades, the cone-angle step) trains
+   AABB4_STEPS steps with the defaults; it fails unless the loss fell and
+   the march emitted samples in cascades above 0, and prints the rate and
+   the occupied bits per cascade;
 7. card against CPU: the same 2 train steps of a small network, with
    the same random draws, on the card and on the CPU: the losses and a
    48x48 frame agree within the stated tolerance; then 2 steps with pose,
@@ -75,16 +80,37 @@ Phases, each of which raises on failure (a non-zero exit):
    net's instantiation of the mma kernel, and the general kernel for the
    36-wide RGB net. It prints the seconds to write and load the capture,
    the steps per second, and the time, samples and launches of a warm
-   frame per mode; `eval_nerf_views` scores two views at the end.
+   frame per mode; `eval_nerf_views` scores two views at the end;
+10. Image mode at configs/image/base.json's full width (HashGrid 2D, L=16,
+   F=2, 2^24 entries a level, base 16; 64-wide MLP with 2 hidden layers;
+   L2; ExponentialDecay > Adam; bf16 compute) on a procedural 4096x4096
+   linear image (edges, a zone plate, smooth areas; numpy, from SEED):
+   512 steps at batch 2^18, Stratified, the first 256 with the
+   stochastic-corner encode and the rest exact. It prints steps/s of each
+   half, the peak memory, PSNR at steps 0, 256 and 512 and the time and
+   launches of a whole 4096x4096 frame, and fails unless the loss fell,
+   PSNR rose to at least IMAGE_MIN_PSNR, the frame is finite, and the
+   kernel was launched by the renders alone, on the 32x64x8 instantiation.
+   Then 2 train steps of a small image net (L=4, 2^10 entries, a 64x64
+   image) on the card and on the CPU from the same draws: losses and a
+   64x64 frame agree within phase 7's tolerances;
+11. the mesh tools and FLIP on phase 6's trained NeRF:
+   `compute_marching_cubes_mesh(256)`, which must launch the density and
+   RGB instantiations and give a mesh around the scene's sphere (a share
+   of its vertices within MESH_RADIUS_BAND of it, the outer surface
+   within MESH_OUTER_TOL); 4 `optimise_mesh_step`s, which
+   launch nothing and must not move the vertices' densities away from the
+   threshold; the mesh written as PLY and OBJ and read back; FLIP of view
+   0 against its image, finite and in [0, 1].
 
     python3 chip_smoke.py --profile OUT.txt
 
 adds a last phase: one warm frame with CUDA-event spans around each
 layer, one under torch.profiler (its table goes to OUT.txt), a warm
 density pass; then the same for training: the spans of one warm train
-step and of one density update, and 16 steps under torch.profiler; and
-where a warm frame of the trained capture spends its time in each render
-mode.
+step and of one density update, and 16 steps under torch.profiler; where
+a warm frame of the trained capture spends its time in each render mode;
+and 16 Image train steps of each encode under torch.profiler.
 
     python3 chip_smoke.py --curve
 
@@ -97,9 +123,9 @@ n_march) and prints PSNR and training seconds at steps 128, 256, 512 and
 encode. It fails if a milestone of the default run lies more than
 CURVE_SLACK_DB from the record, above or below.
 
-The last lines are one JSON object describing the kernels, the card's
-name and power limit (nvidia-smi's own line), and
-{"ok": true, "device": {...}}.
+The last lines are one JSON object describing the kernel (its
+instantiations and the paths that launch each), the card's name and power
+limit (nvidia-smi's own line), and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -177,6 +203,26 @@ CAPTURE_MIN_OPAQUE = 0.5
 # Shade by render_tile against the wavefront renderer: the same samples
 # through the same kernel, composited in another order
 CAPTURE_TILE_MAX_ABS = 1e-3
+# phase 6's run at aabb_scale 4: steps with the defaults, and the last of
+# them during which the march's cascades are counted
+AABB4_STEPS, AABB4_COUNTED = 64, 4
+# phase 10, Image mode: the image's side, steps (half stochastic, half
+# exact), the batch, and the floor of PSNR after IMAGE_STEPS steps (set
+# after the first reading)
+IMAGE_SIDE, IMAGE_STEPS, IMAGE_BATCH = 4096, 512, 1 << 18
+# 2 dB under the lowest of the first four readings, 35.75-37.70 (PSNR
+# after the last step moves by 2 dB between runs: the table gradient's
+# atomic adds change the order of its sums)
+IMAGE_MIN_PSNR = 33.7
+# phase 11: the marching-cubes resolution; the band around the scene's
+# sphere (r = 0.22 at the box's centre) in which at least MESH_IN_BAND of
+# the mesh's vertices must lie (first reading 56.9 %: the rest is an inner
+# shell, where the occupancy grid has let the unseen inside of the sphere
+# fall below its threshold and the field is -10000, as in the JAX package),
+# and how far from 0.22 the 95th percentile of the vertices' radius, the
+# outer surface, may lie (first reading 0.2161)
+MESH_RES = 256
+MESH_RADIUS_BAND, MESH_IN_BAND, MESH_OUTER_TOL = 0.05, 0.5, 0.01
 POSE_NOISE, POSE_STEPS, POSE_SIZE = 0.01, 256, 200
 # cam_grad_interval: the default, and the gradient on every step (which
 # also means the exact encode on every step)
@@ -1003,6 +1049,381 @@ def card_against_cpu(cfg, dev):
                                    f"disagree with the CPU's")
 
 
+def train_aabb4(ds, cfg, dev, smi):
+    """Phase 6 at aabb_scale 4: the scene with three occupancy cascades and
+    the cone-angle step, AABB4_STEPS steps with the testbed's defaults; in
+    the last AABB4_COUNTED the march's emitted samples are counted by
+    cascade."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.nerf import training
+    from instant_ngp_tpu_torch.nerf.march import mip_from_dt
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    ds4 = copy.copy(ds)
+    ds4.aabb_scale = 4
+    tb = NerfTestbed(ds4, cfg, device=dev, compute_dtype=torch.bfloat16,
+                     seed=SEED)
+    scene = tb.scene
+    if not (scene.max_cascade == 2 and scene.cone_angle_constant > 0):
+        raise RuntimeError(f"aabb_scale 4 gave max_cascade "
+                           f"{scene.max_cascade}, cone angle "
+                           f"{scene.cone_angle_constant}")
+    first_loss = tb.train(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb.train(AABB4_STEPS - AABB4_COUNTED - 1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n_cascades = scene.max_cascade + 1
+    by_mip = torch.zeros(n_cascades, dtype=torch.int64, device=dev)
+    march = training.march_rays
+
+    def counting_march(rays, bitfield, aabb_min, aabb_max, cone_angle,
+                       max_mip, *args):
+        ts, dts, emit = march(rays, bitfield, aabb_min, aabb_max,
+                              cone_angle, max_mip, *args)
+        pos = rays.origins[:, None, :] + ts[..., None] * rays.dirs[:, None]
+        mip = mip_from_dt(dts, pos, max_mip).clamp(0, max_mip)[emit]
+        by_mip.add_(torch.bincount(mip, minlength=n_cascades))
+        return ts, dts, emit
+
+    training.march_rays = counting_march
+    try:
+        last_loss = tb.train(AABB4_COUNTED)
+    finally:
+        training.march_rays = march
+    bits = np.unpackbits(tb.bitfield.cpu().numpy()).reshape(-1, 128 ** 3) \
+        .sum(axis=1)[:n_cascades].tolist()
+    by_mip = by_mip.tolist()
+    n_timed = AABB4_STEPS - AABB4_COUNTED - 1
+    print(f"train[aabb_scale 4]: max_cascade {scene.max_cascade}, cone angle "
+          f"{scene.cone_angle_constant:.5f}, n_march {tb.n_march}; steps "
+          f"2-{n_timed + 1} in {sec:.3f} s: {n_timed / sec:.2f} steps/s "
+          f"[{smi}]; loss {first_loss:.6f} -> {last_loss:.6f} at step "
+          f"{tb.training_step}; occupied bits by cascade {bits}; samples "
+          f"emitted by cascade over the last {AABB4_COUNTED} steps "
+          f"{by_mip}", flush=True)
+    if not last_loss < first_loss:
+        raise RuntimeError("the aabb_scale 4 run's loss did not fall")
+    if sum(by_mip[1:]) == 0:
+        raise RuntimeError("the march emitted no sample in a cascade above "
+                           "0 at aabb_scale 4")
+
+
+def procedural_image(side, seed):
+    """A linear RGB image (side, side, 3) float32: smooth gradients, a zone
+    plate in one quadrant, hard-edged rectangles and stripes in another,
+    seeded discs of flat colour on top."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v, u = (np.mgrid[0:side, 0:side].astype(np.float32) + 0.5) / side
+    img = np.empty((side, side, 3), np.float32)
+    img[..., 0] = 0.15 + 0.7 * u
+    img[..., 1] = 0.15 + 0.7 * v
+    img[..., 2] = 0.5 + 0.35 * np.sin(3.0 * u + 2.0 * v)
+    # zone plate in the upper right quadrant: frequency rising outwards
+    r2 = (u - 0.75) ** 2 + (v - 0.25) ** 2
+    zone = (r2 < 0.22 ** 2)
+    img[zone] = (0.5 + 0.45 * np.cos(np.float32(side) * 2.0 * r2[zone])
+                 )[:, None]
+    # edges in the lower left quadrant: rectangles and thin stripes
+    low_left = (u < 0.5) & (v > 0.5)
+    for _ in range(40):
+        x0, y0 = rng.uniform(0.0, 0.45), rng.uniform(0.5, 0.95)
+        w, h = rng.uniform(0.01, 0.1, 2)
+        box = low_left & (u >= x0) & (u < x0 + w) & (v >= y0) & (v < y0 + h)
+        img[box] = rng.uniform(0.0, 1.0, 3).astype(np.float32)
+    stripes = (u > 0.5) & (v > 0.5) & ((np.floor(u * side / 6) % 2) == 0)
+    img[stripes] *= 0.3
+    for _ in range(12):
+        cx, cy, rad = rng.uniform(0.05, 0.95), rng.uniform(0.05, 0.95), \
+            rng.uniform(0.01, 0.05)
+        disc = (u - cx) ** 2 + (v - cy) ** 2 < rad ** 2
+        img[disc] = rng.uniform(0.0, 1.2, 3).astype(np.float32)
+    return img
+
+
+def image_mode(cfg, dev, smi, fused_mlp_forward, variant, profile):
+    """Phase 10 -> (kernel launches by the renders, by variant; a row of the
+    kernel table for the Image path). With `profile`, 16 more steps of each
+    encode under torch.profiler at the end."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+
+    t0 = time.perf_counter()
+    img = procedural_image(IMAGE_SIDE, SEED)
+    make_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    tb = ImageTestbed(img, cfg, seed=SEED, device=dev)
+    enc = tb.model.encoding
+    widths = [w.shape[0] for w in tb.model.network.weights] + [3]
+    if not (enc.n_dims == 2 and enc.n_levels == 16
+            and enc.n_features_per_level == 2
+            and widths == [32, 64, 64, 3] and tb.random_mode == "Stratified"
+            and tb.stochastic_corners_until == IMAGE_STEPS // 2):
+        raise RuntimeError(f"the Image testbed is not base.json's "
+                           f"(widths {widths})")
+    hashed = sum(lvl[4] for lvl in enc.levels)
+    print(f"image: {IMAGE_SIDE}x{IMAGE_SIDE} procedural image made in "
+          f"{make_s:.1f} s; grid {enc.n_levels} levels ({hashed} hashed), "
+          f"{enc.n_entries} entries x 2 features ({4 * enc.n_params / 1e6:.1f}"
+          f" MB), finest scale {enc.levels[-1][0]:.1f}; MLP {widths}; "
+          f"{sum(p.numel() for p in tb.model.parameters())} parameters",
+          flush=True)
+
+    counts = {"train": 0, "render": 0}
+    tb.train = counting_launches(fused_mlp_forward, counts, "train",
+                                 tb.train)
+    tb.compute_mse = counting_launches(fused_mlp_forward, counts, "render",
+                                       tb.compute_mse)
+    tb.render = counting_launches(fused_mlp_forward, counts, "render",
+                                  tb.render)
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    psnr = [tb.psnr()]
+    first_loss = tb.train(1, IMAGE_BATCH)
+    rates, losses = [], [first_loss]
+    for n in (IMAGE_STEPS // 2 - 1, IMAGE_STEPS // 2):
+        stochastic = tb._stoch_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tb.train(n, IMAGE_BATCH))
+        torch.cuda.synchronize()
+        rates.append((stochastic, n / (time.perf_counter() - t0)))
+        psnr.append(tb.psnr())
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for (stochastic, rate), step in zip(rates, (IMAGE_STEPS // 2,
+                                                IMAGE_STEPS)):
+        print(f"image: {'stochastic' if stochastic else 'exact'} encode, "
+              f"steps to {step}: {rate:.2f} steps/s, "
+              f"{rate * IMAGE_BATCH:.4g} samples/s at batch {IMAGE_BATCH} "
+              f"[{smi}]")
+    print(f"image: loss {losses[0]:.6f} at step 1 -> {losses[1]:.6f} at "
+          f"step {IMAGE_STEPS // 2} -> {losses[2]:.6f} at step "
+          f"{IMAGE_STEPS}; PSNR {psnr[0]:.2f} / {psnr[1]:.2f} / "
+          f"{psnr[2]:.2f} dB at steps 0 / {IMAGE_STEPS // 2} / "
+          f"{IMAGE_STEPS}; peak {peak_gib:.2f} GiB allocated ({held_gib:.2f} "
+          f"GiB of it held by the earlier phases)", flush=True)
+
+    frame_launches = fused_mlp_forward.launches
+    times = []
+    for _ in range(2):        # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tb.render(IMAGE_SIDE, IMAGE_SIDE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frame_launches = (fused_mlp_forward.launches - frame_launches) // 2
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    del tb.train, tb.compute_mse, tb.render
+    print(f"image: frame {IMAGE_SIDE}x{IMAGE_SIDE} (host clock, to a numpy "
+          f"array): {1e3 * times[0]:.1f} ms cold, {1e3 * times[1]:.1f} ms "
+          f"warm, {frame_launches} kernel launches of "
+          f"{tb.render_chunk} rows; launches over the phase: "
+          f"{counts['train']} by train steps, {counts['render']} by renders "
+          f"and compute_mse, by variant {by_variant} [{smi}]", flush=True)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("the Image training loss did not fall")
+    if not (psnr[-1] > psnr[0] and psnr[-1] >= IMAGE_MIN_PSNR):
+        raise RuntimeError(f"Image PSNR {psnr[-1]:.2f} dB after "
+                           f"{IMAGE_STEPS} steps (from {psnr[0]:.2f}; at "
+                           f"least {IMAGE_MIN_PSNR} asked)")
+    if frame.shape != (IMAGE_SIDE, IMAGE_SIDE, 4) \
+            or not np.isfinite(frame).all():
+        raise RuntimeError("the Image frame is not finite or of the wrong "
+                           "shape")
+    if counts["train"] != 0 or counts["render"] == 0 \
+            or set(by_variant) != {variant}:
+        raise RuntimeError(f"the Image path must launch the kernel from its "
+                           f"renders alone, on {variant}: {counts}, "
+                           f"{by_variant}")
+    if profile:
+        profile_image_steps(tb, smi)
+    return by_variant, {"frame_ms_warm": 1e3 * times[1],
+                        "launches_per_frame": frame_launches,
+                        "rows_per_frame": IMAGE_SIDE * IMAGE_SIDE,
+                        "psnr_db": psnr, "steps_per_s": [r for _, r in rates],
+                        "peak_gib": peak_gib}
+
+
+def profile_image_steps(tb, smi):
+    """--profile: 16 Image train steps with each encode under
+    torch.profiler: wall time, the device's busy share, launches a step and
+    the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n_steps = 16
+    for stochastic in (True, False):
+        tb.stochastic_corners = stochastic
+        tb.stochastic_corners_until = None
+        tb.train(1, IMAGE_BATCH)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tb.train(n_steps, IMAGE_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _, kernels, self_device_us = profiler_kernels(prof)
+        busy = sum(self_device_us(e) for e in kernels) / 1e6
+        print(f"profile: {n_steps} Image train steps, "
+              f"{'stochastic' if stochastic else 'exact'} encode: "
+              f"{1e3 * wall / n_steps:.2f} ms a step wall, device busy "
+              f"{100 * busy / wall:.1f} %, "
+              f"{sum(e.count for e in kernels) / n_steps:.0f} kernel launches "
+              f"a step [{smi}]")
+        for e in sorted(kernels, key=self_device_us, reverse=True)[:6]:
+            us = self_device_us(e)
+            print(f"  {e.key[:60]}: {us / 1e3 / n_steps:.3f} ms a step "
+                  f"({100 * us / 1e6 / busy:.1f} % of device time)")
+
+
+def image_card_against_cpu(cfg, dev):
+    """Phase 10's check: 2 train steps of a small image net (the first with
+    the stochastic encode, the second exact) on the card and on the CPU
+    from the same draws; the losses and a 64x64 frame must agree."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+    from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
+                                                         draw_corner_randoms)
+
+    small = copy.deepcopy(cfg)
+    small["encoding"].update(n_levels=4, log2_hashmap_size=10,
+                             stochastic_corners_until=1)
+    img = procedural_image(64, SEED)
+    losses, frames = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        gen = torch.Generator().manual_seed(SEED + 10)     # on the CPU
+
+        def draws(step, n, device=device, gen=gen):
+            u = torch.rand(n, 2, generator=gen)
+            c = draw_corner_randoms(gen, n, 2, 4, 0)
+            return u.to(device), CornerDraws(c.u.to(device), None)
+
+        tb = ImageTestbed(img, small, seed=SEED, device=device, draws=draws)
+        losses[name] = [tb.train(1, 1 << 12) for _ in range(2)]
+        frames[name] = tb.render(64, 64)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    err = np.abs(frames["card"] - frames["cpu"])
+    print(f"image card vs CPU, 2 train steps of a small net: losses "
+          f"{losses['card']} vs {losses['cpu']} (relative difference "
+          f"{rel:.3g}); 64x64 frame max abs {err.max():.3g}, mean abs "
+          f"{err.mean():.3g}", flush=True)
+    if rel > CPU_LOSS_REL or not (err.max() <= FRAME_MAX_ABS
+                                  and err.mean() <= FRAME_MEAN_ABS):
+        raise RuntimeError("Image training on the card disagrees with the "
+                           "CPU")
+
+
+def mesh_and_flip(tb, smi, fused_mlp_forward, variants):
+    """Phase 11 on a trained testbed -> (the kernel's launches by variant
+    while the mesh was extracted, the mesh's numbers)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.common import srgb_to_linear
+    from instant_ngp_tpu_torch.geom.marching import load_mesh, save_mesh
+    from instant_ngp_tpu_torch.metrics import compute_error, compute_error_img
+
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verts, faces, colors = tb.compute_marching_cubes_mesh(MESH_RES)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    radius = np.linalg.norm(verts - 0.5, axis=-1)
+    in_band = float((np.abs(radius - 0.22) <= MESH_RADIUS_BAND).mean()) \
+        if len(verts) else 0.0
+    pct = np.percentile(radius, [5, 50, 95, 100]).round(4).tolist() \
+        if len(verts) else [0.0] * 4
+    print(f"mesh: compute_marching_cubes_mesh({MESH_RES}) in {mesh_s:.2f} s: "
+          f"{len(verts)} vertices, {len(faces)} faces; kernel launches by "
+          f"variant {by_variant}; vertex radius about the box's centre "
+          f"5/50/95/100 % {pct} (the sphere's 0.22), {100 * in_band:.1f} % "
+          f"within {MESH_RADIUS_BAND} [{smi}]", flush=True)
+    if len(faces) == 0 or in_band < MESH_IN_BAND \
+            or abs(pct[2] - 0.22) > MESH_OUTER_TOL:
+        raise RuntimeError(f"the mesh is empty or off the sphere "
+                           f"({100 * in_band:.1f} % of its vertices within "
+                           f"{MESH_RADIUS_BAND}, the 95th percentile of "
+                           f"their radius {pct[2]})")
+    if not (np.isfinite(colors).all() and colors.min() >= 0.0
+            and colors.max() <= 1.0):
+        raise RuntimeError("the mesh's colours are not finite or outside "
+                           "[0, 1]")
+    check_variants(by_variant, variants, "the mesh path")
+
+    def off_threshold(v):
+        return float(np.abs(tb._density_and_input_grad(v)[0] - 2.5).mean())
+
+    before = off_threshold(verts)
+    launches = fused_mlp_forward.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = tb.optimise_mesh_step(verts, faces, n_steps=4)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    opt_launches = fused_mlp_forward.launches - launches
+    after = off_threshold(moved)
+    print(f"mesh: 4 optimise_mesh_steps in {opt_s:.2f} s, {opt_launches} "
+          f"kernel launches; mean |raw density - 2.5| at the vertices "
+          f"{before:.4f} -> {after:.4f}; largest move "
+          f"{np.abs(moved - verts).max():.3g} [{smi}]", flush=True)
+    if opt_launches != 0 or not after <= before:
+        raise RuntimeError("optimise_mesh_step launched the kernel or moved "
+                           "the vertices away from the threshold")
+
+    root = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        sizes = {}
+        for suffix in ("ply", "obj"):
+            path = os.path.join(root, f"mesh.{suffix}")
+            save_mesh(path, verts, faces, colors)
+            sizes[suffix] = os.path.getsize(path)
+            v, f, c = load_mesh(path)
+            if not (np.array_equal(f, faces) and np.allclose(
+                    v, verts, rtol=1e-6, atol=1e-7) and np.abs(
+                    c - colors).max() <= 1.0 / 255 + 1e-6):
+                raise RuntimeError(f"the {suffix} mesh did not read back")
+    finally:
+        shutil.rmtree(root)
+    render = tb.render_training_view(0)
+    gt = tb._gt_srgb(0, render.shape[1], render.shape[0], 1)
+    flip_map = compute_error_img("FLIP", srgb_to_linear(
+        np.clip(render[..., :3], 0, 1)), srgb_to_linear(gt))
+    flip = compute_error("FLIP", srgb_to_linear(
+        np.clip(render[..., :3], 0, 1)), srgb_to_linear(gt))
+    print(f"mesh: written as PLY ({sizes['ply']} bytes) and OBJ "
+          f"({sizes['obj']} bytes) and read back; FLIP of view 0 against "
+          f"its image: mean {flip:.4f}, max {flip_map.max():.4f}",
+          flush=True)
+    if not (np.isfinite(flip_map).all() and flip_map.min() >= 0.0
+            and flip_map.max() <= 1.0):
+        raise RuntimeError("FLIP of view 0 is not finite or outside [0, 1]")
+    return by_variant, {"vertices": len(verts), "faces": len(faces),
+                        "seconds": mesh_s, "in_band": in_band,
+                        "flip_mean": flip}
+
+
 def pose_recovery(cfg, dev, smi, interval):
     """Phase 8: training cameras moved by a seeded N(0, POSE_NOISE)
     translation; POSE_STEPS steps with `optimize_extrinsics` -> the mean
@@ -1613,6 +2034,7 @@ def main():
                                    "exact")
     launches_train = sum(by_variant_train.values())
     check_variants(by_variant_phase6, main_variants, "the training path")
+    train_aabb4(ds, cfg, dev, smi)
     for shape in main_shapes.values():
         shape["launches_per_128_train_steps"] = by_variant_train.get(
             shape["variant"], 0)
@@ -1637,6 +2059,31 @@ def main():
         shapes[name]["launches_on_the_capture_path"] = \
             by_variant_capture[shapes[name]["variant"]]
     shapes["rgb_latent"]["frames_400x400_by_mode"] = mode_times
+
+    # phase 10: Image mode at configs/image/base.json's width; its net is
+    # 32-64-64-3 like the NeRF RGB net and takes the same instantiation
+    image_cfg = load_network_config(find_network_config("base", "image"))
+    by_variant_image, image_path = image_mode(
+        image_cfg, dev, smi, fused_mlp_forward, shapes["rgb"]["variant"],
+        args.profile)
+    launches_image = sum(by_variant_image.values())
+    image_card_against_cpu(image_cfg, dev)
+    rows = image_path["rows_per_frame"]
+    image_path.update(
+        variant=shapes["rgb"]["variant"],
+        bound_ms_per_frame=mlp_bound_ms(rows, shapes["rgb"]["dims"], 4)[0],
+        kernel_ms_per_chunk=shapes["rgb"]["ms_by_rows"][str(1 << 21)]["ms"],
+        bound_ms_per_chunk=mlp_bound_ms(1 << 21, shapes["rgb"]["dims"],
+                                        4)[0])
+    shapes["rgb"]["image_path"] = image_path
+
+    # phase 11: the mesh tools and FLIP on phase 6's trained model
+    by_variant_mesh, mesh_path = mesh_and_flip(
+        train_tb, smi, fused_mlp_forward, main_variants)
+    launches_mesh = sum(by_variant_mesh.values())
+    for shape in main_shapes.values():
+        shape["launches_on_the_mesh_path"] = by_variant_mesh[
+            shape["variant"]]
     if args.curve:
         train_curve(ds, cfg, dev, smi)
 
@@ -1646,13 +2093,27 @@ def main():
         "source": "instant_ngp_tpu_torch/csrc/fused_mlp_mma.cu",
         "general_source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
-        # the three main paths, each counted from 0: the render path (a
-        # density pass and two frames), 128 training steps, and the
-        # capture's path (128 steps, a frame per render mode, the eval)
-        "launches": launches + launches_train + launches_capture,
+        # the main paths, each counted from 0: the render path (a density
+        # pass and two frames), 128 training steps, the capture's path
+        # (128 steps, a frame per render mode, the eval), Image mode (512
+        # steps, three PSNR renders and two 4096x4096 frames) and the mesh
+        # (extraction at 256^3; its optimisation launches nothing)
+        "launches": launches + launches_train + launches_capture
+        + launches_image + launches_mesh,
         "launches_render_path": launches,
         "launches_train_path": launches_train,
         "launches_capture_path": launches_capture,
+        "launches_image_path": launches_image,
+        "launches_mesh_path": launches_mesh,
+        # which paths launch each instantiation (and the general kernel)
+        "instantiations": {
+            shapes["density"]["variant"]: [
+                "render", "train (density updates, frames)", "capture",
+                "mesh"],
+            shapes["rgb"]["variant"]: ["render", "train (frames)", "image",
+                                       "mesh"],
+            shapes["rgb_latent"]["variant"]: ["capture (RGB net with "
+                                              "latent dims)"]},
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
         # one network evaluation of N_ROWS samples of the pinhole paths:
         # both MLPs (the latent-dims RGB shape has its own numbers under
@@ -1667,6 +2128,7 @@ def main():
         "library_ms": None,
         "general_ms": sum(s["general_ms"] for s in main_shapes.values()),
         "shapes": shapes,
+        "mesh_path": mesh_path,
         "other_shapes": other,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ tests. The port imports torch and numpy only, never jax or the JAX
 package. Kernels written for Hopper live under `csrc/` and are built on
 first use by `ops/kernels/_build.py`.
 
-Ported so far: NeRF training and rendering (`nerf/testbed_nerf.py`), with
-the fused MLP forward at inference as a CUDA kernel
-(`ops/kernels/mlp_kernels.py`).
+Ported so far: NeRF mode (`nerf/testbed_nerf.py`: training, rendering,
+meshes) and Image mode (`image/testbed_image.py`) on the shared trainer
+base (`ops/trainer.py`), with the fused MLP forward at inference as a CUDA
+kernel (`ops/kernels/mlp_kernels.py`).
 """

@@ -1,5 +1,7 @@
-"""Shared NeRF grid and cone-stepping constants, `TestbedMode`, the render
-modes, the host-side `BoundingBox` and the sRGB transfer functions on numpy.
+"""Shared enums (modes, losses, activations, colour spaces, tonemap curves,
+render and ground-truth modes, SDF modes, lenses), the NeRF grid and
+cone-stepping constants, the host-side `BoundingBox` and the sRGB transfer
+functions on numpy.
 
 Counterpart of instant_ngp_tpu/common.py; values and names are kept so
 configs and snapshots written by either package read the same.
@@ -23,6 +25,38 @@ class TestbedMode(enum.Enum):
     NONE = "none"
 
 
+class LossType(enum.Enum):
+    L2 = "L2"
+    L1 = "L1"
+    Mape = "MAPE"
+    Smape = "SMAPE"
+    Huber = "Huber"
+    LogL1 = "LogL1"
+    RelativeL2 = "RelativeL2"
+
+
+class Activation(enum.Enum):
+    NONE = "None"
+    ReLU = "ReLU"
+    Logistic = "Logistic"
+    Exponential = "Exponential"
+    Sine = "Sine"
+    Squareplus = "Squareplus"
+    Softplus = "Softplus"
+
+
+class ColorSpace(enum.Enum):
+    Linear = "Linear"
+    SRGB = "SRGB"
+
+
+class TonemapCurve(enum.Enum):
+    Identity = "Identity"
+    ACES = "ACES"
+    Hable = "Hable"
+    Reinhard = "Reinhard"
+
+
 class RenderMode(enum.Enum):
     AO = "AO"
     Shade = "Shade"
@@ -33,6 +67,33 @@ class RenderMode(enum.Enum):
     Cost = "Cost"
     Slice = "Slice"
     EncodingVis = "EncodingVis"
+
+
+class GroundTruthRenderMode(enum.Enum):
+    Render = "Render"
+    PSNR = "PSNR"
+    SSIM = "SSIM"
+
+
+class SDFGroundTruthMode(enum.Enum):
+    RaytracedMesh = "RaytracedMesh"
+    SpheretracedMesh = "SpheretracedMesh"
+    SDFBricks = "SDFBricks"
+
+
+class MeshSdfMode(enum.Enum):
+    Watertight = "Watertight"
+    Raystab = "Raystab"
+    PathEscape = "PathEscape"
+
+
+class LensMode(enum.Enum):
+    Perspective = "Perspective"
+    OpenCV = "OpenCV"
+    FTheta = "FTheta"
+    LatLong = "LatLong"
+    OpenCVFisheye = "OpenCVFisheye"
+    Equirectangular = "Equirectangular"
 
 
 NERF_GRIDSIZE = 128                    # occupancy grid resolution per cascade
@@ -46,6 +107,9 @@ MIN_CONE_STEPSIZE = SQRT3 / STEPS_PER_UNIT
 MAX_CONE_STEPSIZE = SQRT3 * (1 << (NERF_CASCADES - 1)) / STEPS_PER_UNIT
 
 NERF_MIN_OPTICAL_THICKNESS = 0.01      # density threshold for the bitfield
+
+# the constant loss scale of mixed-precision training
+DEFAULT_LOSS_SCALE = 128.0
 
 
 @dataclass
@@ -62,6 +126,19 @@ class BoundingBox:
     def unit() -> "BoundingBox":
         return BoundingBox(np.zeros(3, np.float32), np.ones(3, np.float32))
 
+    @staticmethod
+    def from_points(pts: np.ndarray) -> "BoundingBox":
+        return BoundingBox(pts.min(0).astype(np.float32),
+                           pts.max(0).astype(np.float32))
+
+    def enlarge(self, other: "BoundingBox") -> None:
+        self.min = np.minimum(self.min, other.min)
+        self.max = np.maximum(self.max, other.max)
+
+    def inflate(self, amount: float) -> None:
+        self.min = self.min - amount
+        self.max = self.max + amount
+
     @property
     def center(self) -> np.ndarray:
         return 0.5 * (self.min + self.max)
@@ -69,6 +146,9 @@ class BoundingBox:
     @property
     def diag(self) -> np.ndarray:
         return self.max - self.min
+
+    def relative_pos(self, p: np.ndarray) -> np.ndarray:
+        return (p - self.min) / np.maximum(self.diag, 1e-12)
 
     def contains(self, p: np.ndarray) -> np.ndarray:
         return np.all((p >= self.min) & (p <= self.max), axis=-1)

@@ -2,8 +2,10 @@
 
 Both packages keep one layout: the grid table is a flat float32 vector in
 the interleaved layout (feature k of entry e at e*F + k), MLP weights are
-bias-free (fan_in, fan_out) matrices, and a NeRF's keys are
-`pos_encoding`, `density_net`, `dir_encoding` and `rgb_net`. So converting
+bias-free (fan_in, fan_out) matrices, a NeRF's keys are `pos_encoding`,
+`density_net`, `dir_encoding` and `rgb_net`, and an encoding followed by
+an MLP (Image, SDF, Volume) is `{"encoding": table or None, "net":
+[weights]}`. So converting
 is a copy into float32 tensors, or back into numpy arrays. The optimizer
 state is `{"step", "m", "v", "ema"}` with the three trees in the
 parameters' layout. A trainable buffer (the envmap, the distortion map,
@@ -13,7 +15,7 @@ the per-image latent codes) is one array with a state of the same form,
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -36,14 +38,25 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-def opt_state_from_jax(opt: Dict[str, Any]) -> Dict[str, Any]:
-    """A JAX optimizer state of numpy arrays -> CPU tensors, ready for
-    `NerfTestbed.load_state`."""
+def network_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """{"encoding", "net"} of numpy arrays -> CPU tensors, ready for
+    `NetworkWithInputEncoding.load_params`."""
+    enc = tree.get("encoding")
+    return {"encoding": None if enc is None else _tensor(enc).reshape(-1),
+            "net": [_tensor(w) for w in tree["net"]]}
+
+
+def opt_state_from_jax(opt: Dict[str, Any],
+                       params_fn: Callable = params_from_jax
+                       ) -> Dict[str, Any]:
+    """A JAX optimizer state of numpy arrays -> CPU tensors, its trees
+    converted by `params_fn` (the NeRF layout by default), ready for
+    `NerfTestbed.load_state` or `Trainer.load_state`."""
     out = {"step": torch.tensor(int(np.asarray(opt["step"])),
                                 dtype=torch.int32)}
     for k in ("m", "v", "ema"):
         if k in opt:
-            out[k] = params_from_jax(opt[k])
+            out[k] = params_fn(opt[k])
     return out
 
 
@@ -61,11 +74,18 @@ def params_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-def opt_state_to_jax(opt: Dict[str, Any]) -> Dict[str, Any]:
+def network_params_to_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """{"encoding", "net"} of tensors -> numpy arrays in the JAX layout."""
+    return {"encoding": _numpy(tree.get("encoding")),
+            "net": [_numpy(w) for w in tree["net"]]}
+
+
+def opt_state_to_jax(opt: Dict[str, Any],
+                     params_fn: Callable = params_to_jax) -> Dict[str, Any]:
     out = {"step": np.asarray(int(opt["step"]), np.int32)}
     for k in ("m", "v", "ema"):
         if k in opt:
-            out[k] = params_to_jax(opt[k])
+            out[k] = params_fn(opt[k])
     return out
 
 

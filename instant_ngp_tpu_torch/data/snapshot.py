@@ -1,6 +1,6 @@
-"""Read and write the JAX package's NeRF snapshots (`.ingp`,
-zlib-compressed msgpack, or bare `.msgpack`; format of
-instant_ngp_tpu/data/snapshot.py).
+"""Read and write the JAX package's snapshots of NeRF and of an encoding
+followed by an MLP (Image mode) (`.ingp`, zlib-compressed msgpack, or bare
+`.msgpack`; format of instant_ngp_tpu/data/snapshot.py).
 
 Arrays are stored as {"__ndarray__": True, "dtype", "shape", "data"} with
 raw little-endian bytes, so the format needs numpy and msgpack only.
@@ -17,8 +17,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..convert import (buffer_state_from_jax, opt_state_from_jax,
-                       params_from_jax)
+from ..convert import (buffer_state_from_jax, network_params_from_jax,
+                       opt_state_from_jax, params_from_jax)
 from ..ops.grid_encoding import convert_layout
 
 SNAPSHOT_FORMAT_VERSION = 1
@@ -74,16 +74,21 @@ def save_snapshot(path: str, snapshot: Dict[str, Any]) -> None:
 
 
 def load_snapshot(path: str) -> Dict[str, Any]:
-    """-> {"config", "aabb_scale", "params" (port tensors, interleaved
-    grid; the Ema copy when the snapshot has one, as the JAX testbed
-    renders with it), "density_grid" (float32 tensor), "trainer"
+    """A NeRF snapshot -> {"config", "aabb_scale", "params" (port tensors,
+    interleaved grid; the Ema copy when the snapshot has one, as the JAX
+    testbed renders with it), "density_grid" (float32 tensor), "trainer"
     ({"params", "opt"} as port tensors, for `NerfTestbed.
     load_snapshot_state`), "training_step", "density_grid_ema_step",
     "camera" ({"pos_offset", "rot_offset", "focal_offset", "exposures"} as
     numpy arrays, or None), "dataset_paths", and the trainable buffers
     where the snapshot has them: "extra_dims" ({"params", "opt"}),
     "envmap" and "distortion_map" ({"params"}), as CPU tensors for
-    `TrainableBuffer.load_state`."""
+    `TrainableBuffer.load_state`.
+
+    A snapshot of an encoding followed by an MLP (parameters {"encoding",
+    "net"}: Image mode) -> the snapshot's own keys, with "trainer"
+    ({"params", "opt"} as port tensors, interleaved grid) for
+    `Trainer.load_state`."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -100,19 +105,26 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     config = payload["config"]
     n_features = config["encoding"].get("n_features_per_level", 2)
     layout = payload.get("grid_layout", "planar")
+    nerf = "pos_encoding" in trainer["params"]
+    key, convert = ("pos_encoding", params_from_jax) if nerf \
+        else ("encoding", network_params_from_jax)
 
     def interleaved(tree):
-        return dict(tree, pos_encoding=convert_layout(
-            np.asarray(tree["pos_encoding"]).reshape(-1), n_features,
-            layout, "interleaved"))
+        if tree.get(key) is None:
+            return tree
+        return dict(tree, **{key: convert_layout(
+            np.asarray(tree[key]).reshape(-1), n_features, layout,
+            "interleaved")})
 
     opt = dict(trainer.get("opt") or {})
     for k in ("m", "v", "ema"):
         if opt.get(k):
             opt[k] = interleaved(opt[k])
-    state = {"params": params_from_jax(interleaved(trainer["params"]))}
+    state = {"params": convert(interleaved(trainer["params"]))}
     if "step" in opt:
-        state["opt"] = opt_state_from_jax(opt)
+        state["opt"] = opt_state_from_jax(opt, convert)
+    if not nerf:
+        return dict(payload, trainer=state, grid_layout="interleaved")
     buffers = {k: buffer_state_from_jax(payload[k])
                for k in ("extra_dims", "envmap", "distortion_map")
                if payload.get(k) is not None}

@@ -1,8 +1,8 @@
 """Image quality metrics: MSE / PSNR, SSIM and the L1 / APE / SAPE / RSE
 families (own copy of instant_ngp_tpu/metrics.py, value for value): the
 same luminance weights, 5-tap SSIM blur, 1e-2 relative-error epsilons and
-trim fraction. scipy is imported only inside the blur. The FLIP metric is
-not ported.
+trim fraction. scipy is imported only inside the blur. The FLIP metric
+lives in metrics_flip.py.
 """
 
 from __future__ import annotations
@@ -94,8 +94,9 @@ def compute_error_img(metric: str, img: np.ndarray, ref: np.ndarray
     if metric == "SSIM":
         return ssim(img, ref)
     if metric == "FLIP":
-        raise NotImplementedError("the FLIP metric is not ported (ROADMAP "
-                                  "queue 1: what NeRF mode still lacks)")
+        from .metrics_flip import compute_flip_error_map
+
+        return compute_flip_error_map(img, ref)
     raise ValueError(f"unknown metric: {metric}")
 
 

@@ -6,6 +6,8 @@ stepping, AABB intersection (counterpart of instant_ngp_tpu/nerf/march.py).
 - Cascade m covers the cube of side 2^m centred at 0.5; a position's mip is
   the smallest cascade containing it, raised to the one whose cell size
   matches the step.
+- The network's inputs are warped: positions into the unit cube of the
+  aabb, directions from [-1, 1] to [0, 1] (and back).
 - Cone stepping goes through the "stepping space" bijection: step k of a
   ray sits at from_stepping_space(s0 + k), so dt = calc_dt(t) is exact.
 
@@ -57,6 +59,22 @@ def morton3d_coords(idx: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return (morton3d_invert(idx), morton3d_invert(idx >> 1),
             morton3d_invert(idx >> 2))
+
+
+def warp_position(pos, aabb_min, aabb_max):
+    return (pos - aabb_min) / (aabb_max - aabb_min)
+
+
+def unwarp_position(pos, aabb_min, aabb_max):
+    return aabb_min + pos * (aabb_max - aabb_min)
+
+
+def warp_direction(d):
+    return (d + 1.0) * 0.5
+
+
+def unwarp_direction(d):
+    return d * 2.0 - 1.0
 
 
 def cascaded_grid_idx_at(pos: torch.Tensor, mip: torch.Tensor

@@ -54,9 +54,16 @@ any lens. Shade, Depth and AO go through the wavefront renderer (unless
 `render_tile`; Distortion is a screen-space picture of the lens, Slice a
 false-colour density slice (`render_density_slice`).
 
+Meshes: `compute_marching_cubes_mesh` extracts the density's iso-surface
+on a grid (marching cubes, or tetrahedra with `mesh_algorithm = "tets"`)
+and colours its vertices through the inference network (the MLPs through
+the fused kernel); `optimise_mesh_step` moves vertices towards the
+iso-surface along the density's input gradient (taken under autograd:
+plain matmuls, no kernel), with Laplacian smoothing, by Adam on the host.
+
 Not ported, each raising `NotImplementedError`: the scanned multi-step
-block (`steps_per_dispatch`), a device mesh, and the mesh tools
-(`compute_marching_cubes_mesh`, `optimise_mesh_step`).
+block (`steps_per_dispatch`, a TPU dispatch workaround) and a device mesh
+(ROADMAP queue 1 item 8, Parallel).
 """
 
 from __future__ import annotations
@@ -84,8 +91,8 @@ from ..utils import Ema, PhaseTimers
 from .dataset import (NerfSceneConfig, pack_training_data,
                       scene_config_from_dataset)
 from .march import (cascaded_grid_idx_at, mip_from_pos, ray_intersect_aabb,
-                    to_stepping_space)
-from .model import NerfNetwork, network_to_density
+                    to_stepping_space, warp_direction, warp_position)
+from .model import NerfNetwork, network_to_density, network_to_rgb
 from .occupancy import (CellDraws, cell_densities, density_grid_mean,
                         draw_cell_randoms, init_bitfield, init_density_grid,
                         mark_untrained_cells, sample_cells, splat_and_ema,
@@ -104,6 +111,8 @@ class NerfTestbed:
     sync_every = 16
     #: steps between density-grid updates once the warm-up sweeps are done
     prep_every = 16
+    #: "mc" (marching cubes) or "tets" (marching tetrahedra)
+    mesh_algorithm = "mc"
 
     def __init__(self, dataset: Union[NerfDataset, NerfSceneConfig],
                  network_config: Dict[str, Any], device=None,
@@ -111,8 +120,8 @@ class NerfTestbed:
                  seed: int = 1337, mesh=None):
         if mesh is not None:
             raise NotImplementedError("mesh: data-parallel training is not "
-                                      "ported yet (ROADMAP queue 1: the "
-                                      "port on four cards)")
+                                      "ported yet (ROADMAP queue 1 item 8: "
+                                      "Parallel)")
         # the card unless the caller names another device; never the CPU
         # by itself
         self.device = torch.device("cuda" if device is None else device)
@@ -1145,15 +1154,98 @@ class NerfTestbed:
             f".png", field, float(thresh), density_range, flip_y_and_z_axes)
         return res3d
 
-    def compute_marching_cubes_mesh(self, *args, **kwargs):
-        raise NotImplementedError("compute_marching_cubes_mesh: the mesh "
-                                  "tools are not ported (ROADMAP queue 1: "
-                                  "the mesh tools)")
+    def compute_marching_cubes_mesh(self, resolution: int = 128,
+                                    thresh: float = 2.5, aabb=None):
+        """The iso-surface raw density = thresh over `aabb` (default the
+        scene's) at `resolution`^3 samples -> (verts (V, 3) in world units,
+        faces (F, 3), colours (V, 3) from the inference network, viewed
+        along the inward vertex normal)."""
+        from ..geom.marching import marching_tetrahedra, vertex_normals
+        from ..geom.marching_cubes import marching_cubes
 
-    def optimise_mesh_step(self, *args, **kwargs):
-        raise NotImplementedError("optimise_mesh_step: the mesh tools are "
-                                  "not ported (ROADMAP queue 1: the mesh "
-                                  "tools)")
+        aabb_min = np.asarray(aabb[0] if aabb else self.scene.aabb_min)
+        aabb_max = np.asarray(aabb[1] if aabb else self.scene.aabb_max)
+        field = self.density_on_grid(resolution, aabb=(aabb_min, aabb_max))
+        spacing = (aabb_max - aabb_min) / max(resolution - 1, 1)
+        if self.mesh_algorithm == "tets":
+            verts, faces = marching_tetrahedra(
+                field, iso=thresh, origin=aabb_min, spacing=spacing)
+        else:
+            # the table's inside is field < iso; here it is density > thresh
+            verts, faces = marching_cubes(-field, iso=-thresh,
+                                          origin=aabb_min, spacing=spacing)
+        if len(verts) == 0:
+            return verts, faces, np.zeros((0, 3), np.float32)
+        dirs = warp_direction(-vertex_normals(verts, faces))
+        return verts, faces, self._vertex_colors(verts, dirs)
+
+    @torch.no_grad()
+    def _vertex_colors(self, verts: np.ndarray, dirs_warped: np.ndarray
+                       ) -> np.ndarray:
+        """RGB of the inference network at world positions (n, 3) seen
+        along warped directions (n, 3), in calls of at most the query
+        budget (with the rendering latent code where the scene has one)."""
+        pos = warp_position(torch.from_numpy(verts).to(self.device),
+                            self.aabb_min, self.aabb_max)
+        dirs = torch.from_numpy(np.asarray(dirs_warped, np.float32)).to(
+            self.device)
+        extra = self.get_rendering_extra_dims()
+        step = self.render_query_budget
+        out = []
+        for i in range(0, pos.shape[0], step):
+            n = min(step, pos.shape[0] - i)
+            raw = self.inference_model.apply_components(
+                pos[i:i + n], dirs[i:i + n],
+                None if extra is None else extra[None].expand(n, -1))
+            out.append(network_to_rgb(raw[:, :3], self.scene.rgb_activation))
+        return torch.cat(out).cpu().numpy()
+
+    def _density_and_input_grad(self, verts: np.ndarray
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Raw density of the inference network at world positions (n, 3)
+        and its gradient with respect to them, under autograd (the MLPs
+        take plain matmuls), in calls of at most the query budget."""
+        step = self.render_query_budget
+        raws, grads = [], []
+        for i in range(0, verts.shape[0], step):
+            pos = torch.from_numpy(verts[i:i + step]).to(
+                self.device).requires_grad_(True)
+            with torch.enable_grad():
+                raw = self.inference_model.density(
+                    warp_position(pos, self.aabb_min, self.aabb_max))
+                grad, = torch.autograd.grad(raw.sum(), pos)
+            raws.append(raw.detach())
+            grads.append(grad)
+        return torch.cat(raws).cpu().numpy(), torch.cat(grads).cpu().numpy()
+
+    def optimise_mesh_step(self, verts: np.ndarray, faces: np.ndarray,
+                           n_steps: int = 1, thresh: float = 2.5,
+                           smooth_amount: float = 0.002,
+                           density_amount: float = 0.001,
+                           inflate_amount: float = 0.0,
+                           learning_rate: float = 1e-4) -> np.ndarray:
+        """n_steps of Adam on the vertex positions -> the new vertices. The
+        gradient of a vertex: density_amount * (raw density - thresh)
+        along the density's normalised input gradient, plus smooth_amount
+        * (vertex - the mean of its neighbours), plus inflate_amount along
+        its normal."""
+        from ..geom.marching import smooth_mesh, vertex_normals
+
+        adam = HostAdam(learning_rate)
+        v = np.asarray(verts, np.float32).copy()
+        if len(v) == 0:
+            return v
+        for _ in range(n_steps):
+            raw, grad = self._density_and_input_grad(v)
+            n_hat = grad / np.maximum(
+                np.linalg.norm(grad, axis=-1, keepdims=True), 1e-9)
+            centroid = smooth_mesh(v, faces, iterations=1, lam=1.0)
+            normals = vertex_normals(v, faces)
+            g = (density_amount * (raw - thresh)[:, None] * n_hat
+                 + smooth_amount * (v - centroid)
+                 + inflate_amount * normals)
+            v = adam.step(v, g)
+        return v
 
     # ------------------------------------------------------------------
     # snapshots

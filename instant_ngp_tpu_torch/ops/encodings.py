@@ -1,13 +1,14 @@
-"""Input encodings: Identity, SphericalHarmonics, Composite and the grid
-family (counterpart of instant_ngp_tpu/ops/encodings.py).
+"""Input encodings: Identity, Frequency, SphericalHarmonics, OneBlob,
+TriangleWave, Composite and the grid family (counterpart of
+instant_ngp_tpu/ops/encodings.py).
 
 Every encoding is an `nn.Module` mapping (N, n_dims) inputs in [0, 1] to
-(N, n_output_dims) features. Frequency, OneBlob and TriangleWave are not
-ported yet: `create_encoding` raises for them.
+(N, n_output_dims) features; only the grid family has parameters.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Sequence
 
 import torch
@@ -26,6 +27,68 @@ class IdentityEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale + self.offset
+
+
+class FrequencyEncoding(nn.Module):
+    """The NeRF positional encoding: per input dim, per octave k,
+    (sin, cos)(x * pi * 2^k)."""
+
+    def __init__(self, n_dims: int, n_frequencies: int = 12):
+        super().__init__()
+        self.n_dims = n_dims
+        self.n_frequencies = n_frequencies
+        self.n_output_dims = n_dims * n_frequencies * 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        freqs = torch.exp2(torch.arange(self.n_frequencies, dtype=x.dtype,
+                                        device=x.device)) \
+            * torch.tensor(math.pi, dtype=x.dtype)
+        ang = x[..., :, None] * freqs                    # (..., d, n_freq)
+        feats = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+        return feats.reshape(*x.shape[:-1], self.n_output_dims)
+
+
+def _quartic_cdf(x: torch.Tensor, inv_radius: float) -> torch.Tensor:
+    """CDF of the quartic kernel 15/16 (1 - u^2)^2 on u in [-1, 1], with
+    u = x * inv_radius."""
+    u = (x * inv_radius).clamp(-1.0, 1.0)
+    return 0.5 + 0.9375 * (u - (2.0 / 3.0) * u ** 3 + 0.2 * u ** 5)
+
+
+class OneBlobEncoding(nn.Module):
+    """Per input dim, the mass of a quartic kernel of radius two bins,
+    centred at x, that falls into each of n_bins bins over [0, 1]."""
+
+    def __init__(self, n_dims: int, n_bins: int = 16):
+        super().__init__()
+        self.n_dims = n_dims
+        self.n_bins = n_bins
+        self.n_output_dims = n_dims * n_bins
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        edges = torch.arange(self.n_bins + 1, dtype=x.dtype,
+                             device=x.device) / self.n_bins
+        cdf = _quartic_cdf(edges - x[..., :, None], 0.5 * self.n_bins)
+        feats = cdf[..., 1:] - cdf[..., :-1]
+        return feats.reshape(*x.shape[:-1], self.n_output_dims)
+
+
+class TriangleWaveEncoding(nn.Module):
+    """Per input dim, triangle waves in [-1, 1] at doubling frequencies."""
+
+    def __init__(self, n_dims: int, n_frequencies: int = 12):
+        super().__init__()
+        self.n_dims = n_dims
+        self.n_frequencies = n_frequencies
+        self.n_output_dims = n_dims * n_frequencies
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        freqs = torch.exp2(torch.arange(self.n_frequencies, dtype=x.dtype,
+                                        device=x.device))
+        v = x[..., :, None] * freqs - 0.5
+        frac = v - torch.floor(v)
+        tri = (frac * 2.0 - 1.0).abs() * 2.0 - 1.0
+        return tri.reshape(*x.shape[:-1], self.n_output_dims)
 
 
 def sh_basis(degree: int, x: torch.Tensor, y: torch.Tensor,
@@ -75,7 +138,8 @@ def sh_basis(degree: int, x: torch.Tensor, y: torch.Tensor,
                                    - y2 * (3.0 * x2 - y2)),
         ]
     if degree >= 6:
-        raise NotImplementedError("SH degree > 5 not implemented")
+        raise NotImplementedError("SH degree > 5 is implemented by neither "
+                                  "package (no configuration asks for it)")
     return torch.stack(out, dim=-1)
 
 
@@ -122,8 +186,14 @@ def create_encoding(n_dims: int, config: Dict[str, Any]) -> nn.Module:
     if otype == "Identity":
         return IdentityEncoding(n_dims, scale=config.get("scale", 1.0),
                                 offset=config.get("offset", 0.0))
+    if otype == "Frequency":
+        return FrequencyEncoding(n_dims, config.get("n_frequencies", 12))
     if otype == "SphericalHarmonics":
         return SphericalHarmonicsEncoding(n_dims, config.get("degree", 4))
+    if otype == "OneBlob":
+        return OneBlobEncoding(n_dims, config.get("n_bins", 16))
+    if otype == "TriangleWave":
+        return TriangleWaveEncoding(n_dims, config.get("n_frequencies", 12))
     if otype == "Composite":
         nested_cfgs: List[Dict[str, Any]] = config["nested"]
         nested, remaining = [], n_dims
@@ -132,6 +202,4 @@ def create_encoding(n_dims: int, config: Dict[str, Any]) -> nn.Module:
             nested.append(create_encoding(nd, sub))
             remaining -= nd
         return CompositeEncoding(n_dims, nested)
-    if otype in ("Frequency", "OneBlob", "TriangleWave"):
-        raise NotImplementedError(f"{otype} encoding is not ported yet")
     raise ValueError(f"unknown encoding otype: {otype}")

@@ -7,24 +7,19 @@ them: Huber is evaluated with alpha = 0.1 and divided by 5 so that its
 quadratic region equals plain L2. Each loss is differentiable by autograd
 as well; the analytic gradient is returned so callers and tests can hold
 the two against each other.
+
+`create_loss(config)` is the mean-reduced scalar loss of the generic
+trainer (Image, SDF and Volume modes), by the config's `otype`; there
+Huber keeps its config-free alpha of 1.
 """
 
 from __future__ import annotations
 
-import enum
-from typing import Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-
-class LossType(enum.Enum):
-    L2 = "L2"
-    L1 = "L1"
-    Mape = "MAPE"
-    Smape = "SMAPE"
-    Huber = "Huber"
-    LogL1 = "LogL1"
-    RelativeL2 = "RelativeL2"
+from ..common import LossType
 
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -90,6 +85,34 @@ def loss_and_gradient(loss_type: LossType, target, prediction) -> Pair:
     if loss_type == LossType.LogL1:
         return log_l1_loss(target, prediction)
     return l2_loss(target, prediction)
+
+
+_TCNN_LOSSES: Dict[str, Callable] = {
+    "L2": l2_loss,
+    "RelativeL2": relative_l2_loss,
+    "L1": l1_loss,
+    "Huber": huber_loss,
+    "LogL1": log_l1_loss,
+    "SMAPE": smape_loss,
+    "Smape": smape_loss,
+    "MAPE": mape_loss,
+    "Mape": mape_loss,
+}
+
+
+def create_loss(config: Dict[str, Any]) -> Callable:
+    """fn(prediction, target) -> the mean of the elementwise loss named by
+    config["otype"] (default L2), a scalar tensor; `fn.otype` names it."""
+    otype = config.get("otype", "L2")
+    if otype not in _TCNN_LOSSES:
+        raise ValueError(f"unknown loss otype: {otype}")
+    fn = _TCNN_LOSSES[otype]
+
+    def loss_fn(prediction, target):
+        return fn(target, prediction)[0].mean()
+
+    loss_fn.otype = otype
+    return loss_fn
 
 
 def loss_type_from_string(name: str) -> LossType:

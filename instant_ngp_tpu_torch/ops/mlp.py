@@ -1,4 +1,5 @@
-"""Bias-free MLPs (counterpart of instant_ngp_tpu/ops/mlp.py::MLP).
+"""Bias-free MLPs, and an encoding followed by one (counterpart of
+instant_ngp_tpu/ops/mlp.py: `MLP`, `NetworkWithInputEncoding`).
 
 input -> [n_neurons] * n_hidden_layers -> output, no biases (as tcnn's
 fully-fused MLPs); n_hidden_layers = 0 is a single input->output matrix.
@@ -15,11 +16,12 @@ With float32 compute the forward is a loop of float32 matmuls.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from .grid_encoding import GridEncoding
 from .kernels import mlp_kernels
 from .kernels.mlp_kernels import FusedMLPWeights, pack_weights
 
@@ -155,3 +157,59 @@ class MLP(nn.Module):
             if i + 1 < len(self.weights):
                 h = apply_activation(self.activation, h)
         return apply_activation(self.output_activation, h)
+
+
+class NetworkWithInputEncoding(nn.Module):
+    """encoding |> MLP, the network of the Image, SDF and Volume modes.
+
+    `param_tree()` hands out the parameter tensors themselves in the JAX
+    layout {"encoding": the flat grid table, or None for an encoding
+    without parameters, "net": [weights]}; an optimizer steps them in
+    place."""
+
+    def __init__(self, encoding: nn.Module, network: MLP):
+        super().__init__()
+        if network.n_input_dims != encoding.n_output_dims:
+            raise ValueError(f"the network takes {network.n_input_dims} "
+                             f"inputs, the encoding gives "
+                             f"{encoding.n_output_dims}")
+        self.encoding = encoding
+        self.network = network
+
+    @property
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def _table(self) -> Optional[torch.Tensor]:
+        return getattr(self.encoding, "params", None)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """The grid table from U(-1e-4, 1e-4) (where there is one), then
+        the MLP Xavier-uniform, drawn from `generator` in that order."""
+        if self._table() is not None:
+            self.encoding.init_params(generator)
+        self.network.init_params(generator)
+
+    def param_tree(self) -> Dict[str, Any]:
+        return {"encoding": self._table(), "net": list(self.network.weights)}
+
+    def load_params(self, params: Dict[str, Any]) -> None:
+        """params in the JAX layout (tensors or numpy arrays)."""
+        table = self._table()
+        if table is not None:
+            with torch.no_grad():
+                table.copy_(torch.as_tensor(params["encoding"]).reshape(-1))
+        self.network.load_weights(params["net"])
+
+    def forward(self, x: torch.Tensor, max_level: Optional[float] = None,
+                draws=None, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """x (N, n_dims) in [0, 1] -> (N, n_output_dims) float32. `draws` or
+        `generator` switch a grid encoding to its stochastic-corner
+        estimator (training only); other encodings ignore them."""
+        if isinstance(self.encoding, GridEncoding):
+            feats = self.encoding(x, max_level=max_level, draws=draws,
+                                  generator=generator)
+        else:
+            feats = self.encoding(x)
+        return self.network(feats)

@@ -250,3 +250,42 @@ def test_input_or_weights_that_require_grad_never_reach_the_kernel(device):
     with torch.no_grad():
         assert mlp(x).grad_fn is None
     assert fused_mlp_forward.launches == before + 1
+
+
+def test_image_render_goes_through_the_32x64x8_instantiation(device):
+    """Image mode at configs/image/base.json's widths (a small table): a
+    render launches the (32, 64, 8, ReLU, None) instantiation of the mma
+    kernel, once per chunk, a train step launches nothing, and the frame
+    agrees with the same testbed's on the CPU (the plain version)."""
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+    from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+
+    cfg = load_network_config(find_network_config("base", "image"))
+    cfg["encoding"]["log2_hashmap_size"] = 14
+    y, x = np.mgrid[0:48, 0:64].astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(x / 5), 0.5 + 0.4 * np.cos(y / 4),
+                    ((x // 8 + y // 8) % 2) * 0.8], -1).astype(np.float32)
+    tb = ImageTestbed(img, cfg, device=device)
+    table = np.random.default_rng(0).uniform(
+        -1, 1, tb.model.encoding.n_params).astype(np.float32)
+    params = {"encoding": table,
+              "net": [w.detach().cpu() for w in tb.model.network.weights]}
+    tb.trainer.load_state(tb.state, params)
+    before = dict(fused_mlp_forward.launches_by_variant)
+    tb.train(2, 1 << 12)
+    assert fused_mlp_forward.launches_by_variant == before
+    tb.trainer.load_state(tb.state, params)
+    tb.render_chunk = 1 << 11
+    ours = tb.render(64, 48)
+    launched = {k: v - before.get(k, 0) for k, v in
+                fused_mlp_forward.launches_by_variant.items()
+                if v != before.get(k, 0)}
+    assert launched == {"mma_32x64x8_ReLU_None": 2}
+    cpu = ImageTestbed(img, cfg, device="cpu")
+    cpu.trainer.load_state(cpu.state, params)
+    ref = cpu.render(64, 48)
+    err = np.abs(ours - ref)
+    # linear colours of the sRGB outputs: of order 0.04 on average
+    assert np.abs(ref[..., :3]).mean() > 0.02
+    assert err.max() <= 2e-2 and err.mean() <= 1e-3

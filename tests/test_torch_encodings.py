@@ -1,6 +1,7 @@
-"""The port's SH, Identity and Composite encodings and its config loading
-against the JAX package's. The SH polynomials are the same float32
-expressions term by term: rtol 1e-6 / atol 1e-7."""
+"""The port's SH, Identity, Composite, Frequency, OneBlob and TriangleWave
+encodings and its config loading against the JAX package's. The SH
+polynomials are the same float32 expressions term by term: rtol 1e-6 /
+atol 1e-7."""
 
 import glob
 import os
@@ -57,8 +58,18 @@ def test_composite_sh_identity_matches_jax(n_extra):
 
 @pytest.mark.parametrize("otype", ["Frequency", "OneBlob", "TriangleWave"])
 def test_unported_encodings_raise(otype):
-    with pytest.raises(NotImplementedError):
-        create_encoding(3, {"otype": otype})
+    """Frequency, OneBlob and TriangleWave through `create_encoding`, with
+    the configs' sizes, against the JAX package's on inputs in and just
+    outside [0, 1]: rtol 1e-6 / atol 1e-6 (sin and cos of arguments up to
+    pi * 2^15 round differently by an ulp of the argument)."""
+    cfg = {"otype": otype, "n_frequencies": 16, "n_bins": 32}
+    x = np.random.default_rng(5).uniform(-0.05, 1.05, (500, 3)) \
+        .astype(np.float32)
+    enc = create_encoding(3, cfg)
+    ref = np.asarray(jax_create(3, cfg).apply(None, jnp.asarray(x)))
+    ours = enc(torch.from_numpy(x)).numpy()
+    assert ours.shape == ref.shape == (500, enc.n_output_dims)
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
 
 
 CONFIGS = sorted(glob.glob(os.path.join(
