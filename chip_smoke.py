@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's NeRF render and training paths, the path
-from a capture on disk to every render mode, Image mode, and the mesh tools
-and FLIP, once on one NVIDIA GPU.
+from a capture on disk to every render mode, Image mode, the mesh tools
+and FLIP, Volume mode and SDF mode, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -18,7 +18,10 @@ Phases, each of which raises on failure (a non-zero exit):
    events beside the card's bound; then times at 2^14, 2^17 and 2^21 rows
    and with the input ring at each depth and without it; then the RGB
    net of a capture with latent dims (36-64-64-3), whose path is the
-   general kernel, at 2^20 rows;
+   general kernel, at 2^20 rows; then the nets of Volume mode
+   (32-64-64-4 ReLU/ReLU) and SDF mode (32-64-64-1, and the Takikawa
+   net's 24-64-64-1, whose input is narrower than its padded width) at
+   ragged row counts and at 2^20 rows, timed the same way;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -101,7 +104,33 @@ Phases, each of which raises on failure (a non-zero exit):
    within MESH_OUTER_TOL); 4 `optimise_mesh_step`s, which
    launch nothing and must not move the vertices' densities away from the
    threshold; the mesh written as PLY and OBJ and read back; FLIP of view
-   0 against its image, finite and in [0, 1].
+   0 against its image, finite and in [0, 1];
+12. lenses: phase 6's trained model through the f-theta, latlong and
+   equirectangular lenses and through an aperture, each a 48x48 frame on
+   the card against the same model on the CPU;
+13. Volume mode at configs/volume/base.json's full width (HashGrid L=16,
+   F=2, 2^19; MLP 32-64-64-4 ReLU/ReLU; bf16) on a procedural 128^3
+   cloud, written as NanoVDB and read back through `load_volume_grid`:
+   VOLUME_STEPS + 1 delta-tracking train steps at batch 2^18, then a
+   400x400 frame of the model (cold and warm) and of the GT medium. It
+   fails unless the loss on a fixed batch fell, the frames are finite,
+   the GT frame shows the cloud, and the kernel was launched 32 times a
+   frame (one event round each), on the ReLU/ReLU instantiation alone, and
+   never by a train step; a train step and a frame are traced for their
+   launches and the device's busy share. Then 2 train steps of a small net
+   and a 24x24 frame on the card against the CPU from the same draws;
+14. SDF mode at configs/sdf/base.json's and takikawa.json's full widths
+   on a bumpy sphere of more than 10^5 triangles made by the port's
+   marching cubes and read back through `load_obj`: the host sampler and
+   the device step timed apart, SDF_STEPS train steps at batch 2^18, IoU,
+   400x400 frames (Shade with and without shadows, and for base.json
+   Normals, Depth, Positions and the three GT oracles, whose silhouettes
+   must agree on GT_SILHOUETTE_AGREE of the pixels). It fails unless the
+   loss on a fixed batch fell, IoU reached its floor, and every frame
+   launched the 32x64x8 ReLU/None instantiation 96 times (160 with
+   shadows) and no train step launched it. Then a small SDF net on the
+   card against the CPU: 2 train steps from the same samples and draws,
+   and a Depth frame after 64 more steps.
 
     python3 chip_smoke.py --profile OUT.txt
 
@@ -234,6 +263,28 @@ POSE_INTERVALS = (16, 1)
 CURVE_RECORD_DB = {128: 23.41, 256: 26.974, 512: 31.037, 1024: 33.06}
 CURVE_SLACK_DB = 1.5
 CURVE_VIEWS = (0, 16, 32, 48)
+# phase 12: the f-theta lens of a 48x48 frame (five coefficients, then the
+# calibration image's width and height) and the aperture
+LENS_FTHETA_PARAMS = (0.0, 2.2e-2, 1e-5, -2e-7, 1e-9, 48.0, 48.0)
+APERTURE_SIZE, APERTURE_FOCUS_Z = 0.02, 0.85
+# phase 13, Volume mode: the cloud's grid side and peak density (the
+# global majorant), steps after the first, and the batch (4 vertices a
+# path)
+VOLUME_SIDE, VOLUME_PEAK = 128, 20.0
+VOLUME_STEPS, VOLUME_BATCH = 16, 1 << 18
+# phase 14, SDF mode: the marching-cubes resolution of the bumpy sphere
+# and the fewest triangles it must have, train steps and batch of each
+# configuration, the IoU samples and floors (half the first readings after
+# SDF_STEPS + 3 steps at base.json's learning rate of 1e-4: 0.1988 and
+# 0.2692), the GT oracles' silhouette agreement (the JAX package's test
+# asks 0.9), and the small card-vs-CPU check's depth tolerance and share of
+# pixels (a bf16 flip moves a distance by ~1e-3 and the trace's stop test
+# with it)
+SDF_MESH_RES, SDF_MIN_TRIANGLES = 208, 100_000
+SDF_STEPS, SDF_BATCH, SDF_IOU_SAMPLES = 16, 1 << 18, 1 << 20
+SDF_MIN_IOU = {"base": 0.099, "takikawa": 0.134}
+GT_SILHOUETTE_AGREE = 0.9
+SDF_CPU_DEPTH_TOL, SDF_CPU_PIXEL_SHARE = 5e-3, 0.95
 
 
 def look_at(eye, center, up):
@@ -1710,6 +1761,636 @@ def profile_frame(tb, cam, smi, out_path):
           f"[{smi}]")
 
 
+def trained_nerf_lenses(train_tb, cfg, dev, smi):
+    """Phase 12: the trained NeRF of phase 6 through the f-theta, latlong
+    and equirectangular lenses and through an aperture, each a 48x48 frame
+    on the card and on the CPU (the same parameters, density grid and
+    bitfield; the aperture's disk samples are drawn on the host)."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.convert import params_to_jax
+    from instant_ngp_tpu_torch.nerf.dataset import scene_config
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    cpu_tb = NerfTestbed(scene_config(aabb_scale=1), cfg, device="cpu",
+                         compute_dtype=torch.bfloat16, seed=SEED)
+    cpu_tb.load_params(params_to_jax(train_tb.inference_params()))
+    cpu_tb.density_grid = train_tb.density_grid.cpu()
+    cpu_tb.bitfield = train_tb.bitfield.cpu()
+    size = 48
+    cam = orbit_camera(angle=0.3, elevation=0.4)
+    focal = FOCAL * size / WIDTH
+    cases = (("FTheta", {"lens_mode": "FTheta",
+                         "lens_params": LENS_FTHETA_PARAMS}),
+             ("LatLong", {"lens_mode": "LatLong"}),
+             ("Equirectangular", {"lens_mode": "Equirectangular"}),
+             ("aperture", {"aperture_size": APERTURE_SIZE,
+                           "focus_z": APERTURE_FOCUS_Z}))
+    for name, kw in cases:
+        ours = train_tb.render_frame(size, size, cam, focal_length=focal,
+                                     **kw)
+        ref = cpu_tb.render_frame(size, size, cam, focal_length=focal, **kw)
+        err = np.abs(ours - ref)
+        print(f"lenses: the trained model through {name}, {size}x{size} "
+              f"card vs CPU: max abs {err.max():.3g}, mean abs "
+              f"{err.mean():.3g}; opaque share "
+              f"{(ref[..., 3] > 0.5).mean():.3f}", flush=True)
+        if not (np.isfinite(ours).all() and ref[..., 3].max() > 0.5):
+            raise RuntimeError(f"the {name} frame is not finite or shows "
+                               f"nothing")
+        if not (err.max() <= FRAME_MAX_ABS and err.mean() <= FRAME_MEAN_ABS):
+            raise RuntimeError(f"the {name} frame on the card disagrees "
+                               f"with the CPU's")
+
+
+def procedural_cloud(side, seed):
+    """A (side, side, side) float32 density grid: six Gaussian puffs around
+    the box's centre, modulated by a product of sines, thresholded and
+    scaled to a peak of VOLUME_PEAK (numpy, from the seed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = (np.arange(side, dtype=np.float32) + 0.5) / side
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    d = np.zeros((side,) * 3, np.float32)
+    for _ in range(6):
+        c = rng.uniform(0.32, 0.68, 3).astype(np.float32)
+        s = np.float32(rng.uniform(0.07, 0.12))
+        d += np.exp(-((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2)
+                    / (2 * s * s))
+    d *= 1.0 + 0.35 * np.sin(23 * x + 1) * np.sin(19 * y + 2) * np.sin(29 * z)
+    d = np.clip(d - 0.15, 0.0, None)
+    return (VOLUME_PEAK * d / d.max()).astype(np.float32)
+
+
+def visible_network_params(model, seed, density_scale=1.0):
+    """An encoding + MLP's seeded weights in the JAX layout, with the grid
+    table from U(-1, 1) (tcnn's 1e-4 init gives outputs of ~0, which would
+    hide a wrong kernel) and the 4th output column, where there is one,
+    scaled by `density_scale`."""
+    import numpy as np
+
+    net = [w.detach().cpu().numpy().copy() for w in model.network.weights]
+    if net[-1].shape[1] > 3:
+        net[-1][:, 3] *= density_scale
+    table = model.encoding.params
+    return {"encoding": np.random.default_rng(seed).uniform(
+        -1.0, 1.0, table.numel()).astype(np.float32), "net": net}
+
+
+def masked_l2_on(tb, batch):
+    """The Volume step's loss of the training model on a fixed batch."""
+    import torch
+
+    from instant_ngp_tpu_torch.volume.testbed_volume import _masked_l2
+
+    pos, targets, valid = batch
+    with torch.no_grad():
+        return float(_masked_l2(tb.model(pos), (targets, valid)))
+
+
+def profile_window(fn, smi, what, n, top=0):
+    """`fn` under torch.profiler -> (wall s, device busy share, kernel
+    launches) per call over `n` calls; prints them, and with `top` the
+    top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, kernels, self_device_us = profiler_kernels(prof)
+    busy = sum(self_device_us(e) for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels) / n
+    print(f"profile: {what}: {1e3 * wall / n:.1f} ms wall (traced), device "
+          f"busy {100 * busy / wall:.1f} %, {launches:.0f} kernel launches "
+          f"[{smi}]", flush=True)
+    for e in sorted(kernels, key=self_device_us, reverse=True)[:top]:
+        us = self_device_us(e)
+        print(f"  {e.key[:60]}: {us / 1e3 / n:.3f} ms ({e.count // n} "
+              f"launches, {100 * us / 1e6 / busy:.1f} % of device time)")
+    return wall / n, busy / wall, launches
+
+
+def volume_mode(cfg, dev, smi, fused_mlp_forward, variant, profile):
+    """Phase 13 -> (the kernel's launches by variant over the phase, the
+    Volume path's numbers)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.volume.nanovdb import write_nanovdb
+    from instant_ngp_tpu_torch.volume.testbed_volume import (
+        MAX_TRAIN_VERTICES, VolumeTestbed, VolumeTrainDraws,
+        load_volume_grid)
+
+    t0 = time.perf_counter()
+    grid = procedural_cloud(VOLUME_SIDE, SEED)
+    root = tempfile.mkdtemp(prefix="volume_")
+    try:
+        path = os.path.join(root, "cloud.nvdb")
+        write_nanovdb(path, grid)
+        nvdb_bytes = os.path.getsize(path)
+        loaded = load_volume_grid(path)
+    finally:
+        shutil.rmtree(root)
+    if not np.array_equal(loaded, grid):
+        raise RuntimeError("the cloud did not read back from its .nvdb")
+    tb = VolumeTestbed(loaded, cfg, seed=SEED, device=dev)
+    setup_s = time.perf_counter() - t0
+    enc, net = tb.model.encoding, tb.model.network
+    widths = [w.shape[0] for w in net.weights] + [4]
+    if not (enc.n_levels == 16 and enc.n_features_per_level == 2
+            and widths == [32, 64, 64, 4] and net.output_activation == "ReLU"
+            and tb.world2index_scale == VOLUME_SIDE):
+        raise RuntimeError(f"the Volume testbed is not base.json's "
+                           f"(widths {widths})")
+    bits = int(np.unpackbits(tb.bitgrid.cpu().numpy()).sum())
+    print(f"volume: {VOLUME_SIDE}^3 procedural cloud (peak "
+          f"{tb.global_majorant:.1f}), written as NanoVDB ({nvdb_bytes} "
+          f"bytes) and read back, testbed built: {setup_s:.1f} s; {bits} of "
+          f"{128 ** 3} bitgrid cells occupied; grid {enc.n_entries} entries, "
+          f"MLP {widths} ReLU/ReLU", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    fixed = tb._generate_training_data(
+        VolumeTrainDraws.draw(gen, VOLUME_BATCH // MAX_TRAIN_VERTICES))
+    valid_share = fixed[2].float().mean().item()
+    counts = {"train": 0, "render": 0}
+    tb.train_step = counting_launches(fused_mlp_forward, counts, "train",
+                                      tb.train_step)
+    tb.render_frame = counting_launches(fused_mlp_forward, counts, "render",
+                                        tb.render_frame)
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    loss_before = masked_l2_on(tb, fixed)
+    losses = [tb.train(1, VOLUME_BATCH)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VOLUME_STEPS - 1):
+        tb.train_step(VOLUME_BATCH)
+    losses.append(tb.train(1, VOLUME_BATCH))
+    torch.cuda.synchronize()
+    rate = VOLUME_STEPS / (time.perf_counter() - t0)
+    loss_after = masked_l2_on(tb, fixed)
+    print(f"volume: {VOLUME_STEPS + 1} steps at batch {VOLUME_BATCH} "
+          f"({VOLUME_BATCH // MAX_TRAIN_VERTICES} paths, "
+          f"{100 * valid_share:.1f} % of the slots valid): {rate:.3f} "
+          f"steps/s after the first; loss {losses[0]:.5f} at step 1 -> "
+          f"{losses[-1]:.5f} at step {VOLUME_STEPS + 1}; on a fixed batch "
+          f"{loss_before:.5f} -> {loss_after:.5f} [{smi}]", flush=True)
+
+    cam = orbit_camera(angle=0.6, elevation=0.3, radius=1.6)
+    model_s, launches_per_frame = [], []
+    for _ in range(2):        # cold, then warm
+        before = fused_mlp_forward.launches_by_variant.get(variant, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_frame = tb.render_frame(WIDTH, HEIGHT, cam)
+        torch.cuda.synchronize()
+        model_s.append(time.perf_counter() - t0)
+        launches_per_frame.append(
+            fused_mlp_forward.launches_by_variant.get(variant, 0) - before)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt_frame = tb.render_frame(WIDTH, HEIGHT, cam, use_gt=True)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    per_frame = launches_per_frame[-1]
+    print(f"volume: frame {WIDTH}x{HEIGHT} of the model: "
+          f"{1e3 * model_s[0]:.1f} ms cold, {1e3 * model_s[1]:.1f} ms warm, "
+          f"{per_frame} launches of {variant}; opacity mean "
+          f"{model_frame[..., 3].mean():.3f}; GT frame {1e3 * gt_s:.1f} ms, "
+          f"opacity mean {gt_frame[..., 3].mean():.3f}, max "
+          f"{gt_frame[..., 3].max():.3f}; launches over the phase "
+          f"{counts} by variant {by_variant} [{smi}]", flush=True)
+    if not (np.isfinite(losses).all() and loss_after < loss_before):
+        raise RuntimeError("the Volume loss on a fixed batch did not fall")
+    for frame in (model_frame, gt_frame):
+        if frame.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(frame).all():
+            raise RuntimeError("a Volume frame is not finite or of the "
+                               "wrong shape")
+    if gt_frame[..., 3].max() < 0.5:
+        raise RuntimeError("the GT frame does not show the cloud")
+    if counts["train"] != 0 or launches_per_frame != [32, 32] \
+            or set(by_variant) != {variant}:
+        raise RuntimeError(f"the Volume path must launch {variant} 32 "
+                           f"times a frame and never in a train step: "
+                           f"{counts}, {per_frame}, {by_variant}")
+    del tb.train_step, tb.render_frame
+    if profile:
+        profile_window(lambda: tb.train_step(VOLUME_BATCH), smi,
+                       "a Volume train step", 2, 8)
+        profile_window(lambda: tb.render_frame(WIDTH, HEIGHT, cam), smi,
+                       f"a Volume frame {WIDTH}x{HEIGHT}", 1, 8)
+        profile_window(lambda: tb.render_frame(WIDTH, HEIGHT, cam,
+                                               use_gt=True), smi,
+                       f"a Volume GT frame {WIDTH}x{HEIGHT}", 1, 8)
+    return by_variant, {
+        "steps_per_s": rate, "loss_first_last": [losses[0], losses[-1]],
+        "frame_ms_warm": 1e3 * model_s[1], "gt_frame_ms": 1e3 * gt_s,
+        "launches_per_frame": per_frame}
+
+
+def volume_card_against_cpu(cfg, dev, fused_mlp_forward):
+    """Phase 13's check: 2 train steps of a small Volume net (the first
+    with the stochastic encode, the second exact) and a 24x24 frame, on the
+    card and on the CPU from the same draws and weights."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
+                                                         draw_corner_randoms)
+    from instant_ngp_tpu_torch.volume.testbed_volume import (
+        MAX_TRAIN_VERTICES, VolumeRenderDraws, VolumeTestbed,
+        VolumeTrainDraws)
+
+    small = copy.deepcopy(cfg)      # 16 levels: the net is 32 wide
+    small["encoding"].update(log2_hashmap_size=12,
+                             stochastic_corners_until=1)
+    n_levels = small["encoding"]["n_levels"]
+    grid = procedural_cloud(VOLUME_SIDE, SEED)
+    cam = orbit_camera(angle=0.6, elevation=0.3, radius=1.6)
+    size = 24
+    losses, frames, params = {}, {}, None
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        gen = torch.Generator().manual_seed(SEED + 21)     # on the CPU
+
+        def draws(step, n, device=device, gen=gen):
+            d = VolumeTrainDraws.draw(gen, n)
+            c = draw_corner_randoms(gen, n * MAX_TRAIN_VERTICES, 3,
+                                    n_levels, 0)
+            return (VolumeTrainDraws(**{k: v.to(device)
+                                        for k, v in vars(d).items()}),
+                    CornerDraws(c.u.to(device), None))
+
+        tb = VolumeTestbed(grid, small, seed=SEED, device=device,
+                           draws=draws)
+        if params is None:
+            params = visible_network_params(tb.model, SEED + 22, 40.0)
+        tb.trainer.load_state(tb.state, params)
+        losses[name] = [tb.train(1, 1 << 12) for _ in range(2)]
+        rd = VolumeRenderDraws.draw(gen, size * size)
+        before = dict(fused_mlp_forward.launches_by_variant)
+        frames[name] = tb.render_frame(size, size, cam,
+                                       draws=VolumeRenderDraws(**{
+                                           k: v.to(device)
+                                           for k, v in vars(rd).items()}))
+        if name == "card":
+            launched = {k: v - before.get(k, 0) for k, v in
+                        fused_mlp_forward.launches_by_variant.items()
+                        if v != before.get(k, 0)}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    err = np.abs(frames["card"] - frames["cpu"])
+    print(f"volume card vs CPU, 2 train steps of a small net: losses "
+          f"{losses['card']} vs {losses['cpu']} (relative difference "
+          f"{rel:.3g}); {size}x{size} frame max abs {err.max():.3g}, mean "
+          f"abs {err.mean():.3g}, opacity mean "
+          f"{frames['cpu'][..., 3].mean():.3f}", flush=True)
+    if rel > CPU_LOSS_REL or not (err.max() <= FRAME_MAX_ABS
+                                  and err.mean() <= FRAME_MEAN_ABS):
+        raise RuntimeError("Volume mode on the card disagrees with the CPU")
+    if frames["cpu"][..., 3].max() < 0.3:
+        raise RuntimeError("the small Volume frame shows nothing")
+    if launched != {"mma_32x64x8_ReLU_ReLU": 32}:
+        raise RuntimeError(f"the small Volume frame launched {launched}")
+
+
+def bumpy_sphere_obj(path, res):
+    """Marching cubes of a bumpy sphere's field on a res^3 grid, written
+    as OBJ -> the number of triangles."""
+    import numpy as np
+
+    from instant_ngp_tpu_torch.geom.marching import save_mesh
+    from instant_ngp_tpu_torch.geom.marching_cubes import marching_cubes
+
+    g = np.linspace(-1.0, 1.0, res, dtype=np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    field = np.sqrt(x * x + y * y + z * z) - 0.62 - 0.07 * np.sin(7 * x) \
+        * np.sin(6 * y + 1.0) * np.cos(5 * z)
+    verts, faces = marching_cubes(field, 0.0)
+    save_mesh(path, verts, faces)
+    return len(faces)
+
+
+def sdf_mode(cfgs, dev, smi, fused_mlp_forward, variant, profile):
+    """Phase 14 -> (the kernel's launches by variant over the phase, the
+    SDF path's numbers by configuration)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.geom.triangle_bvh import load_obj
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+
+    root = tempfile.mkdtemp(prefix="sdf_")
+    out = {}
+    try:
+        path = os.path.join(root, "bumpy.obj")
+        t0 = time.perf_counter()
+        n_tris = bumpy_sphere_obj(path, SDF_MESH_RES)
+        make_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tris = load_obj(path)
+        read_s = time.perf_counter() - t0
+        print(f"sdf: bumpy sphere by marching cubes at {SDF_MESH_RES}^3, "
+              f"{n_tris} triangles, written as OBJ ({os.path.getsize(path)} "
+              f"bytes) in {make_s:.1f} s, load_obj {read_s:.1f} s",
+              flush=True)
+        if len(tris) != n_tris or n_tris < SDF_MIN_TRIANGLES:
+            raise RuntimeError(f"the mesh has {len(tris)} triangles")
+        fused_mlp_forward.launches = 0
+        fused_mlp_forward.launches_by_variant.clear()
+        for name, cfg in cfgs.items():
+            out[name] = sdf_config(name, cfg, path, dev, smi,
+                                   fused_mlp_forward, variant, profile)
+        by_variant = dict(fused_mlp_forward.launches_by_variant)
+    finally:
+        shutil.rmtree(root)
+    if set(by_variant) != {variant}:
+        raise RuntimeError(f"the SDF path launched {by_variant}, not "
+                           f"{variant} alone")
+    return by_variant, out
+
+
+def sdf_config(name, cfg, path, dev, smi, fused_mlp_forward, variant,
+               profile):
+    """One SDF configuration at full width on the phase's mesh: training
+    (the host sampler and the device step apart), IoU, a frame in every
+    render mode with and without shadows, the GT oracles (base only)."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb = SdfTestbed(path, cfg, seed=SEED, device=dev)
+    setup_s = time.perf_counter() - t0
+    widths = [w.shape[0] for w in tb.model.network.weights] + [1]
+    want = 24 if name == "takikawa" else 32
+    if widths != [want, 64, 64, 1]:
+        raise RuntimeError(f"the {name} SDF net is {widths}")
+    n_params = tb.model.encoding.params.numel()
+    print(f"sdf {name}: testbed (BVH{', octree' if tb.triangle_octree else ''}"
+          f") built in {setup_s:.1f} s; encoding {n_params} parameters, MLP "
+          f"{widths}", flush=True)
+    counts = {"train": 0, "render": 0, "iou": 0}
+    for attr, kind in (("train_step_on", "train"), ("render_frame", "render"),
+                       ("calculate_iou", "iou")):
+        setattr(tb, attr, counting_launches(fused_mlp_forward, counts, kind,
+                                            getattr(tb, attr)))
+    # the host sampler alone, then the device step alone on its samples
+    host = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = tb.generate_training_samples(SDF_BATCH)
+        host.append(time.perf_counter() - t0)
+    fixed = (torch.from_numpy(batch[0]).to(dev),
+             torch.from_numpy(batch[1]).to(dev)[:, None])
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(tb.loss_fn(tb.model(fixed[0]), fixed[1]))
+
+    loss_before = fixed_loss()
+    device_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tb.train_step_on(*batch)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    tb.sample_seconds = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = tb.train(SDF_STEPS, SDF_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss_after = fixed_loss()
+    host_per_step = tb.sample_seconds / SDF_STEPS
+    print(f"sdf {name}: {SDF_STEPS} steps at batch {SDF_BATCH}: "
+          f"{SDF_STEPS / wall:.3f} steps/s; host sampler {1e3 * host[-1]:.1f}"
+          f" ms alone, {1e3 * host_per_step:.1f} ms a step in the run; device"
+          f" step {min(device_ms):.1f} ms (CUDA events, samples given); loss "
+          f"{last:.5f} at step {tb.training_step}; MAPE on a fixed batch "
+          f"{loss_before:.5f} -> {loss_after:.5f} [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    iou = tb.calculate_iou(SDF_IOU_SAMPLES)
+    iou_s = time.perf_counter() - t0
+    print(f"sdf {name}: IoU {iou:.4f} over {SDF_IOU_SAMPLES} samples "
+          f"({iou_s:.1f} s)", flush=True)
+    if not (np.isfinite(last) and loss_after < loss_before):
+        raise RuntimeError(f"the {name} SDF loss on a fixed batch did not "
+                           f"fall")
+    if not iou >= SDF_MIN_IOU[name]:
+        raise RuntimeError(f"{name} IoU {iou:.4f} under its floor "
+                           f"{SDF_MIN_IOU[name]}")
+
+    cam = orbit_camera(angle=0.8, elevation=0.35, radius=1.3)
+    modes = [("Shade", False), ("Shade", False), ("Shade", True)]
+    if name == "base":
+        modes += [("Normals", False), ("Depth", False), ("Positions", False)]
+    frames = {}
+    for mode, shadows in modes:
+        tb.render_with_shadows = shadows
+        before = fused_mlp_forward.launches_by_variant.get(variant, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = tb.render_frame(WIDTH, HEIGHT, cam, render_mode=mode)
+        torch.cuda.synchronize()
+        key = mode + (" with shadows" if shadows else "")
+        frames[key] = (1e3 * (time.perf_counter() - t0), frame,
+                       fused_mlp_forward.launches_by_variant.get(variant, 0)
+                       - before)
+        if frame.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(frame).all():
+            raise RuntimeError(f"the {name} {key} frame is not finite")
+        want = 160 if shadows else 96
+        if frames[key][2] != want:
+            raise RuntimeError(f"the {name} {key} frame launched {variant} "
+                               f"{frames[key][2]} times, not {want}")
+    tb.render_with_shadows = False
+    print(f"sdf {name}: frames {WIDTH}x{HEIGHT} (ms, launches of {variant}, "
+          f"hit share): " + "; ".join(
+              f"{k} {ms:.1f} / {n} / {f[..., 3].mean():.3f}"
+              for k, (ms, f, n) in frames.items()) + f" [{smi}]", flush=True)
+    result = {"steps_per_s": SDF_STEPS / wall,
+              "host_sample_ms": 1e3 * host_per_step,
+              "device_step_ms": min(device_ms), "iou": iou,
+              "frame_ms": {k: v[0] for k, v in frames.items()},
+              "launches_per_frame": {k: v[2] for k, v in frames.items()}}
+    if name == "base":
+        sil = {}
+        for oracle in ("RaytracedMesh", "SpheretracedMesh", "SDFBricks"):
+            tb.groundtruth_mode = oracle
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = tb.render_frame(WIDTH, HEIGHT, cam, use_gt=True)
+            torch.cuda.synchronize()
+            result.setdefault("gt_frame_ms", {})[oracle] = \
+                1e3 * (time.perf_counter() - t0)
+            if not np.isfinite(frame).all():
+                raise RuntimeError(f"the {oracle} frame is not finite")
+            sil[oracle] = frame[..., 3] > 0.5
+        tb.groundtruth_mode = "RaytracedMesh"
+        agree = {k: float((v == sil["RaytracedMesh"]).mean())
+                 for k, v in sil.items()}
+        print(f"sdf: GT frames {WIDTH}x{HEIGHT} (ms): "
+              + ", ".join(f"{k} {v:.1f}"
+                          for k, v in result["gt_frame_ms"].items())
+              + f"; silhouettes against RaytracedMesh {agree} (hit share "
+              f"{sil['RaytracedMesh'].mean():.3f}) [{smi}]", flush=True)
+        if min(agree.values()) < GT_SILHOUETTE_AGREE \
+                or sil["RaytracedMesh"].mean() < 0.05:
+            raise RuntimeError("the GT oracles' silhouettes disagree")
+        result["silhouette_agreement"] = agree
+    if counts["train"] != 0 or counts["iou"] == 0:
+        raise RuntimeError(f"the {name} SDF path must launch the kernel "
+                           f"from renders and IoU alone: {counts}")
+    for attr in ("train_step_on", "render_frame", "calculate_iou"):
+        delattr(tb, attr)
+    if profile:
+        profile_window(lambda: tb.train(1, SDF_BATCH), smi,
+                       f"an SDF {name} train step (host sampler included)",
+                       2, 8)
+        profile_window(lambda: tb.render_frame(WIDTH, HEIGHT, cam), smi,
+                       f"an SDF {name} Shade frame {WIDTH}x{HEIGHT}", 1, 8)
+    return result
+
+
+def sdf_card_against_cpu(cfg, dev, fused_mlp_forward):
+    """Phase 14's check: a small SDF net (4 levels up to 128, 2^12
+    entries) on a small bumpy sphere takes 2 train steps on the card and on
+    the CPU from the same samples (the same numpy stream) and corner draws,
+    then the card's weights after 64 more steps are rendered on both: the
+    losses and the Depth frame's hit mask and depths must agree."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
+                                                         draw_corner_randoms)
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+
+    small = copy.deepcopy(cfg)   # 16 levels (32 wide) from 8 to 123
+    small["encoding"].update(log2_hashmap_size=12, base_resolution=8,
+                             per_level_scale=1.2, stochastic_corners_until=1)
+    small["optimizer"]["nested"]["nested"]["learning_rate"] = 1e-2
+    root = tempfile.mkdtemp(prefix="sdf_small_")
+    try:
+        path = os.path.join(root, "small.obj")
+        bumpy_sphere_obj(path, 24)
+        tbs, losses = {}, {}
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            gen = torch.Generator().manual_seed(SEED + 30)
+
+            def draws(step, n, device=device, gen=gen):
+                c = draw_corner_randoms(gen, n, 3, 16, 0)
+                return CornerDraws(c.u.to(device), None)
+
+            tbs[name] = SdfTestbed(path, small, seed=SEED, device=device,
+                                   draws=draws)
+            losses[name] = [tbs[name].train(1, 1 << 12) for _ in range(2)]
+    finally:
+        shutil.rmtree(root)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    card, cpu = tbs["card"], tbs["cpu"]
+    card.train(64, 1 << 12)
+    trained = card.trainer.inference_params(card.state)
+    cpu.trainer.load_state(cpu.state, {
+        "encoding": trained["encoding"].detach().cpu(),
+        "net": [w.detach().cpu() for w in trained["net"]]})
+    cam = orbit_camera(angle=0.8, elevation=0.35, radius=1.3)
+    size = 32
+    before = dict(fused_mlp_forward.launches_by_variant)
+    ours = card.render_frame(size, size, cam, render_mode="Depth")
+    launched = {k: v - before.get(k, 0) for k, v in
+                fused_mlp_forward.launches_by_variant.items()
+                if v != before.get(k, 0)}
+    ref = cpu.render_frame(size, size, cam, render_mode="Depth")
+    hit_agree = ((ours[..., 3] > 0.5) == (ref[..., 3] > 0.5)).mean()
+    both = (ours[..., 3] > 0.5) & (ref[..., 3] > 0.5)
+    close = (np.abs(ours[..., 0] - ref[..., 0]) <= SDF_CPU_DEPTH_TOL)[both]
+    print(f"sdf card vs CPU, 2 train steps of a small net: losses "
+          f"{losses['card']} vs {losses['cpu']} (relative difference "
+          f"{rel:.3g}); after 64 more, a {size}x{size} Depth frame: hit "
+          f"masks agree on {100 * hit_agree:.1f} % (hit share "
+          f"{ref[..., 3].mean():.3f}), depths within {SDF_CPU_DEPTH_TOL} on "
+          f"{100 * close.mean():.1f} % of the common hits", flush=True)
+    if rel > CPU_LOSS_REL or hit_agree < SDF_CPU_PIXEL_SHARE \
+            or close.mean() < SDF_CPU_PIXEL_SHARE or both.mean() < 0.05:
+        raise RuntimeError("SDF mode on the card disagrees with the CPU")
+    if launched != {"mma_32x64x8_ReLU_None": 96}:
+        raise RuntimeError(f"the small SDF frame launched {launched}")
+
+
+def check_mode_shape(name, x_all, w, act, out_act, smi):
+    """Phase 3 for a shape of the Volume or SDF path: the kernel against
+    its plain version at small and ragged row counts and at N_ROWS, then
+    the kernel, the general kernel and the plain version timed at N_ROWS
+    beside the bound -> the shape's row of the kernel table."""
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        GENERAL, fused_mlp_forward, fused_mlp_forward_plain, kernel_variant)
+
+    for n in SMALL_ROWS:
+        check_kernel(fused_mlp_forward(x_all[:n], w, act, out_act),
+                     fused_mlp_forward_plain(x_all[:n], w.layers, act,
+                                             out_act), f"{name} x {n}")
+    x = x_all[:N_ROWS]
+    variant = kernel_variant(w.dims, act, out_act)
+    ref = fused_mlp_forward_plain(x, w.layers, act, out_act)
+    ref_mean = ref.abs().mean().item()
+    if ref_mean < KERNEL_MIN_MEAN_ABS:
+        raise RuntimeError(f"the {name} reference is too small "
+                           f"({ref_mean:.3g}) to check the kernel")
+    max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w, act, out_act),
+                                     ref, f"{name} x {N_ROWS}")
+    check_kernel(fused_mlp_forward(x, w, act, out_act, variant=GENERAL), ref,
+                 f"{name} x {N_ROWS}, general kernel")
+    ms = [cuda_ms(lambda: fused_mlp_forward(x, w, act, out_act))]
+    general_ms = cuda_ms(lambda: fused_mlp_forward(x, w, act, out_act,
+                                                   variant=GENERAL))
+    plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers, act,
+                                                       out_act))
+    ms = min(ms + [cuda_ms(lambda: fused_mlp_forward(x, w, act, out_act))])
+    bound_ms, bound_by = mlp_bound_ms(N_ROWS, w.dims, 4)
+    print(f"kernel {name} {'-'.join(map(str, w.dims))} {act}/{out_act} x "
+          f"{N_ROWS} [{variant}]: max abs {max_abs:.3g} mean abs "
+          f"{mean_abs:.3g} (ref max {ref.abs().max().item():.3g} mean "
+          f"{ref_mean:.3g}) | kernel {ms:.4f} ms, general kernel "
+          f"{general_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
+          f"reached) [{smi}]", flush=True)
+    return {"dims": list(w.dims), "activations": [act, out_act],
+            "rows": N_ROWS, "variant": variant, "max_abs_err": max_abs,
+            "mean_abs_err": mean_abs,
+            "ref_max_abs": ref.abs().max().item(), "ref_mean_abs": ref_mean,
+            "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+
+
 def main():
     import numpy as np
     import torch
@@ -1941,6 +2622,20 @@ def main():
               f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
               f"reached) [{smi}]", flush=True)
+        # the nets of Volume and SDF mode (phases 13, 14): 32-64-64-4
+        # ReLU/ReLU on its own instantiation, 32-64-64-1 and the Takikawa
+        # net's 24-64-64-1 on the 32x64x8 ReLU/None one (24 inputs: the
+        # per-row loads of an input narrower than its padded width)
+        for name, dims, out_act in (("volume", [32, 64, 64, 4], "ReLU"),
+                                    ("sdf", [32, 64, 64, 1], "None"),
+                                    ("takikawa", [24, 64, 64, 1], "None")):
+            ws = [torch.from_numpy(rng.uniform(
+                -np.sqrt(6.0 / (i + o)), np.sqrt(6.0 / (i + o)), (i, o))
+                .astype(np.float32)).to(dev)
+                for i, o in zip(dims[:-1], dims[1:])]
+            shapes[name] = check_mode_shape(
+                name, feats[:, :dims[0]].contiguous(), pack_weights(ws),
+                "ReLU", out_act, smi)
         del feats, rgb_in, path_shapes, x, x_all, ref, latent_net, codes
 
     # phase 4: the main path, through the testbed's entry points
@@ -2084,6 +2779,36 @@ def main():
     for shape in main_shapes.values():
         shape["launches_on_the_mesh_path"] = by_variant_mesh[
             shape["variant"]]
+
+    # phase 12: the trained model through the f-theta, latlong and
+    # equirectangular lenses and an aperture, card against CPU
+    t_new = time.perf_counter()
+    trained_nerf_lenses(train_tb, cfg, dev, smi)
+
+    # phase 13: Volume mode at configs/volume/base.json's width; its net
+    # takes the mma kernel's ReLU/ReLU instantiation
+    volume_cfg = load_network_config(find_network_config("base", "volume"))
+    by_variant_volume, volume_path = volume_mode(
+        volume_cfg, dev, smi, fused_mlp_forward,
+        shapes["volume"]["variant"], args.profile)
+    launches_volume = sum(by_variant_volume.values())
+    volume_card_against_cpu(volume_cfg, dev, fused_mlp_forward)
+    shapes["volume"]["volume_path"] = volume_path
+
+    # phase 14: SDF mode at configs/sdf/base.json's and takikawa.json's
+    # widths; both nets take the 32x64x8 ReLU/None instantiation
+    sdf_cfgs = {name: load_network_config(find_network_config(name, "sdf"))
+                for name in ("base", "takikawa")}
+    by_variant_sdf, sdf_path = sdf_mode(
+        sdf_cfgs, dev, smi, fused_mlp_forward, shapes["sdf"]["variant"],
+        args.profile)
+    launches_sdf = sum(by_variant_sdf.values())
+    sdf_card_against_cpu(sdf_cfgs["base"], dev, fused_mlp_forward)
+    shapes["sdf"]["sdf_path"] = sdf_path.get("base")
+    shapes["takikawa"]["sdf_path"] = sdf_path.get("takikawa")
+    print(f"phases 12-14 (lenses, Volume, SDF): "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
     if args.curve:
         train_curve(ds, cfg, dev, smi)
 
@@ -2096,22 +2821,28 @@ def main():
         # the main paths, each counted from 0: the render path (a density
         # pass and two frames), 128 training steps, the capture's path
         # (128 steps, a frame per render mode, the eval), Image mode (512
-        # steps, three PSNR renders and two 4096x4096 frames) and the mesh
-        # (extraction at 256^3; its optimisation launches nothing)
+        # steps, three PSNR renders and two 4096x4096 frames), the mesh
+        # (extraction at 256^3; its optimisation launches nothing), Volume
+        # mode (training, a fixed batch's loss, three frames) and SDF mode
+        # (both configurations: training, IoU, frames, the brick oracle
+        # launches nothing)
         "launches": launches + launches_train + launches_capture
-        + launches_image + launches_mesh,
+        + launches_image + launches_mesh + launches_volume + launches_sdf,
         "launches_render_path": launches,
         "launches_train_path": launches_train,
         "launches_capture_path": launches_capture,
         "launches_image_path": launches_image,
         "launches_mesh_path": launches_mesh,
+        "launches_volume_path": launches_volume,
+        "launches_sdf_path": launches_sdf,
         # which paths launch each instantiation (and the general kernel)
         "instantiations": {
             shapes["density"]["variant"]: [
                 "render", "train (density updates, frames)", "capture",
                 "mesh"],
             shapes["rgb"]["variant"]: ["render", "train (frames)", "image",
-                                       "mesh"],
+                                       "mesh", "sdf (base and Takikawa)"],
+            shapes["volume"]["variant"]: ["volume"],
             shapes["rgb_latent"]["variant"]: ["capture (RGB net with "
                                               "latent dims)"]},
         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),

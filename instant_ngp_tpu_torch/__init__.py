@@ -7,7 +7,9 @@ package. Kernels written for Hopper live under `csrc/` and are built on
 first use by `ops/kernels/_build.py`.
 
 Ported so far: NeRF mode (`nerf/testbed_nerf.py`: training, rendering,
-meshes) and Image mode (`image/testbed_image.py`) on the shared trainer
+meshes), and Image, Volume and SDF mode (`image/testbed_image.py`,
+`volume/testbed_volume.py`, `sdf/testbed_sdf.py`) on the shared trainer
 base (`ops/trainer.py`), with the fused MLP forward at inference as a CUDA
-kernel (`ops/kernels/mlp_kernels.py`).
+kernel (`ops/kernels/mlp_kernels.py`). SDF mode's triangle BVH is host
+C++ (`csrc/triangle_bvh.cpp`), built with g++ on first use.
 """

@@ -26,9 +26,13 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """A JAX NeRF parameter tree of numpy arrays (or anything np.asarray
-    takes), with an interleaved grid table -> the same tree of CPU
-    tensors, ready for `NerfNetwork.load_params`."""
+    """A JAX parameter tree of numpy arrays (or anything np.asarray takes),
+    with an interleaved grid table -> the same tree of CPU tensors: a NeRF
+    tree ready for `NerfNetwork.load_params`, or an encoding followed by an
+    MLP ({"encoding", "net"}: Image, Volume, SDF, a grid's or the Takikawa
+    encoding's table) ready for `NetworkWithInputEncoding.load_params`."""
+    if "net" in tree:
+        return network_params_from_jax(tree)
     return {
         "pos_encoding": _tensor(tree["pos_encoding"]).reshape(-1),
         "density_net": [_tensor(w) for w in tree["density_net"]],

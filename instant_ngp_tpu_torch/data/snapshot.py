@@ -1,6 +1,6 @@
 """Read and write the JAX package's snapshots of NeRF and of an encoding
-followed by an MLP (Image mode) (`.ingp`, zlib-compressed msgpack, or bare
-`.msgpack`; format of instant_ngp_tpu/data/snapshot.py).
+followed by an MLP (Image, Volume and SDF modes) (`.ingp`, zlib-compressed
+msgpack, or bare `.msgpack`; format of instant_ngp_tpu/data/snapshot.py).
 
 Arrays are stored as {"__ndarray__": True, "dtype", "shape", "data"} with
 raw little-endian bytes, so the format needs numpy and msgpack only.
@@ -86,9 +86,10 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     `TrainableBuffer.load_state`.
 
     A snapshot of an encoding followed by an MLP (parameters {"encoding",
-    "net"}: Image mode) -> the snapshot's own keys, with "trainer"
-    ({"params", "opt"} as port tensors, interleaved grid) for
-    `Trainer.load_state`."""
+    "net"}: Image, Volume, SDF) -> the snapshot's own keys, with "trainer"
+    ({"params", "opt"} as port tensors, a grid table interleaved) for
+    `Trainer.load_state`. A table that is not a grid's (the Takikawa
+    encoding's) has one layout and is taken as it is."""
     import msgpack
 
     with open(path, "rb") as f:
@@ -108,9 +109,10 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     nerf = "pos_encoding" in trainer["params"]
     key, convert = ("pos_encoding", params_from_jax) if nerf \
         else ("encoding", network_params_from_jax)
+    grid = nerf or "grid" in str(config["encoding"].get("otype", "")).lower()
 
     def interleaved(tree):
-        if tree.get(key) is None:
+        if tree.get(key) is None or not grid:
             return tree
         return dict(tree, **{key: convert_layout(
             np.asarray(tree[key]).reshape(-1), n_features, layout,

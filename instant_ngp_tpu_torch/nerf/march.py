@@ -174,3 +174,8 @@ def ray_intersect_aabb(o: torch.Tensor, d: torch.Tensor,
     tmax = torch.maximum(t1, t2).amin(dim=-1)
     return tmin, tmax
 
+
+def aabb_contains(pos: torch.Tensor, aabb_min: torch.Tensor,
+                  aabb_max: torch.Tensor) -> torch.Tensor:
+    """Whether each position (..., 3) lies in the closed box."""
+    return ((pos >= aabb_min) & (pos <= aabb_max)).all(dim=-1)

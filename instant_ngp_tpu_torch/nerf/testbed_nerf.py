@@ -926,10 +926,11 @@ class NerfTestbed:
         use_distortion_map adds the trained distortion map (always added
         while `optimize_distortion` is on).
         aperture_size, focus_z: depth of field; every spp pass draws fresh
-        disk samples per pixel, so the average converges to the thin-lens
-        blur. use_envmap_background: the envmap behind the scene, by each
-        ray's direction; by default on while an envmap is trained or came
-        with the dataset. extra_dims: the latent code of the frame; by
+        disk samples per pixel (on the host, from a seeded generator, so a
+        frame is the same on every device), so the average converges to the
+        thin-lens blur. use_envmap_background: the envmap behind the scene,
+        by each ray's direction; by default on while an envmap is trained or
+        came with the dataset. extra_dims: the latent code of the frame; by
         default `get_rendering_extra_dims()`."""
         mode = getattr(render_mode, "value", render_mode)
         if isinstance(lens_mode, str):
@@ -982,16 +983,17 @@ class NerfTestbed:
                 self.seed ^ 0x7E4D)
         aperture_gen = None
         if aperture_size != 0.0:
-            aperture_gen = torch.Generator(device=self.device).manual_seed(
-                0xAB)
+            aperture_gen = torch.Generator().manual_seed(0xAB)
         for s in range(spp):
             jitter = None if spp == 1 else ld_pixel_offset(s)
+            aperture_samples = None if aperture_gen is None else torch.rand(
+                n_pixels, 2, generator=aperture_gen).to(self.device)
             origins, dirs = camera_rays_for_frame(
                 width, height, fl, cam, device=self.device,
                 screen_center=screen_center, lens_mode=lens_mode,
                 lens_params=lens_params, distortion_map=dist_map,
                 jitter=jitter, aperture_size=aperture_size, focus_z=focus_z,
-                generator=aperture_gen)
+                aperture_samples=aperture_samples)
             for i in range(0, n_pixels, tile):
                 d_tile = dirs[i:i + tile]
                 bg = bg_const

@@ -1,11 +1,14 @@
 """Build the CUDA sources under `instant_ngp_tpu_torch/csrc/` with nvcc into
-one shared library with a plain C interface, and load it with ctypes.
+one shared library with a plain C interface, and load it with ctypes; and
+build the host C++ sources there (`*.cpp`: the triangle BVH) with g++.
 
-Each source is compiled by its own nvcc process, all started together, and
-the objects are linked into one library. It goes to
+Each CUDA source is compiled by its own nvcc process, all started
+together, and the objects are linked into one library. It goes to
 `build/instant_ngp_tpu_torch/<hash>/` under the repository root, keyed by a
-hash of the sources and flags, so an edit rebuilds. A failed build raises
-with nvcc's output. Nothing here runs at import time.
+hash of the sources and flags, so an edit rebuilds. A host library goes to
+a directory keyed the same way by its own source and flags, and needs g++
+only. A failed build raises with the compiler's output. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -36,6 +40,11 @@ def _nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
+
+
+#: the flags of native/Makefile, so the port's copy of a host source gives
+#: the same bits as the JAX package's build of it
+HOST_CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall"]
 
 
 def _sources():
@@ -83,6 +92,46 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
     (out_dir / "build.log").write_text(
         f"{log}{time.perf_counter() - t0:.1f} s\n")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _host_cpu() -> bytes:
+    """What -march=native compiles for: the machine and, where Linux says,
+    the CPU's model and flags (a checkout copied to another host rebuilds)."""
+    ident = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            ident += "".join(sorted({line for line in f if line.startswith(
+                ("model name", "flags"))}))
+    except OSError:
+        pass
+    return ident.encode()
+
+
+def build_host_library(source: str) -> Path:
+    """Compile `csrc/<source>` (C++ for the host) with g++ into a shared
+    library unless this exact build exists for this CPU; return its
+    path."""
+    src = CSRC_DIR / source
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(_host_cpu())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{src.stem}.so"
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
+    cmd = [shutil.which("g++") or "g++", *HOST_CXX_FLAGS, str(src),
+           "-shared", "-lpthread", "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 

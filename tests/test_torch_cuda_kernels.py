@@ -58,6 +58,10 @@ CASES = [
     # the RGB net of a capture with 4 latent dims per image: 36 inputs pad
     # to 48, which has no instantiation, so the general kernel takes it
     ([36, 64, 64, 3], "ReLU", "None"),
+    # the nets of SDF mode: configs/sdf/base.json's, and the Takikawa
+    # encoding's 24 features, narrower than the padded width of 32
+    ([32, 64, 64, 1], "ReLU", "None"),
+    ([24, 64, 64, 1], "ReLU", "None"),
 ]
 
 
@@ -289,3 +293,128 @@ def test_image_render_goes_through_the_32x64x8_instantiation(device):
     # linear colours of the sRGB outputs: of order 0.04 on average
     assert np.abs(ref[..., :3]).mean() > 0.02
     assert err.max() <= 2e-2 and err.mean() <= 1e-3
+
+
+@pytest.mark.parametrize("dims,act,out_act,variant", [
+    ([32, 64, 64, 4], "ReLU", "ReLU", "mma_32x64x8_ReLU_ReLU"),
+    ([24, 64, 64, 1], "ReLU", "None", "mma_32x64x8_ReLU_None")],
+    ids=["volume", "takikawa"])
+def test_volume_and_sdf_shapes_at_2_20_rows(device, dims, act, out_act,
+                                             variant):
+    """The Volume net and the Takikawa SDF net at the row count of a
+    frame's round, on their instantiations."""
+    assert kernel_variant(dims, act, out_act) == variant
+    rng = np.random.default_rng(len(dims) + dims[0])
+    packed = pack_weights(_weights(rng, dims, device))
+    x = torch.from_numpy(rng.normal(size=(1 << 20, dims[0]))
+                         .astype(np.float32)).to(device)
+    before = dict(fused_mlp_forward.launches_by_variant)
+    out = fused_mlp_forward(x, packed, act, out_act)
+    assert fused_mlp_forward.launches_by_variant[variant] \
+        == before.get(variant, 0) + 1
+    ref = fused_mlp_forward_plain(x, packed.layers, act, out_act)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert ref.abs().mean().item() > 1e-2
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+
+
+def _cloud(side=64):
+    g = (np.arange(side, dtype=np.float32) + 0.5) / side - 0.5
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    d = 20.0 * np.exp(-(x * x + y * y + z * z) / 0.02)
+    d[d < 0.05] = 0
+    return d.astype(np.float32)
+
+
+def test_volume_mode_on_the_card_matches_the_cpu(device):
+    """2 Volume train steps and a 16x16 frame of a small net on the card
+    against the CPU from the same draws: the frame launches the ReLU/ReLU
+    instantiation once per event round and no train step launches it."""
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+    from instant_ngp_tpu_torch.volume.testbed_volume import (
+        VolumeRenderDraws, VolumeTestbed, VolumeTrainDraws)
+
+    cfg = load_network_config(find_network_config("base", "volume"))
+    cfg["encoding"].update(log2_hashmap_size=12)       # 16 levels: 32 wide
+    cfg["optimizer"]["nested"]["nested"]["learning_rate"] = 1e-2
+    tbs = {d: VolumeTestbed(_cloud(128), cfg, device=d)
+           for d in (device, "cpu")}
+    table = np.random.default_rng(0).uniform(
+        -1, 1, tbs["cpu"].model.encoding.n_params).astype(np.float32)
+    net = [w.detach().cpu().numpy().copy()
+           for w in tbs["cpu"].model.network.weights]
+    net[-1][:, 3] *= 40.0
+    gen = torch.Generator().manual_seed(1)
+    train = [VolumeTrainDraws.draw(gen, 256) for _ in range(2)]
+    render = VolumeRenderDraws.draw(gen, 256)
+    losses, frames = {}, {}
+    for d, tb in tbs.items():
+        tb.stochastic_corners = False
+        tb.trainer.load_state(tb.state, {"encoding": table, "net": net})
+        tb.draws = lambda step, n, d=d: (VolumeTrainDraws(**{
+            k: v.to(d) for k, v in vars(train[step]).items()}), None)
+        before = dict(fused_mlp_forward.launches_by_variant)
+        losses[d] = [tb.train(1, 1024) for _ in range(2)]
+        assert fused_mlp_forward.launches_by_variant == before
+        frames[d] = tb.render_frame(16, 16, np.array(
+            [[1, 0, 0, 0.5], [0, -1, 0, 0.5], [0, 0, 1, -1.2]], np.float32),
+            draws=VolumeRenderDraws(**{k: v.to(d)
+                                       for k, v in vars(render).items()}))
+        launched = fused_mlp_forward.launches_by_variant.get(
+            "mma_32x64x8_ReLU_ReLU", 0) - before.get(
+            "mma_32x64x8_ReLU_ReLU", 0)
+        assert launched == (32 if d == device else 0)
+    np.testing.assert_allclose(losses[device], losses["cpu"], rtol=2e-2)
+    err = np.abs(frames[device] - frames["cpu"])
+    assert frames["cpu"][..., 3].max() > 0.3
+    assert err.max() <= 2e-2 and err.mean() <= 1e-3
+
+
+def test_sdf_mode_on_the_card_matches_the_cpu(device, tmp_path):
+    """2 SDF train steps on the same samples (the same numpy stream) on
+    the card and on the CPU, then a Shade frame of the card's weights on
+    both: it launches the 32x64x8 ReLU/None instantiation 96 times (one
+    per round of the sphere trace), the train steps none."""
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+    from instant_ngp_tpu_torch.geom.marching import save_mesh
+    from instant_ngp_tpu_torch.geom.marching_cubes import marching_cubes
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+
+    g = np.linspace(-1, 1, 20, dtype=np.float32)
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    verts, faces = marching_cubes(np.sqrt(x * x + y * y + z * z) - 0.6, 0.0)
+    path = str(tmp_path / "sphere.obj")
+    save_mesh(path, verts, faces)
+    cfg = load_network_config(find_network_config("base", "sdf"))
+    # 16 levels (32 features, the instantiation's width) from 8 to 123
+    cfg["encoding"].update(log2_hashmap_size=12, base_resolution=8,
+                           per_level_scale=1.2)
+    losses, frames = {}, {}
+    tbs = {d: SdfTestbed(path, cfg, device=d) for d in (device, "cpu")}
+    for d, tb in tbs.items():
+        tb.stochastic_corners = False
+        before = dict(fused_mlp_forward.launches_by_variant)
+        losses[d] = [tb.train(1, 1 << 12) for _ in range(2)]
+        assert fused_mlp_forward.launches_by_variant == before
+    np.testing.assert_allclose(losses[device], losses["cpu"], rtol=2e-2)
+    tbs[device].train(64, 1 << 12)
+    trained = tbs[device].trainer.inference_params(tbs[device].state)
+    tbs["cpu"].trainer.load_state(tbs["cpu"].state, {
+        "encoding": trained["encoding"].detach().cpu(),
+        "net": [w.detach().cpu() for w in trained["net"]]})
+    cam = np.array([[1, 0, 0, 0.5], [0, -1, 0, 0.5], [0, 0, -1, 1.9]],
+                   np.float32)
+    before = dict(fused_mlp_forward.launches_by_variant)
+    for d, tb in tbs.items():
+        frames[d] = tb.render_frame(24, 24, cam, render_mode="Depth")
+    assert fused_mlp_forward.launches_by_variant.get(
+        "mma_32x64x8_ReLU_None", 0) - before.get(
+        "mma_32x64x8_ReLU_None", 0) == 96
+    hits = [f[..., 3] > 0.5 for f in frames.values()]
+    assert (hits[0] == hits[1]).mean() >= 0.95 and hits[1].mean() > 0.05
+    both = hits[0] & hits[1]
+    close = np.abs(frames[device][..., 0] - frames["cpu"][..., 0])[both]
+    assert (close <= 5e-3).mean() >= 0.95

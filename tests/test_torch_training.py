@@ -656,7 +656,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 for wanted in ("ops.losses", "ops.optimizers", "ops.trainer", "nerf.training",
-               "nerf.visibility", "data.nerf_loader", "utils", "metrics"):
+               "nerf.visibility", "data.nerf_loader", "utils", "metrics",
+               "volume.testbed_volume", "volume.nanovdb", "sdf.testbed_sdf",
+               "sdf.bricks", "sdf.brdf", "geom.triangle_bvh",
+               "geom.triangle_octree", "ops.takikawa"):
     assert pkg.__name__ + "." + wanted in names, wanted
 from instant_ngp_tpu_torch.config import (find_network_config,
                                           load_network_config)
