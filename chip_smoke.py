@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's NeRF render and training paths, the path
 from a capture on disk to every render mode, Image mode, the mesh tools
-and FLIP, Volume mode and SDF mode, once on one NVIDIA GPU.
+and FLIP, Volume mode, SDF mode, Geometry mode, the nets of the wide
+configurations and the command line, once on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -21,7 +22,14 @@ Phases, each of which raises on failure (a non-zero exit):
    general kernel, at 2^20 rows; then the nets of Volume mode
    (32-64-64-4 ReLU/ReLU) and SDF mode (32-64-64-1, and the Takikawa
    net's 24-64-64-1, whose input is narrower than its padded width) at
-   ragged row counts and at 2^20 rows, timed the same way;
+   ragged row counts and at 2^20 rows, timed the same way; then the nets
+   whose weights do not fit in shared memory at once (WIDE_NETS: the
+   256-wide nets of configs/nerf/frequency.json and none.json, the
+   128-wide 8- and 6-layer nets of configs/sdf/frequency.json and
+   oneblob.json), which take the streamed kernel, timed beside the same
+   net as a chain of bf16 torch.matmul + ReLU calls; then every other net
+   of the configurations (CONFIG_NETS) the same way, on its mma
+   instantiation or the general kernel;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -131,6 +139,21 @@ Phases, each of which raises on failure (a non-zero exit):
    shadows) and no train step launched it. Then a small SDF net on the
    card against the CPU: 2 train steps from the same samples and draws,
    and a Depth frame after 64 more steps.
+15. Geometry mode: a scene of the bumpy sphere, a box and phase 6's
+   trained model as a NeRF object, through a `.ingp` that the port's
+   codec writes and reads on the card, loaded by `Testbed.load_file`:
+   Shade, Normals and Depth frames at GEOMETRY_SIZE, each launching both
+   NeRF nets' instantiations ceil(samples / chunk) times (checked), the
+   NeRF object visible; a small frame card against CPU; a 1920x1080
+   `screenshot` with its peak memory.
+16. the wide nets on their paths: configs/nerf/frequency.json trains
+   WIDE_STEPS steps on the orbit scene with its density updates and
+   renders a frame, configs/sdf/frequency.json and oneblob.json render,
+   every launch the streamed kernel's; then `python -m
+   instant_ngp_tpu_torch` as subprocesses on the card: phase 9's capture
+   trained CLI_STEPS steps with --save_snapshot, reloaded with --n_steps 0
+   and screenshots of two views, and the Geometry scene; each must
+   return 0 and leave its files.
 
     python3 chip_smoke.py --profile OUT.txt
 
@@ -153,8 +176,9 @@ encode. It fails if a milestone of the default run lies more than
 CURVE_SLACK_DB from the record, above or below.
 
 The last lines are one JSON object describing the kernel (its
-instantiations and the paths that launch each), the card's name and power
-limit (nvidia-smi's own line), and {"ok": true, "device": {...}}.
+instantiations and the paths that launch each; its streamed path as a
+second entry), the card's name and power limit (nvidia-smi's own line),
+and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -285,6 +309,34 @@ SDF_STEPS, SDF_BATCH, SDF_IOU_SAMPLES = 16, 1 << 18, 1 << 20
 SDF_MIN_IOU = {"base": 0.099, "takikawa": 0.134}
 GT_SILHOUETTE_AGREE = 0.9
 SDF_CPU_DEPTH_TOL, SDF_CPU_PIXEL_SHARE = 5e-3, 0.95
+# phase 3: the other nets the configurations produce, each timed beside a
+# chain of bf16 matmul calls: (name, widths, output activation); the
+# hidden activation is ReLU in every configuration
+CONFIG_NETS = (("nerf_base_density", [32, 64, 16], "None"),
+               ("nerf_base_rgb_image_base", [32, 64, 64, 3], "None"),
+               ("nerf_0layer_linear_rgb", [32, 3], "None"),
+               ("nerf_1layer_rgb", [32, 64, 3], "None"),
+               ("nerf_3layer_rgb", [32, 64, 64, 64, 3], "None"),
+               ("nerf_densegrid_1res_density", [16, 64, 16], "None"),
+               ("nerf_linear_density", [32, 16], "None"),
+               ("image_frequency_oneblob", [64, 64, 64, 3], "None"),
+               ("sdf_base_hashgrid", [32, 64, 64, 1], "None"),
+               ("sdf_takikawa", [24, 64, 64, 1], "None"),
+               ("volume_base", [32, 64, 64, 4], "ReLU"))
+# phase 3: the nets of the configurations whose weights do not fit in
+# shared memory at once, which take the streamed kernel
+WIDE_NETS = (("nerf_frequency_density", [96] + [256] * 7 + [16]),
+             ("nerf_frequency_rgb", [40, 256, 3]),
+             ("nerf_none_density", [3] + [256] * 7 + [16]),
+             ("nerf_none_rgb", [19, 256, 3]),
+             ("sdf_frequency", [60] + [128] * 8 + [1]),
+             ("sdf_oneblob", [96] + [128] * 6 + [1]))
+# phase 15, Geometry mode: frames of the scene, the card against the CPU
+GEOMETRY_SIZE, GEOMETRY_SMALL = 400, 48
+SCREENSHOT = (1920, 1080)
+# phase 16: steps of configs/nerf/frequency.json on the orbit scene, the
+# side of its frame and of the SDF frames, steps of the CLI's capture
+WIDE_STEPS, WIDE_SIZE, CLI_STEPS = 32, 200, 64
 
 
 def look_at(eye, center, up):
@@ -2391,6 +2443,400 @@ def check_mode_shape(name, x_all, w, act, out_act, smi):
             "share_of_bound": bound_ms / ms}
 
 
+def check_net_shape(name, dims, rng, dev, smi, out_act="None",
+                    streamed=False):
+    """Phase 3 for a net of the configurations: its kernel (the streamed
+    one where `streamed`, else an mma instantiation or the general one)
+    against its plain version at small and ragged row counts and at
+    N_ROWS, then the kernel, the plain version and the same net as a chain
+    of bf16 `torch.matmul` + ReLU calls timed at N_ROWS beside the bound ->
+    the shape's row of the kernel table. The weights are He-uniform, so a
+    deep ReLU net keeps its outputs' scale."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        STREAMED, fused_mlp_forward, fused_mlp_forward_plain, kernel_variant,
+        pack_weights)
+
+    variant = kernel_variant(dims, "ReLU", out_act)
+    if (variant == STREAMED) != streamed:
+        raise RuntimeError(f"the {name} net {dims} takes {variant}")
+    w = pack_weights([torch.from_numpy(rng.uniform(
+        -np.sqrt(6.0 / i), np.sqrt(6.0 / i), (i, o)).astype(np.float32))
+        .to(dev) for i, o in zip(dims[:-1], dims[1:])])
+    x = torch.from_numpy(rng.uniform(-1, 1, (N_ROWS, dims[0]))
+                         .astype(np.float32)).to(dev)
+    acts = ("ReLU", out_act)
+    for n in SMALL_ROWS:
+        check_kernel(fused_mlp_forward(x[:n], w, *acts),
+                     fused_mlp_forward_plain(x[:n], w.layers, *acts),
+                     f"{name} x {n}")
+    ref = fused_mlp_forward_plain(x, w.layers, *acts)
+    ref_mean = ref.abs().mean().item()
+    if ref_mean < KERNEL_MIN_MEAN_ABS:
+        raise RuntimeError(f"the {name} reference is too small "
+                           f"({ref_mean:.3g}) to check the kernel")
+    max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w, *acts), ref,
+                                     f"{name} x {N_ROWS}")
+
+    def chain():
+        h = x.to(torch.bfloat16)
+        for layer in w.layers[:-1]:
+            h = torch.relu(torch.matmul(h, layer))
+        h = torch.matmul(h, w.layers[-1]).float()
+        return torch.relu(h) if out_act == "ReLU" else h
+
+    chain_err = (chain() - ref).abs().max().item()
+    reps, inner = (3, 3) if streamed else (5, 10)
+    ms = [cuda_ms(lambda: fused_mlp_forward(x, w, *acts), reps, inner)]
+    chain_ms = [cuda_ms(chain, reps, inner)]
+    plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers, *acts),
+                       reps, inner)
+    chain_ms.append(cuda_ms(chain, reps, inner))
+    ms.append(cuda_ms(lambda: fused_mlp_forward(x, w, *acts), reps, inner))
+    ms, chain_ms = min(ms), min(chain_ms)
+    bound_ms, bound_by = mlp_bound_ms(N_ROWS, dims, 4)
+    print(f"kernel {name} {'-'.join(map(str, dims))} ReLU/{out_act} x "
+          f"{N_ROWS} [{variant}]: max abs {max_abs:.3g} mean abs "
+          f"{mean_abs:.3g} (ref "
+          f"max {ref.abs().max().item():.3g} mean {ref_mean:.3g}) | kernel "
+          f"{ms:.4f} ms, bf16 matmul chain {chain_ms:.4f} ms (max abs "
+          f"{chain_err:.3g} from plain), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
+          f"reached) [{smi}]", flush=True)
+    return {"dims": list(dims), "activations": list(acts),
+            "rows": N_ROWS, "variant": variant, "max_abs_err": max_abs,
+            "mean_abs_err": mean_abs, "ref_max_abs": ref.abs().max().item(),
+            "ref_mean_abs": ref_mean, "ms": ms, "plain_ms": plain_ms,
+            "chain_ms": chain_ms, "chain_max_abs_err": chain_err,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+
+
+def write_box_obj(path):
+    """The 12 triangles of the cube [-0.5, 0.5]^3 as OBJ."""
+    v = [[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+         for z in (-0.5, 0.5)]
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 5, 7, 3)]
+    with open(path, "w") as f:
+        for p in v:
+            f.write("v {} {} {}\n".format(*p))
+        for a, b, c, d in quads:
+            f.write(f"f {a + 1} {b + 1} {c + 1}\nf {a + 1} {c + 1} {d + 1}\n")
+
+
+def geometry_scene(root, train_tb):
+    """Phase 15's scene in `root`: the bumpy sphere of phase 14 (its OBJ
+    made again), a box, and phase 6's trained orbit model as a NeRF object
+    through a `.ingp` the port's codec writes; the snapshot is read back
+    by the codec and must hold the testbed's raw parameters. -> (the
+    scene's path, a camera, numbers of the snapshot)."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.data.snapshot import load_snapshot
+    from instant_ngp_tpu_torch.geom.triangle_bvh import load_obj
+
+    bumpy = os.path.join(root, "bumpy.obj")
+    n_tris = bumpy_sphere_obj(bumpy, SDF_MESH_RES)
+    flat = load_obj(bumpy).reshape(-1, 3)
+    extent = float((flat.max(0) - flat.min(0)).max())
+    write_box_obj(os.path.join(root, "box.obj"))
+    snap = os.path.join(root, "orbit.ingp")
+    t0 = time.perf_counter()
+    train_tb.save_snapshot(snap)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_snapshot(snap)
+    load_s = time.perf_counter() - t0
+    raw = train_tb.model.param_tree()
+    if loaded["config"] != train_tb.config or not torch.equal(
+            loaded["trainer"]["params"]["pos_encoding"],
+            raw["pos_encoding"].detach().cpu()) or not all(
+            torch.equal(a, b.detach().cpu()) for a, b in zip(
+                loaded["trainer"]["params"]["density_net"],
+                raw["density_net"])):
+        raise RuntimeError("the snapshot read back by the codec differs "
+                           "from the testbed it was written from")
+    scene = {"geometry": [
+        # the bumpy sphere 0.5 wide left of the NeRF object's box, a box
+        # 0.25 wide in the box's empty corner, the NeRF object at the
+        # origin (its box [0, 1]^3, the orbit scene's sphere inside)
+        {"type": "Mesh", "path": "bumpy.obj", "scale": 0.5 / extent,
+         "center": (np.array([-0.4, 0.5, 0.5])
+                    - flat.mean(0)).tolist()},
+        {"type": "Mesh", "path": "box.obj", "scale": 0.25,
+         "center": [0.82, 0.2, 0.2]},
+        {"type": "Nerf", "path": "orbit.ingp", "center": [0.0, 0.0, 0.0]}]}
+    path = os.path.join(root, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    cam = look_at(np.array([0.25, 0.9, -1.5], np.float32),
+                  np.array([0.25, 0.5, 0.5], np.float32),
+                  np.array([0, 1, 0], np.float32))
+    print(f"geometry: bumpy sphere {n_tris} triangles, a box, phase 6's "
+          f"model as a NeRF object: .ingp written by the port's codec in "
+          f"{save_s:.2f} s ({os.path.getsize(snap) / 2 ** 20:.1f} MiB), "
+          f"read back in {load_s:.2f} s", flush=True)
+    return path, cam, {"triangles": n_tris, "snapshot_save_s": save_s,
+                       "snapshot_load_s": load_s,
+                       "snapshot_bytes": os.path.getsize(snap)}
+
+
+def geometry_mode(root, train_tb, dev, smi, fused_mlp_forward, variants):
+    """Phase 15 -> (the kernel's launches by variant over the phase, the
+    Geometry path's numbers). Frames of the scene through
+    `Testbed.load_file` + `render` at GEOMETRY_SIZE in Shade, Normals and
+    Depth, each launching both NeRF nets' instantiations once per chunk of
+    the march (ceil(samples / chunk)); a small frame on the card against
+    the CPU; a 1920x1080 `screenshot`."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.testbed import Testbed
+
+    path, cam, out = geometry_scene(root, train_tb)
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    tb = Testbed()
+    tb.load_file(path)
+    impl = tb.impl
+    if len(impl.meshes) != 2 or len(impl.nerfs) != 1 \
+            or impl.nerfs[0].model is None:
+        raise RuntimeError("the Geometry scene did not load its objects")
+    chunk = impl.nerf_chunk_samples
+    size = GEOMETRY_SIZE
+    frames = {}
+    for mode in ("Shade", "Shade", "Normals", "Depth"):   # cold, then warm
+        before = dict(fused_mlp_forward.launches_by_variant)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if mode == "Shade":
+            frame = tb.render(size, size, camera_matrix=cam)
+        else:
+            frame = impl.render_frame(size, size, cam, render_mode=mode)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = impl.last_frame_n_samples
+        launched = {k: v - before.get(k, 0) for k, v in
+                    fused_mlp_forward.launches_by_variant.items()
+                    if v != before.get(k, 0)}
+        want = math.ceil(n / chunk)
+        frames[mode] = {"ms": 1e3 * sec, "samples": n,
+                        "launches": launched, "predicted_launches": want,
+                        "peak_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30, "alpha_mean": float(frame[..., 3].mean())}
+        print(f"geometry: {mode} {size}x{size} {1e3 * sec:.1f} ms, {n} "
+              f"samples of the NeRF object, launches {launched} "
+              f"(ceil(samples / {chunk}) = {want} each), peak "
+              f"{frames[mode]['peak_gib']:.2f} GiB, alpha mean "
+              f"{frames[mode]['alpha_mean']:.3f} [{smi}]", flush=True)
+        if frame.shape != (size, size, 4) or not np.isfinite(frame).all() \
+                or n <= 0 or launched != {v: want for v in variants}:
+            raise RuntimeError(f"the Geometry {mode} frame is wrong: "
+                               f"{n} samples, launches {launched}")
+    # where a warm Shade frame's time goes: the host's mesh trace, the
+    # NeRF object's march on the device (synchronised), the rest
+    from instant_ngp_tpu_torch.nerf.render import camera_rays_for_frame
+
+    o_t, d_t = camera_rays_for_frame(size, size, (size * 1.1,) * 2, cam,
+                                     device=dev)
+    o_np, d_np = o_t.cpu().numpy(), d_t.cpu().numpy()
+    t0 = time.perf_counter()
+    t_hit, obj, _ = impl.trace_meshes(o_np, d_np)
+    trace_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    impl._march_nerf_object(impl.nerfs[0], o_np, d_np,
+                            np.where(obj >= 0, t_hit, 1e10))
+    torch.cuda.synchronize()
+    march_ms = 1e3 * (time.perf_counter() - t0)
+    out["warm_shade_split_ms"] = {
+        "frame": frames["Shade"]["ms"], "mesh_trace_host": trace_ms,
+        "nerf_march": march_ms,
+        "rest": frames["Shade"]["ms"] - trace_ms - march_ms}
+    print(f"geometry: a warm Shade frame {frames['Shade']['ms']:.1f} ms: "
+          f"mesh trace on the host {trace_ms:.1f} ms, NeRF-object march "
+          f"{march_ms:.1f} ms, the rest (rays, shading, composite) "
+          f"{frames['Shade']['ms'] - trace_ms - march_ms:.1f} ms [{smi}]",
+          flush=True)
+
+    # the NeRF object shows in the frame
+    shade = tb.render(size, size, camera_matrix=cam)
+    nerfs, impl.nerfs = impl.nerfs, []
+    mesh_only = impl.render_frame(size, size, cam)
+    impl.nerfs = nerfs
+    moved = float(np.abs(shade - mesh_only).max(-1).mean())
+    if not (moved > 0.01
+            and shade[..., 3].mean() > mesh_only[..., 3].mean()):
+        raise RuntimeError("the NeRF object does not show in the frame")
+
+    # a small frame on the card against the CPU (the plain versions)
+    small = GEOMETRY_SMALL
+    fl = small * 1.1
+    ours = impl.render_frame(small, small, cam, focal_length=fl)
+    cpu = Testbed(device="cpu")
+    cpu.load_file(path)
+    ref = cpu.impl.render_frame(small, small, cam, focal_length=fl)
+    err = np.abs(ours - ref)
+    print(f"geometry: {small}x{small} card vs CPU: max abs {err.max():.3g}, "
+          f"mean abs {err.mean():.3g}", flush=True)
+    if not (err.max() <= FRAME_MAX_ABS and err.mean() <= FRAME_MEAN_ABS):
+        raise RuntimeError("the card's Geometry frame disagrees with the "
+                           "CPU's")
+    del cpu
+
+    # a 1920x1080 screenshot through the facade
+    shot = os.path.join(root, "screenshot.png")
+    before = dict(fused_mlp_forward.launches_by_variant)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tb.screenshot(shot, *SCREENSHOT, spp=1)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    n = impl.last_frame_n_samples
+    launched = {k: v - before.get(k, 0) for k, v in
+                fused_mlp_forward.launches_by_variant.items()
+                if v != before.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"geometry: screenshot {SCREENSHOT[0]}x{SCREENSHOT[1]} "
+          f"{sec:.2f} s, {n} samples, launches {launched}, peak "
+          f"{peak:.2f} GiB [{smi}]", flush=True)
+    if not os.path.getsize(shot) or launched != {
+            v: math.ceil(n / chunk) for v in variants}:
+        raise RuntimeError("the screenshot is missing or launched "
+                           f"{launched}")
+    out.update(nerf_object_moves_pixels=moved,
+               frames=frames, card_vs_cpu_max_abs=float(err.max()),
+               card_vs_cpu_mean_abs=float(err.mean()),
+               screenshot={"s": sec, "samples": n, "launches": launched,
+                           "peak_gib": peak})
+    return dict(fused_mlp_forward.launches_by_variant), out
+
+
+def wide_nets_and_cli(root, ds, dev, smi, fused_mlp_forward):
+    """Phase 16 -> (the kernel's launches by variant over the wide nets'
+    path, its numbers). configs/nerf/frequency.json trains WIDE_STEPS steps
+    on the orbit scene (density updates included) and renders a frame;
+    configs/sdf/frequency.json and oneblob.json take 2 steps on the bumpy
+    sphere and render a frame: every launch the streamed kernel's. Then
+    the command line as subprocesses on the card: the capture of phase 9
+    trained CLI_STEPS steps with --save_snapshot, that snapshot loaded
+    with --n_steps 0 and screenshots of two of its views, and the Geometry
+    scene of phase 15; each must return 0 and leave its files."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import STREAMED
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+
+    out = {}
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    cfg = load_network_config(find_network_config("frequency", "nerf"))
+    tb = NerfTestbed(ds, cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = tb.train(1)
+    loss = tb.train(WIDE_STEPS - 1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    in_training = fused_mlp_forward.launches_by_variant.get(STREAMED, 0)
+    size = WIDE_SIZE
+    t0 = time.perf_counter()
+    frame = tb.render_frame(size, size, orbit_camera(0.3, 0.4),
+                            focal_length=size * 1.1)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    out["nerf_frequency"] = {
+        "steps": WIDE_STEPS, "s": train_s, "first_loss": first,
+        "loss": loss, "launches_in_training": in_training,
+        "frame_ms": 1e3 * frame_s, "frame_samples": tb.last_frame_n_samples}
+    print(f"wide: nerf frequency.json {WIDE_STEPS} steps in {train_s:.2f} s "
+          f"({WIDE_STEPS / train_s:.2f} steps/s), loss {first:.4f} -> "
+          f"{loss:.4f}, {in_training} streamed launches by the density "
+          f"updates; frame {size}x{size} {1e3 * frame_s:.1f} ms, "
+          f"{tb.last_frame_n_samples} samples [{smi}]", flush=True)
+    if not (np.isfinite(loss) and in_training > 0 and np.isfinite(frame).all()
+            and tb.last_frame_n_samples > 0):
+        raise RuntimeError("configs/nerf/frequency.json did not train and "
+                           "render through the streamed kernel")
+    del tb
+    bumpy = os.path.join(root, "bumpy.obj")
+    cam = np.array([[1, 0, 0, 0.5], [0, -1, 0, 0.5], [0, 0, -1, 2.5]],
+                   np.float32)
+    for name in ("frequency", "oneblob"):
+        cfg = load_network_config(find_network_config(name, "sdf"))
+        stb = SdfTestbed(bumpy, cfg, device=dev, seed=SEED)
+        loss = stb.train(2, batch_size=1 << 16)
+        before = fused_mlp_forward.launches_by_variant.get(STREAMED, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = stb.render_frame(size, size, cam)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = fused_mlp_forward.launches_by_variant.get(STREAMED, 0) - before
+        out[f"sdf_{name}"] = {"loss": loss, "frame_ms": 1e3 * sec,
+                              "frame_launches": n}
+        print(f"wide: sdf {name}.json 2 steps (loss {loss:.4f}), frame "
+              f"{size}x{size} {1e3 * sec:.1f} ms, {n} streamed launches "
+              f"[{smi}]", flush=True)
+        if not (np.isfinite(loss) and n > 0 and np.isfinite(frame).all()):
+            raise RuntimeError(f"configs/sdf/{name}.json did not render "
+                               f"through the streamed kernel")
+        del stb
+    by_variant = dict(fused_mlp_forward.launches_by_variant)
+    if set(by_variant) != {STREAMED}:
+        raise RuntimeError(f"the wide nets launched {by_variant}")
+
+    # the command line, as a user runs it
+    cap = os.path.join(root, "capture")
+    path, _ = write_capture(cap, 64, WIDTH, CAPTURE_EXTRA_DIMS)
+    snap = os.path.join(root, "capture.ingp")
+    shots = os.path.join(root, "shots")
+    runs = [
+        ("train", ["--scene", path, "--n_steps", str(CLI_STEPS),
+                   "--save_snapshot", snap], [snap]),
+        ("reload", ["--scene", path, "--load_snapshot", snap, "--n_steps",
+                    "0", "--screenshot_transforms", path,
+                    "--screenshot_frames", "0", "1", "--screenshot_dir",
+                    shots, "--width", str(WIDE_SIZE), "--height",
+                    str(WIDE_SIZE), "--screenshot_spp", "1"],
+         [os.path.join(shots, "0000.exr"), os.path.join(shots, "0001.exr")]),
+        ("geometry", [os.path.join(root, "scene.json"), "--n_steps", "0",
+                      "--screenshot_dir", os.path.join(root, "geo_shot"),
+                      "--width", str(GEOMETRY_SIZE), "--height",
+                      str(GEOMETRY_SIZE), "--screenshot_spp", "1"],
+         [os.path.join(root, "geo_shot", "screenshot.png")])]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out["cli"] = {}
+    for tag, args, files in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "instant_ngp_tpu_torch",
+                               *args], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        missing = [f for f in files if not os.path.isfile(f)]
+        last = proc.stdout.strip().splitlines()[-1:] or [""]
+        print(f"cli: {tag}: rc {proc.returncode} in {sec:.1f} s, "
+              f"{last[0]}", flush=True)
+        if proc.returncode != 0 or missing:
+            raise RuntimeError(f"the command line's {tag} run failed (rc "
+                               f"{proc.returncode}, missing {missing}):\n"
+                               f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        out["cli"][tag] = {"rc": proc.returncode, "s": sec}
+    return by_variant, out
+
+
 def main():
     import numpy as np
     import torch
@@ -2637,6 +3083,17 @@ def main():
                 name, feats[:, :dims[0]].contiguous(), pack_weights(ws),
                 "ReLU", out_act, smi)
         del feats, rgb_in, path_shapes, x, x_all, ref, latent_net, codes
+        # the nets whose weights do not fit in shared memory at once:
+        # configs/nerf/frequency.json's and none.json's, configs/sdf/
+        # frequency.json's and oneblob.json's, on the streamed kernel
+        wide = {name: check_net_shape(name, dims, rng, dev, smi,
+                                      streamed=True)
+                for name, dims in WIDE_NETS}
+        # every other net of the configurations, beside its matmul chain
+        config_nets = {name: check_net_shape(name, dims, rng, dev, smi,
+                                             out_act=out_act)
+                       for name, dims, out_act in CONFIG_NETS}
+        torch.cuda.empty_cache()
 
     # phase 4: the main path, through the testbed's entry points
     cam = orbit_camera(angle=0.3, elevation=0.4)
@@ -2809,6 +3266,31 @@ def main():
     print(f"phases 12-14 (lenses, Volume, SDF): "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
+    # phase 15: Geometry mode, the scene of a mesh, a box and phase 6's
+    # model through a .ingp of the port's codec; the NeRF object's nets
+    # take the density and RGB instantiations
+    import shutil
+    import tempfile
+
+    t_new = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="geometry_")
+    try:
+        by_variant_geometry, geometry_path = geometry_mode(
+            work, train_tb, dev, smi, fused_mlp_forward,
+            tuple(main_variants.values()))
+        launches_geometry = sum(by_variant_geometry.values())
+        del train_tb
+        torch.cuda.empty_cache()
+        # phase 16: the wide nets train and render on the streamed kernel;
+        # the command line on the card
+        by_variant_wide, wide_path = wide_nets_and_cli(
+            work, ds, dev, smi, fused_mlp_forward)
+        launches_wide = sum(by_variant_wide.values())
+    finally:
+        shutil.rmtree(work)
+    print(f"phases 15-16 (Geometry, wide nets, CLI): "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
     if args.curve:
         train_curve(ds, cfg, dev, smi)
 
@@ -2827,7 +3309,8 @@ def main():
         # (both configurations: training, IoU, frames, the brick oracle
         # launches nothing)
         "launches": launches + launches_train + launches_capture
-        + launches_image + launches_mesh + launches_volume + launches_sdf,
+        + launches_image + launches_mesh + launches_volume + launches_sdf
+        + launches_geometry,
         "launches_render_path": launches,
         "launches_train_path": launches_train,
         "launches_capture_path": launches_capture,
@@ -2835,13 +3318,15 @@ def main():
         "launches_mesh_path": launches_mesh,
         "launches_volume_path": launches_volume,
         "launches_sdf_path": launches_sdf,
+        "launches_geometry_path": launches_geometry,
         # which paths launch each instantiation (and the general kernel)
         "instantiations": {
             shapes["density"]["variant"]: [
                 "render", "train (density updates, frames)", "capture",
-                "mesh"],
+                "mesh", "geometry"],
             shapes["rgb"]["variant"]: ["render", "train (frames)", "image",
-                                       "mesh", "sdf (base and Takikawa)"],
+                                       "mesh", "sdf (base and Takikawa)",
+                                       "geometry"],
             shapes["volume"]["variant"]: ["volume"],
             shapes["rgb_latent"]["variant"]: ["capture (RGB net with "
                                               "latent dims)"]},
@@ -2860,7 +3345,32 @@ def main():
         "general_ms": sum(s["general_ms"] for s in main_shapes.values()),
         "shapes": shapes,
         "mesh_path": mesh_path,
+        "geometry_path": geometry_path,
+        "config_nets": config_nets,
         "other_shapes": other,
+    }, {
+        # the streamed path of the same kernel, for the nets whose weights
+        # do not fit in shared memory at once; its path is phase 16's
+        # (configs/nerf/frequency.json trained and rendered, configs/sdf/
+        # frequency.json and oneblob.json rendered), counted from 0
+        "name": "fused_mlp_forward[streamed]",
+        "route": "cuda",
+        "source": "instant_ngp_tpu_torch/csrc/fused_mlp_stream.cu",
+        "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
+        "launches": launches_wide,
+        "max_abs_err": max(s["max_abs_err"] for s in wide.values()),
+        # configs/nerf/frequency.json's density net at N_ROWS rows, the
+        # widest of the path; every net has its row under "shapes"
+        "ms": wide["nerf_frequency_density"]["ms"],
+        "plain_ms": wide["nerf_frequency_density"]["plain_ms"],
+        "bound_ms": wide["nerf_frequency_density"]["bound_ms"],
+        "bound_by": wide["nerf_frequency_density"]["bound_by"],
+        # no one PyTorch call computes it; the chain of bf16 matmul and
+        # ReLU calls is the yardstick
+        "library_ms": None,
+        "chain_ms": wide["nerf_frequency_density"]["chain_ms"],
+        "shapes": wide,
+        "wide_path": wide_path,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)   # the card's name and power limit, as nvidia-smi gives them

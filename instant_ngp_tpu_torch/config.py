@@ -2,7 +2,9 @@
 
 Counterpart of instant_ngp_tpu/config.py: a child config deep-merges on
 top of its parent (parent paths are relative to the child's directory),
-and configs may carry // and /* */ comments.
+and configs may carry // and /* */ comments. `get_path` / `set_path` read
+and write a nested key by its dotted path ("optimizer.nested.
+learning_rate").
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 from typing import Any, Dict, Optional
 
 CONFIG_SEARCH_PATHS = [
@@ -110,3 +113,26 @@ def find_network_config(name: str, mode: Optional[str] = None) -> str:
     raise FileNotFoundError(
         f"network config {name!r} not found (mode={mode}, "
         f"tried {len(candidates)} paths)")
+
+
+_KEY_RE = re.compile(r"[^.]+")
+
+
+def get_path(cfg: Dict[str, Any], dotted: str, default=None):
+    """cfg["a"]["b"]["c"] for "a.b.c", or `default` where a key is missing
+    or a node on the way is not a dict."""
+    node = cfg
+    for key in _KEY_RE.findall(dotted):
+        if not isinstance(node, dict) or key not in node:
+            return default
+        node = node[key]
+    return node
+
+
+def set_path(cfg: Dict[str, Any], dotted: str, value) -> None:
+    """cfg["a"]["b"]["c"] = value for "a.b.c", making the dicts on the way."""
+    keys = _KEY_RE.findall(dotted)
+    node = cfg
+    for key in keys[:-1]:
+        node = node.setdefault(key, {})
+    node[keys[-1]] = value

@@ -33,13 +33,56 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     encoding's table) ready for `NetworkWithInputEncoding.load_params`."""
     if "net" in tree:
         return network_params_from_jax(tree)
+    table = tree.get("pos_encoding")
     return {
-        "pos_encoding": _tensor(tree["pos_encoding"]).reshape(-1),
+        "pos_encoding": None if table is None else _tensor(table).reshape(-1),
         "density_net": [_tensor(w) for w in tree["density_net"]],
         "dir_encoding": None if tree.get("dir_encoding") is None
         else _tensor(tree["dir_encoding"]),
         "rgb_net": [_tensor(w) for w in tree["rgb_net"]],
     }
+
+
+def jax_grid_layout(n_features: int) -> str:
+    """The layout of a JAX `GridEncoding`'s table in memory: interleaved
+    where 128 lanes hold whole entries (every configuration's F), else
+    planar."""
+    return "interleaved" if 128 % n_features == 0 else "planar"
+
+
+def nerf_object_params_from_jax(params: Dict[str, Any],
+                                config: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameters of a JAX `GeometryTestbed`'s `NerfObject` (its
+    `params`, numpy arrays in the JAX model's own grid layout; what a
+    Geometry snapshot stores under `objects[i]["nerf"]["params"]`) -> the
+    port's tree, ready for `NerfNetwork.load_params`."""
+    from .ops.grid_encoding import convert_layout
+
+    table = params.get("pos_encoding")
+    if table is not None:
+        n_features = config["encoding"].get("n_features_per_level", 2)
+        table = convert_layout(np.asarray(table).reshape(-1), n_features,
+                               jax_grid_layout(n_features), "interleaved")
+    return params_from_jax(dict(params, pos_encoding=table))
+
+
+def geometry_objects_from_jax(objects) -> list:
+    """A Geometry snapshot's `objects` (numpy arrays, as either package
+    writes them) -> the same list with each NeRF object's parameters as
+    the port's tree (`nerf_object_params_from_jax`) and its density grid
+    as a float32 array; mesh triangles and BRDFs are taken as they are."""
+    out = []
+    for entry in objects:
+        entry = dict(entry)
+        if entry.get("type") == "Nerf" and "nerf" in entry:
+            state = dict(entry["nerf"])
+            state["params"] = nerf_object_params_from_jax(state["params"],
+                                                          state["config"])
+            state["density_grid"] = np.asarray(state["density_grid"],
+                                               np.float32)
+            entry["nerf"] = state
+        out.append(entry)
+    return out
 
 
 def network_params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:

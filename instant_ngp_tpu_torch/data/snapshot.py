@@ -3,9 +3,9 @@ followed by an MLP (Image, Volume and SDF modes) (`.ingp`, zlib-compressed
 msgpack, or bare `.msgpack`; format of instant_ngp_tpu/data/snapshot.py).
 
 Arrays are stored as {"__ndarray__": True, "dtype", "shape", "data"} with
-raw little-endian bytes, so the format needs numpy and msgpack only.
-msgpack is imported inside `load_snapshot` and `save_snapshot`, because
-the port itself does not depend on it.
+raw little-endian bytes. The MessagePack is written and read by the port's
+own codec (`msgpack_codec.py`, the same bytes as `msgpack.packb(...,
+use_bin_type=True)`), so snapshots need no msgpack package.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 from ..convert import (buffer_state_from_jax, network_params_from_jax,
                        opt_state_from_jax, params_from_jax)
 from ..ops.grid_encoding import convert_layout
+from .msgpack_codec import packb, unpackb
 
 SNAPSHOT_FORMAT_VERSION = 1
 _ARRAY_KEY = "__ndarray__"
@@ -60,17 +61,31 @@ def save_snapshot(path: str, snapshot: Dict[str, Any]) -> None:
     least {"config", "trainer": {"params", "opt"}}, and whatever else the
     mode keeps (density grid, step counts). `.ingp` paths are
     zlib-compressed."""
-    import msgpack
-
     payload = dict(snapshot)
     payload["snapshot_format_version"] = SNAPSHOT_FORMAT_VERSION
-    raw = msgpack.packb(_pack_tree(payload), use_bin_type=True)
+    raw = packb(_pack_tree(payload))
     if path.endswith(".ingp"):
         raw = zlib.compress(raw, level=6)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(raw)
     os.replace(tmp, path)
+
+
+def read_snapshot_payload(path: str) -> Dict[str, Any]:
+    """A snapshot file -> its payload as written, arrays as numpy (what the
+    JAX package's `load_snapshot` returns): the version is checked, no
+    tree is converted."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if path.endswith(".ingp") or raw[:2] in (b"\x78\x9c", b"\x78\x01"):
+        raw = zlib.decompress(raw)
+    payload = _unpack_tree(unpackb(raw))
+    version = payload.get("snapshot_format_version")
+    if version != SNAPSHOT_FORMAT_VERSION:
+        raise ValueError(f"snapshot format version {version} is not "
+                         f"{SNAPSHOT_FORMAT_VERSION}")
+    return payload
 
 
 def load_snapshot(path: str) -> Dict[str, Any]:
@@ -90,18 +105,9 @@ def load_snapshot(path: str) -> Dict[str, Any]:
     ({"params", "opt"} as port tensors, a grid table interleaved) for
     `Trainer.load_state`. A table that is not a grid's (the Takikawa
     encoding's) has one layout and is taken as it is."""
-    import msgpack
-
-    with open(path, "rb") as f:
-        raw = f.read()
-    if path.endswith(".ingp") or raw[:2] in (b"\x78\x9c", b"\x78\x01"):
-        raw = zlib.decompress(raw)
-    payload = _unpack_tree(msgpack.unpackb(raw, raw=False,
-                                           strict_map_key=False))
-    version = payload.get("snapshot_format_version")
-    if version != SNAPSHOT_FORMAT_VERSION:
-        raise ValueError(f"snapshot format version {version} is not "
-                         f"{SNAPSHOT_FORMAT_VERSION}")
+    payload = read_snapshot_payload(path)
+    if payload.get("mode") == "geometry":
+        return payload
     trainer = payload["trainer"]
     config = payload["config"]
     n_features = config["encoding"].get("n_features_per_level", 2)
@@ -132,6 +138,7 @@ def load_snapshot(path: str) -> Dict[str, Any]:
                if payload.get(k) is not None}
     return {
         **buffers,
+        "mode": payload.get("mode", "nerf"),
         "config": config,
         "aabb_scale": int(payload.get("aabb_scale", 1)),
         "params": state.get("opt", {}).get("ema") or state["params"],

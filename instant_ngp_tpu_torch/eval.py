@@ -5,8 +5,8 @@ script as a library function (counterpart of instant_ngp_tpu/eval.py).
 - each view renders at spp 8 over BLACK with minimum transmittance 1e-4,
   through the view's own lens and principal point;
 - the metrics are taken in sRGB on the image composited onto black:
-  per-view and aggregate PSNR (average, minimum, maximum) and SSIM. The
-  FLIP metric is not ported.
+  per-view and aggregate PSNR (average, minimum, maximum) and SSIM, and
+  FLIP with `with_flip`.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ def gt_srgb_on_black(gt_raw: np.ndarray) -> np.ndarray:
 
 def eval_nerf_views(testbed, data=None, indices: Optional[List[int]] = None,
                     spp: int = 8, downscale: int = 1,
+                    with_flip: bool = False,
                     min_transmittance: float = 1e-4,
                     verbose: bool = True) -> Dict[str, Any]:
     """Render each view of `data` (a NerfTrainingData; by default the
@@ -41,7 +42,7 @@ def eval_nerf_views(testbed, data=None, indices: Optional[List[int]] = None,
     with its image.
 
     -> {"psnr": [...], "ssim": [...], "psnr_avg", "psnr_min", "psnr_max",
-    "ssim_avg"}."""
+    "ssim_avg"}, and "flip" and "flip_avg" with `with_flip`."""
     from .metrics import ssim as ssim_map
 
     if data is None:
@@ -49,7 +50,7 @@ def eval_nerf_views(testbed, data=None, indices: Optional[List[int]] = None,
     if indices is None:
         indices = list(range(data.n_images))
 
-    psnrs, ssims = [], []
+    psnrs, ssims, flips = [], [], []
     for i in indices:
         w0, h0 = (int(v) for v in data.resolutions[i].tolist())
         w, h = w0 // downscale, h0 // downscale
@@ -78,18 +79,29 @@ def eval_nerf_views(testbed, data=None, indices: Optional[List[int]] = None,
         s = float(np.mean(ssim_map(gt, pred)))
         psnrs.append(p)
         ssims.append(s)
-        if verbose:
-            print(f"  view {i}: PSNR {p:.2f} SSIM {s:.4f}", flush=True)
+        line = f"  view {i}: PSNR {p:.2f} SSIM {s:.4f}"
+        if with_flip:
+            from .metrics_flip import compute_flip
 
-    return {
+            flips.append(float(np.mean(compute_flip(gt, pred))))
+            line += f" FLIP {flips[-1]:.4f}"
+        if verbose:
+            print(line, flush=True)
+
+    out: Dict[str, Any] = {
         "psnr": psnrs, "ssim": ssims,
         "psnr_avg": float(np.mean(psnrs)), "psnr_min": float(np.min(psnrs)),
         "psnr_max": float(np.max(psnrs)), "ssim_avg": float(np.mean(ssims)),
     }
+    if with_flip:
+        out["flip"] = flips
+        out["flip_avg"] = float(np.mean(flips))
+    return out
 
 
 def eval_test_transforms(testbed, transforms_path: str, spp: int = 8,
                          limit: int = 0, downscale: int = 1,
+                         with_flip: bool = False,
                          verbose: bool = True) -> Dict[str, Any]:
     """Load `transforms_path` as an eval dataset (its cameras and its
     images, not the training dataset's) and score every view of it with
@@ -102,4 +114,5 @@ def eval_test_transforms(testbed, transforms_path: str, spp: int = 8,
     indices = list(range(data.n_images if not limit
                          else min(limit, data.n_images)))
     return eval_nerf_views(testbed, data, indices, spp=spp,
-                           downscale=downscale, verbose=verbose)
+                           downscale=downscale, with_flip=with_flip,
+                           verbose=verbose)

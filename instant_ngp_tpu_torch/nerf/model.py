@@ -62,24 +62,32 @@ class NerfNetwork(nn.Module):
             self.n_density_out + self.dir_encoding.n_output_dims, 3,
             rgb_network_config, compute_dtype=compute_dtype)
 
+    def _table(self) -> Optional[torch.Tensor]:
+        """The position encoding's table (a grid's), or None for an
+        encoding without parameters (Frequency, Identity, ...)."""
+        return getattr(self.pos_encoding, "params", None)
+
     def init_params(self, generator: torch.Generator) -> None:
-        self.pos_encoding.init_params(generator)
+        if self._table() is not None:
+            self.pos_encoding.init_params(generator)
         self.density_net.init_params(generator)
         self.rgb_net.init_params(generator)
 
     def load_params(self, params: Dict[str, Any]) -> None:
         """params in the JAX layout, as tensors (see convert.params_from_jax).
         The direction encodings the NeRF configs use carry no parameters."""
-        with torch.no_grad():
-            self.pos_encoding.params.copy_(
-                torch.as_tensor(params["pos_encoding"]).reshape(-1))
+        if self._table() is not None:
+            with torch.no_grad():
+                self._table().copy_(
+                    torch.as_tensor(params["pos_encoding"]).reshape(-1))
         self.density_net.load_weights(params["density_net"])
         self.rgb_net.load_weights(params["rgb_net"])
 
     def param_tree(self) -> Dict[str, Any]:
         """The parameter tensors themselves, in the JAX layout (the
-        direction encodings carry none: None, an empty subtree)."""
-        return {"pos_encoding": self.pos_encoding.params,
+        direction encodings, and a position encoding that is not a grid,
+        carry none: None, an empty subtree)."""
+        return {"pos_encoding": self._table(),
                 "density_net": list(self.density_net.weights),
                 "dir_encoding": None,
                 "rgb_net": list(self.rgb_net.weights)}
@@ -88,8 +96,11 @@ class NerfNetwork(nn.Module):
                         max_level: Optional[float] = None,
                         encode_draws=None, encode_generator=None,
                         exact_axes: Optional[int] = None) -> torch.Tensor:
-        """Warped positions (N, 3) -> raw density-net outputs (N, 16)."""
-        if encode_draws is None and encode_generator is None:
+        """Warped positions (N, 3) -> raw density-net outputs (N, 16). An
+        encoding that is not a grid takes no level cap or corner draws."""
+        if self._table() is None:
+            feats = self.pos_encoding(pos)
+        elif encode_draws is None and encode_generator is None:
             feats = self.pos_encoding(pos, max_level=max_level)
         else:
             feats = self.pos_encoding(pos, max_level=max_level,

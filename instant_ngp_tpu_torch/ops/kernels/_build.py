@@ -148,8 +148,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i32, ptr, i32, ptr, i32, i32, dims, i32, i32, ptr]
     lib.fused_mlp_mma_launch.argtypes = [
         ptr, i32, ptr, i32, ptr, i32, i32, dims, i32, i32, i32, ptr]
+    lib.fused_mlp_stream_launch.argtypes = [
+        ptr, i32, ptr, ctypes.c_longlong, ptr, i32, i32, dims, i32, i32, ptr]
     lib.fused_mlp_mma_has_variant.argtypes = [i32, dims, i32, i32]
     for fn in (lib.fused_mlp_forward_launch, lib.fused_mlp_mma_launch,
-               lib.fused_mlp_mma_has_variant):
+               lib.fused_mlp_stream_launch, lib.fused_mlp_mma_has_variant):
         fn.restype = ctypes.c_int
     return lib

@@ -9,19 +9,22 @@ fused_mlp_forward. Both compute, for x (N, D_in):
                        between layers: h = bf16(hidden_activation(h))
     out = output_activation(h)             (float32, (N, D_out))
 
-Two hand-written paths, chosen by `kernel_variant` from the shape and the
-activations alone, before the launch:
+Three hand-written paths, chosen by `kernel_variant` from the shape and
+the activations alone, before the launch, in this order:
 - `csrc/fused_mlp_mma.cu`, one instantiation per entry of `MMA_VARIANTS`
   (the shapes the configurations produce: up to 32 inputs, one hidden
   width of 64 or 128, up to 16 outputs): activations stay in registers
   between layers and the input tiles are streamed ahead of the arithmetic;
-- `csrc/fused_mlp.cu`, the general path: any chain of widths up to 128.
-
-Coverage: 1-9 layers, every width up to 128, as long as all layers'
-weights fit in shared memory beside the kernel's tiles (they stay
-resident; the 128-wide 8-layer SDF config and the 256-wide configs do not
-fit and raise). Hidden activations None/ReLU/Sine, output activations
-None/ReLU/Exponential; anything else raises, on every device.
+- `csrc/fused_mlp.cu`, the general path: any chain of 1-9 layers of widths
+  up to 128 whose weights all fit in shared memory beside its tiles (they
+  stay resident);
+- `csrc/fused_mlp_stream.cu`, the streamed path: any other chain of 1-32
+  layers of widths up to 256 (the 256-wide NeRF configs, the 128-wide
+  6- and 8-layer SDF configs): one layer's weights at a time in shared
+  memory, whatever the total.
+Hidden activations None/ReLU/Sine, output activations None/ReLU/
+Exponential; anything else, or a width above 256, raises, on every
+device.
 
 On a CPU tensor `fused_mlp_forward` runs `fused_mlp_forward_plain`. On a
 CUDA tensor it launches a kernel or raises; it never falls back.
@@ -41,6 +44,9 @@ OUTPUT_ACTIVATIONS = ("None", "ReLU", "Exponential")
 _ACTIVATION_IDS = {"None": 0, "ReLU": 1, "Sine": 2, "Exponential": 3}
 MAX_LAYERS = 9
 MAX_WIDTH = 128
+#: the streamed path's limits (csrc/fused_mlp_stream.cu)
+STREAM_MAX_LAYERS = 32
+STREAM_MAX_WIDTH = 256
 # shared memory of one block on sm_90 (227 KB)
 SMEM_LIMIT = 232448
 # what the general kernel uses besides the weights: a 128-row bf16
@@ -48,6 +54,11 @@ SMEM_LIMIT = 232448
 # staging tiles with rows of 132
 _SMEM_FIXED = 128 * 136 * 2 + 4 * 16 * 132 * 4
 GENERAL = "general"
+STREAMED = "streamed"
+# what the streamed kernel uses besides one layer's weights: a 128-row
+# bf16 activation tile with rows of 264, and eight 16-row float32 staging
+# tiles with rows of 20
+_STREAM_SMEM_FIXED = 128 * 264 * 2 + 8 * 16 * 20 * 4
 # (padded input, hidden, padded output, hidden activation, output
 # activation) of each instantiation; mirrors kVariants in
 # csrc/fused_mlp_mma.cu
@@ -177,6 +188,13 @@ def general_smem_bytes(dims: Sequence[int]) -> int:
                                  for i, o in zip(dims[:-1], dims[1:]))
 
 
+def stream_smem_bytes(dims: Sequence[int]) -> int:
+    """Shared memory the streamed kernel needs for a chain `dims`: its
+    tiles and the largest layer's block of the general packing."""
+    return _STREAM_SMEM_FIXED + 2 * max(
+        _pad16(i) * (_pad16(o) + 8) for i, o in zip(dims[:-1], dims[1:]))
+
+
 def mma_smem_bytes(dims: Sequence[int], stages: int) -> int:
     """Shared memory the mma kernel needs with an input ring of `stages`:
     the ring, the output gather where the output is narrower than its
@@ -191,15 +209,22 @@ def kernel_variant(dims: Sequence[int], activation: str = "ReLU",
                    output_activation: str = "None") -> str:
     """Which hand-written path `fused_mlp_forward` takes on a CUDA tensor
     for a chain of widths `dims`: the name of an instantiation of the mma
-    kernel, or `GENERAL`. A function of the shape and the activations
-    alone. (Whether the weights fit in shared memory is checked by
-    `fused_mlp_forward`, which raises where they do not.)"""
+    kernel where one fits in shared memory, else `GENERAL` where all the
+    weights fit beside the general kernel's tiles, else `STREAMED`. A
+    function of the shape and the activations alone. (The streamed path's
+    own limits are checked by `fused_mlp_forward`, which raises beyond
+    them.)"""
     dims = tuple(dims)
     shape = mma_shape(dims)
-    if shape is None or (*shape, activation,
-                         output_activation) not in MMA_VARIANTS:
+    if shape is not None and (*shape, activation,
+                              output_activation) in MMA_VARIANTS \
+            and mma_smem_bytes(dims, 1) <= SMEM_LIMIT:
+        return "mma_{}x{}x{}_{}_{}".format(*shape, activation,
+                                           output_activation)
+    if len(dims) - 1 <= MAX_LAYERS and max(dims) <= MAX_WIDTH \
+            and general_smem_bytes(dims) <= SMEM_LIMIT:
         return GENERAL
-    return "mma_{}x{}x{}_{}_{}".format(*shape, activation, output_activation)
+    return STREAMED
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,19 +242,26 @@ def _plan(dims: Tuple[int, ...], activation: str, output_activation: str,
                          f"{output_activation!r} is not one of "
                          f"{OUTPUT_ACTIVATIONS}")
     n_layers = len(dims) - 1
-    if not 1 <= n_layers <= MAX_LAYERS:
+    if not 1 <= n_layers <= STREAM_MAX_LAYERS:
         raise ValueError(f"fused_mlp_forward: {n_layers} layers, "
-                         f"supported 1-{MAX_LAYERS}")
-    if max(dims) > MAX_WIDTH:
+                         f"supported 1-{STREAM_MAX_LAYERS}")
+    if max(dims) > STREAM_MAX_WIDTH:
         raise ValueError(f"fused_mlp_forward: widths {dims} exceed "
-                         f"{MAX_WIDTH}")
+                         f"{STREAM_MAX_WIDTH}: one layer's weights would "
+                         f"not fit in shared memory")
     chosen = kernel_variant(dims, activation, output_activation)
     if variant is None:
         variant = chosen
-    elif variant not in (chosen, GENERAL):
+    elif variant not in (chosen, GENERAL, STREAMED):
         raise ValueError(f"fused_mlp_forward: variant {variant!r} is "
-                         f"neither {chosen!r} nor {GENERAL!r}")
-    if variant == GENERAL:
+                         f"none of {chosen!r}, {GENERAL!r}, {STREAMED!r}")
+    if variant == STREAMED:
+        needed, stages = stream_smem_bytes(dims), 0
+    elif variant == GENERAL:
+        if n_layers > MAX_LAYERS or max(dims) > MAX_WIDTH:
+            raise ValueError(f"fused_mlp_forward: the general kernel takes "
+                             f"1-{MAX_LAYERS} layers of widths up to "
+                             f"{MAX_WIDTH}, not {dims}")
         needed, stages = general_smem_bytes(dims), 0
     else:
         if stages is None:
@@ -278,9 +310,9 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
                       stages: Optional[int] = None) -> torch.Tensor:
     """x (N, D_in) float32 or bf16 -> (N, D_out) float32.
 
-    `variant` and `stages` are for measurements: `variant=GENERAL` sends a
-    shape that has an instantiation of the mma kernel through the general
-    kernel instead, `stages` (1-4) sets the depth of the mma kernel's
+    `variant` and `stages` are for measurements: `variant=GENERAL` or
+    `STREAMED` sends a shape through the general or the streamed kernel
+    instead of the path `kernel_variant` names, `stages` (1-4) sets the depth of the mma kernel's
     input ring. By default the variant is `kernel_variant(...)` and the
     ring as deep as fits, up to MMA_STAGES."""
     variant, stages = _plan(weights.dims, activation, output_activation,
@@ -315,12 +347,13 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     acts = (_ACTIVATION_IDS[activation], _ACTIVATION_IDS[output_activation])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        if variant == GENERAL:
+        if variant in (GENERAL, STREAMED):
             packed = weights.packed_general
-            err = lib.fused_mlp_forward_launch(
-                x.data_ptr(), int(x.dtype == torch.bfloat16),
-                packed.data_ptr(), packed.numel(), out.data_ptr(), n,
-                n_layers, dims, *acts, stream)
+            launch = lib.fused_mlp_forward_launch if variant == GENERAL \
+                else lib.fused_mlp_stream_launch
+            err = launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                         packed.data_ptr(), packed.numel(), out.data_ptr(),
+                         n, n_layers, dims, *acts, stream)
         else:
             err = lib.fused_mlp_mma_launch(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),

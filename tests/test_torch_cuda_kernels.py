@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
-    _ACTIVATION_IDS, GENERAL, MMA_VARIANTS, fused_mlp_forward,
+    _ACTIVATION_IDS, GENERAL, MMA_VARIANTS, STREAMED, fused_mlp_forward,
     fused_mlp_forward_plain, kernel_variant, pack_weights)
 from instant_ngp_tpu_torch.ops.mlp import MLP
 
@@ -62,6 +62,21 @@ CASES = [
     # encoding's 24 features, narrower than the padded width of 32
     ([32, 64, 64, 1], "ReLU", "None"),
     ([24, 64, 64, 1], "ReLU", "None"),
+    # nets whose weights do not fit in shared memory at once take the
+    # streamed kernel: configs/nerf/frequency.json's and none.json's
+    # density and RGB nets, configs/sdf/frequency.json's (8 hidden layers
+    # of 128) and oneblob.json's (6), a 200-wide layer, 17 layers
+    ([96] + [256] * 7 + [16], "ReLU", "None"),
+    ([40, 256, 3], "ReLU", "None"),
+    ([3] + [256] * 7 + [16], "ReLU", "None"),
+    ([19, 256, 3], "ReLU", "None"),
+    ([60] + [128] * 8 + [1], "ReLU", "None"),
+    ([96] + [128] * 6 + [1], "ReLU", "None"),
+    ([40, 200, 256, 5], "ReLU", "ReLU"),
+    # a linear chain carries every bf16 rounding flip to the output, so
+    # 16 hidden layers of 48 part by ~2.3e-2 between two correct float32
+    # summation orders; 16 wide keeps them at ~1.3e-2
+    ([8] + [16] * 16 + [4], "None", "ReLU"),
 ]
 
 
@@ -90,15 +105,19 @@ def test_fused_mlp_kernel_matches_plain(device, case, n):
     err = (out - ref).abs()
     assert torch.isfinite(out).all()
     assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
-    # the general kernel takes every shape, and an input that is not
-    # 16-byte aligned takes the mma kernel's plain loads
-    forced = fused_mlp_forward(x, packed, act, out_act, variant=GENERAL)
+    # the general kernel takes every shape whose weights fit, the streamed
+    # kernel every shape, and an input that is not 16-byte aligned takes
+    # the mma kernel's plain loads
+    forced = [fused_mlp_forward(x, packed, act, out_act, variant=STREAMED)]
+    if kernel_variant(dims, act, out_act) != STREAMED:
+        forced.append(fused_mlp_forward(x, packed, act, out_act,
+                                        variant=GENERAL))
     shifted = torch.empty(x.numel() + 1, device=device)[1:].view_as(x)
     shifted.copy_(x)
     assert shifted.data_ptr() % 16 != 0
     unaligned = fused_mlp_forward(shifted, packed, act, out_act)
     torch.cuda.synchronize()
-    for other in (forced, unaligned):
+    for other in (*forced, unaligned):
         err = (other - ref).abs()
         assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
     # bf16 input takes the same path as its f32 value
@@ -164,8 +183,9 @@ def test_variant_table_matches_the_library(device):
                 has = lib.fused_mlp_mma_has_variant(
                     len(dims) - 1, (ctypes.c_int * len(dims))(*dims),
                     _ACTIVATION_IDS[act], _ACTIVATION_IDS[out_act])
-                assert bool(has) == (kernel_variant(dims, act, out_act)
-                                     != GENERAL), (dims, act, out_act)
+                assert bool(has) == kernel_variant(
+                    dims, act, out_act).startswith("mma_"), (dims, act,
+                                                             out_act)
     assert len(MMA_VARIANTS) == 5
 
 

@@ -47,6 +47,13 @@ CASES = {
     # the NeRF RGB net shape: 16 density outputs + 16 SH features
     "nerf_rgb": dict(d_in=32, width=64, hidden=2, d_out=3,
                      act="ReLU", out_act="None", n=512),
+    # the streamed kernel's nets at a narrow depth: configs/nerf/
+    # frequency.json's density net (96 inputs, 256 wide) and
+    # configs/sdf/frequency.json's (60 inputs, 128 wide)
+    "streamed_256": dict(d_in=96, width=256, hidden=2, d_out=16,
+                         act="ReLU", out_act="None", n=96),
+    "streamed_sdf_128": dict(d_in=60, width=128, hidden=3, d_out=1,
+                             act="ReLU", out_act="None", n=130),
 }
 
 
@@ -127,12 +134,13 @@ def test_wrapper_raises_on_unsupported_activation(kwargs):
         fused_mlp_forward(torch.zeros(4, 16), ws, **kwargs)
 
 
-@pytest.mark.parametrize("dims", [[32] + [256, 256] + [16],
-                                  [48] + [128] * 7 + [16],
-                                  [16] + [32] * 10 + [4]])
+@pytest.mark.parametrize("dims", [[32] + [288, 288] + [16],
+                                  [300, 64, 16],
+                                  [16] + [32] * 33 + [4]])
 def test_wrapper_raises_outside_kernel_coverage(dims):
-    """256-wide nets, 128-wide nets whose weights overflow shared memory
-    (the SDF oneblob/frequency configs) and more than 9 layers."""
+    """Widths above 256 and more than 32 layers: beyond the streamed
+    kernel, which takes the 256-wide nets and the 128-wide nets whose
+    weights overflow shared memory (the SDF oneblob/frequency configs)."""
     rng = np.random.default_rng(7)
     ws = pack_weights([torch.from_numpy(w) for w in _weights(rng, dims)])
     with pytest.raises(ValueError, match="fused_mlp_forward"):

@@ -23,9 +23,10 @@ from instant_ngp_tpu_torch.nerf.dataset import scene_config
 from instant_ngp_tpu_torch.nerf.model import NerfNetwork
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
-    GENERAL, MMA_VARIANTS, SMEM_LIMIT, fused_mlp_forward,
-    fused_mlp_forward_plain, kernel_variant, mma_layer_shapes, mma_shape,
-    mma_smem_bytes, pack_weights)
+    GENERAL, MMA_VARIANTS, SMEM_LIMIT, STREAMED, fused_mlp_forward,
+    fused_mlp_forward_plain, general_smem_bytes, kernel_variant,
+    mma_layer_shapes, mma_shape, mma_smem_bytes, pack_weights,
+    stream_smem_bytes)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -257,24 +258,65 @@ NERF_CONFIGS = sorted(os.path.basename(p) for p in
 
 @pytest.mark.parametrize("name", NERF_CONFIGS)
 def test_every_nerf_config_net_that_fits_has_an_instantiation(name):
+    """Every net of configs/nerf/ has a kernel on the card: an mma
+    instantiation where its weights fit, else (the 256-wide nets of
+    frequency.json and none.json) the streamed kernel. tensor.json fails
+    to build in the JAX package as well (its Composite direction encoding
+    hands spherical harmonics more than 3 dims)."""
     try:
         nets = _config_nets(os.path.join(REPO, "configs", "nerf", name))
     except (NotImplementedError, ValueError) as e:
-        # an encoding the port does not have yet; its nets are 256 wide
-        assert name in ("frequency.json", "tensor.json"), e
+        assert name == "tensor.json", e
         return
     for dims, act, out_act in nets:
-        if max(dims) > 128:
-            packed = pack_weights(_weights(np.random.default_rng(0), dims))
-            with pytest.raises(ValueError, match="fused_mlp_forward"):
-                fused_mlp_forward(torch.zeros(2, dims[0]), packed, act,
-                                  out_act)
-            continue
         variant = kernel_variant(dims, act, out_act)
+        if max(dims) > 128:
+            assert name in ("frequency.json", "none.json"), dims
+            assert variant == STREAMED, (dims, variant)
+            assert stream_smem_bytes(dims) <= SMEM_LIMIT
+            x = torch.from_numpy(np.random.default_rng(0).normal(
+                size=(3, dims[0])).astype(np.float32))
+            packed = pack_weights(_weights(np.random.default_rng(0), dims))
+            assert torch.equal(
+                fused_mlp_forward(x, packed, act, out_act),
+                fused_mlp_forward_plain(x, packed.layers, act, out_act))
+            continue
         assert variant.startswith("mma_"), (dims, variant)
         shape = mma_shape(dims)
         assert (*shape, act, out_act) in MMA_VARIANTS
         assert mma_smem_bytes(dims, 3) <= SMEM_LIMIT
+
+
+SDF_CONFIGS = sorted(os.path.basename(p) for p in
+                     glob.glob(os.path.join(REPO, "configs/sdf/*.json")))
+
+
+@pytest.mark.parametrize("name", SDF_CONFIGS)
+def test_every_sdf_config_net_has_a_kernel(name):
+    """configs/sdf/: the 64-wide nets on the 32x64x8 instantiation (the
+    Takikawa net's 24 features too), the 128-wide 6- and 8-layer nets of
+    oneblob.json and frequency.json on the streamed kernel."""
+    from instant_ngp_tpu_torch.ops.factory import create_network_with_encoding
+
+    cfg = load_network_config(os.path.join(REPO, "configs", "sdf", name))
+    if cfg["encoding"].get("otype") == "Takikawa":
+        net_cfg, d_in = cfg["network"], 24
+    else:
+        if "log2_hashmap_size" in cfg["encoding"]:
+            cfg["encoding"]["log2_hashmap_size"] = 10
+        model, _ = create_network_with_encoding(3, 1, cfg)
+        net_cfg, d_in = cfg["network"], model.network.n_input_dims
+    width, hidden = net_cfg["n_neurons"], net_cfg["n_hidden_layers"]
+    dims = [d_in] + [width] * hidden + [1]
+    variant = kernel_variant(dims, net_cfg["activation"],
+                             net_cfg["output_activation"])
+    if name in ("frequency.json", "oneblob.json"):
+        assert width == 128 and hidden in (6, 8)
+        assert general_smem_bytes(dims) > SMEM_LIMIT
+        assert variant == STREAMED
+        assert stream_smem_bytes(dims) <= SMEM_LIMIT
+    else:
+        assert variant == "mma_32x64x8_ReLU_None", (dims, variant)
 
 
 @pytest.mark.parametrize("dims,act,out_act,variant", [
@@ -295,6 +337,12 @@ def test_every_nerf_config_net_that_fits_has_an_instantiation(name):
     ([48, 64, 16], "ReLU", "None", GENERAL),
     ([32, 64, 32], "ReLU", "None", GENERAL),
     ([32] + [64] * 8 + [16], "ReLU", "None", "mma_32x64x16_ReLU_None"),
+    # weights that do not fit in shared memory at once: the streamed path
+    ([96] + [256] * 7 + [16], "ReLU", "None", STREAMED),
+    ([40, 256, 3], "ReLU", "None", STREAMED),
+    ([60] + [128] * 8 + [1], "ReLU", "None", STREAMED),
+    ([32] + [128] * 9 + [16], "ReLU", "None", STREAMED),
+    ([16] + [32] * 10 + [4], "ReLU", "None", STREAMED),
 ])
 def test_variant_is_a_function_of_shape_and_activations(dims, act, out_act,
                                                         variant):
@@ -307,16 +355,27 @@ def test_variant_is_a_function_of_shape_and_activations(dims, act, out_act,
     want = fused_mlp_forward_plain(x, packed.layers, act, out_act)
     assert torch.equal(fused_mlp_forward(x, packed, act, out_act), want)
     assert torch.equal(fused_mlp_forward(x, packed, act, out_act,
-                                         variant=GENERAL), want)
+                                         variant=STREAMED), want)
+    if variant != STREAMED:
+        assert torch.equal(fused_mlp_forward(x, packed, act, out_act,
+                                             variant=GENERAL), want)
 
 
 def test_wide_nets_raise_the_shared_memory_error():
+    """Only what no kernel takes raises: the general kernel forced onto
+    weights that overflow its shared memory, a width above the streamed
+    kernel's 256, more than 32 layers."""
     ws = _weights(np.random.default_rng(0), [48] + [128] * 7 + [16])
+    assert kernel_variant([48] + [128] * 7 + [16]) == STREAMED
     with pytest.raises(ValueError, match="shared memory"):
-        fused_mlp_forward(torch.zeros(2, 48), pack_weights(ws))
-    ws = _weights(np.random.default_rng(0), [32, 256, 256, 16])
-    with pytest.raises(ValueError, match="exceed 128"):
+        fused_mlp_forward(torch.zeros(2, 48), pack_weights(ws),
+                          variant=GENERAL)
+    ws = _weights(np.random.default_rng(0), [32, 300, 16])
+    with pytest.raises(ValueError, match="exceed 256"):
         fused_mlp_forward(torch.zeros(2, 32), pack_weights(ws))
+    ws = _weights(np.random.default_rng(0), [8] + [16] * 33 + [4])
+    with pytest.raises(ValueError, match="supported 1-32"):
+        fused_mlp_forward(torch.zeros(2, 8), pack_weights(ws))
     ws = _weights(np.random.default_rng(0), [32, 64, 16])
     with pytest.raises(ValueError, match="variant"):
         fused_mlp_forward(torch.zeros(2, 32), pack_weights(ws),
@@ -355,3 +414,67 @@ def test_testbed_on_the_cpu_when_asked():
     frame = tb.render_frame(4, 4, cam, focal_length=4.0)
     assert frame.shape == (4, 4, 4) and np.isfinite(frame).all()
     assert frame[..., 3].max() > 0
+
+
+@pytest.mark.parametrize("name", ["frequency.json", "none.json"])
+def test_wide_nerf_configs_match_jax_and_train(name, tmp_path):
+    """configs/nerf/frequency.json and none.json: a position encoding with
+    no table and 256-wide nets. The port's network matches the JAX one on
+    the same weights (bf16 compute: 2e-3 / 1e-2, as the kernel tests), and
+    a NerfTestbed of the config trains, renders and round-trips a snapshot
+    on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from instant_ngp_tpu.nerf.model import NerfNetwork as JaxNerfNetwork
+    from instant_ngp_tpu_torch.convert import params_from_jax
+    from instant_ngp_tpu_torch.data.nerf_loader import (FrameMetadata, Lens,
+                                                        NerfDataset)
+    from instant_ngp_tpu_torch.data.snapshot import load_snapshot
+
+    cfg = load_network_config(os.path.join(REPO, "configs", "nerf", name))
+    args = (3, 3, 0, cfg["encoding"], cfg.get(
+        "dir_encoding", {"otype": "SphericalHarmonics", "degree": 4}),
+        cfg["network"], cfg.get("rgb_network", cfg["network"]))
+    jax_net = JaxNerfNetwork(*args)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jax_net.init(jax.random.PRNGKey(0)))
+    net = NerfNetwork(*args)
+    net.load_params(params_from_jax(params))
+    assert net.param_tree()["pos_encoding"] is None
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    dirs = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    ref = np.asarray(jax_net.apply(params, jnp.asarray(pos),
+                                   jnp.asarray(dirs)))
+    with torch.no_grad():
+        ours = net.apply_components(torch.from_numpy(pos),
+                                    torch.from_numpy(dirs)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-2, atol=2e-3)
+
+    cam = np.array([[1, 0, 0, 0.5], [0, 1, 0, 0.5], [0, 0, 1, -0.6]],
+                   np.float32)
+    img = np.full((8, 8, 4), 200, np.uint8)
+    meta = FrameMetadata((8, 8), np.array([8.0, 8.0], np.float32),
+                         np.array([0.5, 0.5], np.float32),
+                         np.zeros(4, np.float32), Lens())
+    ds = NerfDataset(paths=["a"], images=[img], depths=[None], rays=[None],
+                     metadata=[meta], xforms_start=cam[None],
+                     xforms_end=cam[None])
+    tb = NerfTestbed(ds, cfg, device="cpu", seed=0)
+    tb.target_batch_size = 1 << 10
+    tb.rays_per_batch = 32
+    # a few cells a density update, over a grid marked occupied
+    tb.density_samples_override = 1 << 10
+    tb.set_density_grid(np.full(128 ** 3, 0.02, np.float32))
+    assert np.isfinite(tb.train(2)) and tb.training_step == 2
+    frame = tb.render_frame(4, 4, cam, focal_length=4.0)
+    assert np.isfinite(frame).all()
+    path = str(tmp_path / "wide.ingp")
+    tb.save_snapshot(path)
+    snap = load_snapshot(path)
+    assert snap["params"]["pos_encoding"] is None
+    other = NerfTestbed(ds, cfg, device="cpu", seed=1)
+    other.load_snapshot_state(snap)
+    np.testing.assert_array_equal(
+        other.render_frame(4, 4, cam, focal_length=4.0), frame)

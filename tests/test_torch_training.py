@@ -659,7 +659,10 @@ for wanted in ("ops.losses", "ops.optimizers", "ops.trainer", "nerf.training",
                "nerf.visibility", "data.nerf_loader", "utils", "metrics",
                "volume.testbed_volume", "volume.nanovdb", "sdf.testbed_sdf",
                "sdf.bricks", "sdf.brdf", "geom.triangle_bvh",
-               "geom.triangle_octree", "ops.takikawa"):
+               "geom.triangle_octree", "ops.takikawa",
+               "geometry.geometry_bvh", "geometry.testbed_geometry",
+               "testbed", "render_buffer", "foveation", "camera_path",
+               "pyngp_compat", "__main__", "data.msgpack_codec"):
     assert pkg.__name__ + "." + wanted in names, wanted
 from instant_ngp_tpu_torch.config import (find_network_config,
                                           load_network_config)
@@ -681,6 +684,12 @@ tb.rays_per_batch = 64
 tb.density_samples_override = 1 << 10
 loss = tb.train(2)
 assert np.isfinite(loss) and tb.measured_batch_size > 0
+# snapshots go through the port's own msgpack codec
+import os, tempfile
+from instant_ngp_tpu_torch.data.snapshot import load_snapshot
+path = os.path.join(tempfile.mkdtemp(), "snap.ingp")
+tb.save_snapshot(path)
+assert load_snapshot(path)["training_step"] == 2
 assert not any(m.split(".")[0] in ("jax", "msgpack", "instant_ngp_tpu")
                for m in sys.modules)
 print("ok")
