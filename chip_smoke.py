@@ -19,17 +19,23 @@ Phases, each of which raises on failure (a non-zero exit):
    events beside the card's bound; then times at 2^14, 2^17 and 2^21 rows
    and with the input ring at each depth and without it; then the RGB
    net of a capture with latent dims (36-64-64-3), whose path is the
-   general kernel, at 2^20 rows; then the nets of Volume mode
+   general path (csrc/fused_mlp_wgmma.cu, weights resident), at ragged
+   row counts and at 2^20 rows beside its bf16 matmul chain; then the
+   nets of Volume mode
    (32-64-64-4 ReLU/ReLU) and SDF mode (32-64-64-1, and the Takikawa
    net's 24-64-64-1, whose input is narrower than its padded width) at
    ragged row counts and at 2^20 rows, timed the same way; then the nets
-   whose weights do not fit in shared memory at once (WIDE_NETS: the
-   256-wide nets of configs/nerf/frequency.json and none.json, the
-   128-wide 8- and 6-layer nets of configs/sdf/frequency.json and
-   oneblob.json), which take the streamed kernel, timed beside the same
-   net as a chain of bf16 torch.matmul + ReLU calls; then every other net
-   of the configurations (CONFIG_NETS) the same way, on its mma
-   instantiation or the general kernel;
+   outside the general path's rule (WIDE_NETS: the 256-wide nets of
+   configs/nerf/frequency.json and none.json, the 128-wide 8- and
+   6-layer nets of configs/sdf/frequency.json and oneblob.json), which
+   take the streamed path (the same wgmma kernel; its plan streams the
+   deep nets' weights through a ring and keeps the 1-hidden-layer RGB
+   nets' resident), timed beside the same net as a chain of bf16
+   torch.matmul + ReLU calls, with the kernel's plan and the bytes of
+   weights it is modelled to read from L2 (not measured); then
+   every other net of the configurations (CONFIG_NETS) the same way, on
+   its mma instantiation or the general path. The general and the
+   streamed path fail unless faster than their chain;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -2443,21 +2449,54 @@ def check_mode_shape(name, x_all, w, act, out_act, smi):
             "share_of_bound": bound_ms / ms}
 
 
+def bf16_chain(x, layers, out_act="None"):
+    """The net as a chain of bf16 `torch.matmul` + ReLU calls: the
+    yardstick of a fused MLP, which no one PyTorch call computes."""
+    import torch
+
+    h = x.to(torch.bfloat16)
+    for layer in layers[:-1]:
+        h = torch.relu(torch.matmul(h, layer))
+    h = torch.matmul(h, layers[-1]).float()
+    return torch.relu(h) if out_act == "ReLU" else h
+
+
+def modelled_l2_weight_bytes(dims, rows, n_blocks, resident):
+    """Bytes of weights a model of each kernel says it reads from L2 for
+    `rows` rows of a net (not measured: no profiler counter reads them on
+    this machine). PR 8's layer-at-a-time kernel: every 128-row tile
+    copies each layer as a (pad16(fan_in), pad16(fan_out) + 8) bf16 block.
+    The wgmma kernel: every tile copies the net's chunks where they stream,
+    each block once where they stay `resident` (`n_blocks` blocks)."""
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        wgmma_layer_shapes)
+
+    pad16 = lambda n: (n + 15) // 16 * 16   # noqa: E731
+    by_layer = 2 * sum(pad16(i) * (pad16(o) + 8)
+                       for i, o in zip(dims[:-1], dims[1:]))
+    chunks = 2 * sum(k * n for k, n in wgmma_layer_shapes(dims))
+    tiles = -(-rows // 128)
+    return {"layer_at_a_time": tiles * by_layer,
+            "wgmma": (min(tiles, n_blocks) if resident else tiles) * chunks}
+
+
 def check_net_shape(name, dims, rng, dev, smi, out_act="None",
                     streamed=False):
     """Phase 3 for a net of the configurations: its kernel (the streamed
-    one where `streamed`, else an mma instantiation or the general one)
+    path where `streamed`, else an mma instantiation or the general path)
     against its plain version at small and ragged row counts and at
     N_ROWS, then the kernel, the plain version and the same net as a chain
     of bf16 `torch.matmul` + ReLU calls timed at N_ROWS beside the bound ->
-    the shape's row of the kernel table. The weights are He-uniform, so a
-    deep ReLU net keeps its outputs' scale."""
+    the shape's row of the kernel table. For a net of the general or the
+    streamed path it also prints the wgmma kernel's plan (weights resident
+    or streamed, the rings' stages) and the bytes of weights the kernels
+    are modelled to read from L2. The weights are
+    He-uniform, so a deep ReLU net keeps its outputs' scale."""
     import numpy as np
     import torch
 
     from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
-        STREAMED, fused_mlp_forward, fused_mlp_forward_plain, kernel_variant,
-        pack_weights)
+        STREAMED, kernel_variant, pack_weights)
 
     variant = kernel_variant(dims, "ReLU", out_act)
     if (variant == STREAMED) != streamed:
@@ -2467,28 +2506,37 @@ def check_net_shape(name, dims, rng, dev, smi, out_act="None",
         .to(dev) for i, o in zip(dims[:-1], dims[1:])])
     x = torch.from_numpy(rng.uniform(-1, 1, (N_ROWS, dims[0]))
                          .astype(np.float32)).to(dev)
-    acts = ("ReLU", out_act)
+    return time_net(name, w, x, ("ReLU", out_act), smi, streamed)
+
+
+def time_net(name, w, x, acts, smi, streamed=False, min_mean=True):
+    """check_net_shape's checks and times for packed weights `w` and the
+    N_ROWS rows of `x` (whose reference must have a scale the check can
+    see where `min_mean`). The general and the streamed path must beat the
+    chain."""
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        GENERAL, STREAMED, fused_mlp_forward, fused_mlp_forward_plain,
+        kernel_variant, wgmma_plan)
+
+    dims = list(w.dims)
+    variant = kernel_variant(dims, *acts)
     for n in SMALL_ROWS:
         check_kernel(fused_mlp_forward(x[:n], w, *acts),
                      fused_mlp_forward_plain(x[:n], w.layers, *acts),
                      f"{name} x {n}")
     ref = fused_mlp_forward_plain(x, w.layers, *acts)
     ref_mean = ref.abs().mean().item()
-    if ref_mean < KERNEL_MIN_MEAN_ABS:
+    if min_mean and ref_mean < KERNEL_MIN_MEAN_ABS:
         raise RuntimeError(f"the {name} reference is too small "
                            f"({ref_mean:.3g}) to check the kernel")
     max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w, *acts), ref,
                                      f"{name} x {N_ROWS}")
-
-    def chain():
-        h = x.to(torch.bfloat16)
-        for layer in w.layers[:-1]:
-            h = torch.relu(torch.matmul(h, layer))
-        h = torch.matmul(h, w.layers[-1]).float()
-        return torch.relu(h) if out_act == "ReLU" else h
-
+    chain = lambda: bf16_chain(x, w.layers, acts[1])   # noqa: E731
     chain_err = (chain() - ref).abs().max().item()
     reps, inner = (3, 3) if streamed else (5, 10)
+    # in turns: kernel, chain, plain, chain, kernel
     ms = [cuda_ms(lambda: fused_mlp_forward(x, w, *acts), reps, inner)]
     chain_ms = [cuda_ms(chain, reps, inner)]
     plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers, *acts),
@@ -2497,21 +2545,41 @@ def check_net_shape(name, dims, rng, dev, smi, out_act="None",
     ms.append(cuda_ms(lambda: fused_mlp_forward(x, w, *acts), reps, inner))
     ms, chain_ms = min(ms), min(chain_ms)
     bound_ms, bound_by = mlp_bound_ms(N_ROWS, dims, 4)
-    print(f"kernel {name} {'-'.join(map(str, dims))} ReLU/{out_act} x "
+    row = {"dims": dims, "activations": list(acts),
+           "rows": N_ROWS, "variant": variant, "max_abs_err": max_abs,
+           "mean_abs_err": mean_abs, "ref_max_abs": ref.abs().max().item(),
+           "ref_mean_abs": ref_mean, "ms": ms, "plain_ms": plain_ms,
+           "chain_ms": chain_ms, "chain_max_abs_err": chain_err,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms}
+    extra = ""
+    if variant in (GENERAL, STREAMED):
+        # the kernel's plan and the modelled bytes are printed, not kept
+        # in the row: the `kernels` line holds what this run measured
+        resident, n_stages, in_stages, _ = wgmma_plan(
+            dims, x.dtype, x.data_ptr() % 16 == 0)
+        # one block per SM (the kernel's launch bounds)
+        l2 = modelled_l2_weight_bytes(
+            dims, N_ROWS, torch.cuda.get_device_properties(0)
+            .multi_processor_count, resident)
+        extra = (f"; weights {'resident' if resident else 'streamed'} "
+                 f"({n_stages} weight, {in_stages} input stages); weights "
+                 f"from L2, modelled (not measured): "
+                 f"{l2['wgmma'] / 1e9:.4f} GB, the layer-at-a-time kernel "
+                 f"{l2['layer_at_a_time'] / 1e9:.4f} GB")
+    if variant in (GENERAL, STREAMED) and not ms < chain_ms:
+        raise RuntimeError(f"the {name} kernel ({variant}, {ms:.4f} ms) is "
+                           f"not faster than its bf16 matmul chain "
+                           f"({chain_ms:.4f} ms)")
+    print(f"kernel {name} {'-'.join(map(str, dims))} {'/'.join(acts)} x "
           f"{N_ROWS} [{variant}]: max abs {max_abs:.3g} mean abs "
           f"{mean_abs:.3g} (ref "
           f"max {ref.abs().max().item():.3g} mean {ref_mean:.3g}) | kernel "
           f"{ms:.4f} ms, bf16 matmul chain {chain_ms:.4f} ms (max abs "
           f"{chain_err:.3g} from plain), plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
-          f"reached) [{smi}]", flush=True)
-    return {"dims": list(dims), "activations": list(acts),
-            "rows": N_ROWS, "variant": variant, "max_abs_err": max_abs,
-            "mean_abs_err": mean_abs, "ref_max_abs": ref.abs().max().item(),
-            "ref_mean_abs": ref_mean, "ms": ms, "plain_ms": plain_ms,
-            "chain_ms": chain_ms, "chain_max_abs_err": chain_err,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms}
+          f"reached){extra} [{smi}]", flush=True)
+    return row
 
 
 def write_box_obj(path):
@@ -3044,30 +3112,10 @@ def main():
         variant = kernel_variant(w.dims)
         if variant != GENERAL:
             raise RuntimeError(f"the latent-dims shape {w.dims} was expected "
-                               f"on the general kernel, not {variant}")
-        ref = fused_mlp_forward_plain(x, w.layers)
-        for n in SMALL_ROWS:
-            check_kernel(fused_mlp_forward(x[:n], w), ref[:n],
-                         f"rgb_latent x {n}")
-        max_abs, mean_abs = check_kernel(fused_mlp_forward(x, w), ref,
-                                         f"rgb_latent x {N_ROWS}")
-        ms = [cuda_ms(lambda: fused_mlp_forward(x, w))]
-        plain_ms = cuda_ms(lambda: fused_mlp_forward_plain(x, w.layers))
-        ms = min(ms + [cuda_ms(lambda: fused_mlp_forward(x, w))])
-        bound_ms, bound_by = mlp_bound_ms(N_ROWS, w.dims, 4)
-        shapes["rgb_latent"] = {
-            "dims": list(w.dims), "rows": N_ROWS, "variant": variant,
-            "max_abs_err": max_abs, "mean_abs_err": mean_abs,
-            "ref_max_abs": ref.abs().max().item(),
-            "ref_mean_abs": ref.abs().mean().item(),
-            "ms": ms, "general_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms}
-        print(f"kernel rgb_latent {'-'.join(map(str, w.dims))} x {N_ROWS} "
-              f"[{variant}]: max abs {max_abs:.3g} mean abs {mean_abs:.3g} "
-              f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f} % "
-              f"reached) [{smi}]", flush=True)
+                               f"on the general path, not {variant}")
+        shapes["rgb_latent"] = time_net("rgb_latent", w, x, ("ReLU", "None"),
+                                        smi, min_mean=False)
+        shapes["rgb_latent"]["general_ms"] = shapes["rgb_latent"]["ms"]
         # the nets of Volume and SDF mode (phases 13, 14): 32-64-64-4
         # ReLU/ReLU on its own instantiation, 32-64-64-1 and the Takikawa
         # net's 24-64-64-1 on the 32x64x8 ReLU/None one (24 inputs: the
@@ -3298,7 +3346,6 @@ def main():
         "name": "fused_mlp_forward",
         "route": "cuda",
         "source": "instant_ngp_tpu_torch/csrc/fused_mlp_mma.cu",
-        "general_source": "instant_ngp_tpu_torch/csrc/fused_mlp.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
         # the main paths, each counted from 0: the render path (a density
         # pass and two frames), 128 training steps, the capture's path
@@ -3349,13 +3396,43 @@ def main():
         "config_nets": config_nets,
         "other_shapes": other,
     }, {
-        # the streamed path of the same kernel, for the nets whose weights
-        # do not fit in shared memory at once; its path is phase 16's
+        # the general path of the same TPU kernel (csrc/fused_mlp_wgmma.cu,
+        # whose plan keeps these nets' weights resident): every net
+        # without an instantiation whose weights pass the general rule;
+        # its path is phase 9's RGB net of a capture with latent dims,
+        # counted from 0 over the phase
+        "name": "fused_mlp_forward[general]",
+        "route": "cuda",
+        "source": "instant_ngp_tpu_torch/csrc/fused_mlp_wgmma.cu",
+        "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
+        "launches": by_variant_capture.get(GENERAL, 0),
+        "max_abs_err": max(shapes["rgb_latent"]["max_abs_err"],
+                           config_nets["image_frequency_oneblob"]
+                           ["max_abs_err"]),
+        # the capture's RGB net 36-64-64-3 at N_ROWS rows; configs/image/
+        # frequency.json's and oneblob.json's 64-64-64-3 under "shapes"
+        "ms": shapes["rgb_latent"]["ms"],
+        "plain_ms": shapes["rgb_latent"]["plain_ms"],
+        "bound_ms": shapes["rgb_latent"]["bound_ms"],
+        "bound_by": shapes["rgb_latent"]["bound_by"],
+        # no one PyTorch call computes it; the chain of bf16 matmul and
+        # ReLU calls is the yardstick
+        "library_ms": None,
+        "chain_ms": shapes["rgb_latent"]["chain_ms"],
+        "shapes": {"rgb_latent": shapes["rgb_latent"],
+                   "image_frequency_oneblob":
+                       config_nets["image_frequency_oneblob"]},
+    }, {
+        # the streamed path of the same kernel: its launches for the nets
+        # outside the general rule, whether the kernel's plan streams
+        # their weights (the deep nets) or keeps them resident (the
+        # 1-hidden-layer RGB nets; the plan is printed in phase 3); its path is
+        # phase 16's
         # (configs/nerf/frequency.json trained and rendered, configs/sdf/
         # frequency.json and oneblob.json rendered), counted from 0
         "name": "fused_mlp_forward[streamed]",
         "route": "cuda",
-        "source": "instant_ngp_tpu_torch/csrc/fused_mlp_stream.cu",
+        "source": "instant_ngp_tpu_torch/csrc/fused_mlp_wgmma.cu",
         "replaces": "instant_ngp_tpu/ops/pallas/mlp_kernels.py:31",
         "launches": launches_wide,
         "max_abs_err": max(s["max_abs_err"] for s in wide.values()),

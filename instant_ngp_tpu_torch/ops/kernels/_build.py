@@ -142,16 +142,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     dims = ctypes.POINTER(ctypes.c_int)
-    # (x, x_is_bf16, w, w_elems, out, n_rows, n_layers, dims, hidden_act,
-    #  out_act[, n_stages], stream)
-    lib.fused_mlp_forward_launch.argtypes = [
-        ptr, i32, ptr, i32, ptr, i32, i32, dims, i32, i32, ptr]
+    # (x, x_is_bf16, w, w_elems or w_bytes, out, n_rows, n_layers, dims,
+    #  hidden_act, out_act, [n_stages,] stream)
     lib.fused_mlp_mma_launch.argtypes = [
         ptr, i32, ptr, i32, ptr, i32, i32, dims, i32, i32, i32, ptr]
-    lib.fused_mlp_stream_launch.argtypes = [
+    lib.fused_mlp_wgmma_launch.argtypes = [
         ptr, i32, ptr, ctypes.c_longlong, ptr, i32, i32, dims, i32, i32, ptr]
+    # (n_layers, dims, x_is_bf16, aligned, out[4])
+    lib.fused_mlp_wgmma_plan.argtypes = [i32, dims, i32, i32, dims]
     lib.fused_mlp_mma_has_variant.argtypes = [i32, dims, i32, i32]
-    for fn in (lib.fused_mlp_forward_launch, lib.fused_mlp_mma_launch,
-               lib.fused_mlp_stream_launch, lib.fused_mlp_mma_has_variant):
+    for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
+               lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant):
         fn.restype = ctypes.c_int
     return lib

@@ -15,13 +15,19 @@ the activations alone, before the launch, in this order:
   (the shapes the configurations produce: up to 32 inputs, one hidden
   width of 64 or 128, up to 16 outputs): activations stay in registers
   between layers and the input tiles are streamed ahead of the arithmetic;
-- `csrc/fused_mlp.cu`, the general path: any chain of 1-9 layers of widths
-  up to 128 whose weights all fit in shared memory beside its tiles (they
-  stay resident);
-- `csrc/fused_mlp_stream.cu`, the streamed path: any other chain of 1-32
-  layers of widths up to 256 (the 256-wide NeRF configs, the 128-wide
-  6- and 8-layer SDF configs): one layer's weights at a time in shared
-  memory, whatever the total.
+- the general path: any chain of 1-9 layers of widths up to 128 whose
+  weights pass the general path's shared-memory rule
+  (`general_smem_bytes`);
+- the streamed path: any other chain of 1-32 layers of widths up to 256
+  (the 256-wide NeRF configs, the 128-wide 6- and 8-layer SDF configs).
+The general and the streamed path are one kernel, `csrc/fused_mlp_wgmma.cu`
+(wgmma, the activations in registers up to 128 wide and in a shared A
+tile at 256, the weights in swizzled 64-deep chunks copied in bulk). Its
+own plan (`wgmma_plan`) decides whether a net's chunks stay resident in
+shared memory or stream through a ring; the variant names only keep the
+launch counts of the two admission rules apart, so `"streamed"` counts
+the launches of nets outside the general rule whether or not their
+weights stream (the 1-hidden-layer 256-wide RGB nets stay resident).
 Hidden activations None/ReLU/Sine, output activations None/ReLU/
 Exponential; anything else, or a width above 256, raises, on every
 device.
@@ -44,21 +50,23 @@ OUTPUT_ACTIVATIONS = ("None", "ReLU", "Exponential")
 _ACTIVATION_IDS = {"None": 0, "ReLU": 1, "Sine": 2, "Exponential": 3}
 MAX_LAYERS = 9
 MAX_WIDTH = 128
-#: the streamed path's limits (csrc/fused_mlp_stream.cu)
+#: the streamed path's limits (csrc/fused_mlp_wgmma.cu)
 STREAM_MAX_LAYERS = 32
 STREAM_MAX_WIDTH = 256
 # shared memory of one block on sm_90 (227 KB)
 SMEM_LIMIT = 232448
-# what the general kernel uses besides the weights: a 128-row bf16
-# activation tile with rows of 136 elements, and four 16-row float32
-# staging tiles with rows of 132
+# the general path's admission rule (`general_smem_bytes`): the footprint
+# of the first, wmma general kernel, a 128-row bf16 activation tile with
+# rows of 136 elements and four 16-row float32 staging tiles with rows of
+# 132 beside all the weights; kept as the rule so that every net keeps
+# the variant it had
 _SMEM_FIXED = 128 * 136 * 2 + 4 * 16 * 132 * 4
 GENERAL = "general"
 STREAMED = "streamed"
-# what the streamed kernel uses besides one layer's weights: a 128-row
-# bf16 activation tile with rows of 264, and eight 16-row float32 staging
-# tiles with rows of 20
-_STREAM_SMEM_FIXED = 128 * 264 * 2 + 8 * 16 * 20 * 4
+#: csrc/fused_mlp_wgmma.cu: K rows of a weight chunk, and the output width
+#: of a narrow last layer
+WGMMA_CHUNK_K = 64
+WGMMA_NARROW = 16
 # (padded input, hidden, padded output, hidden activation, output
 # activation) of each instantiation; mirrors kVariants in
 # csrc/fused_mlp_mma.cu
@@ -129,15 +137,18 @@ class FusedMLPWeights:
     """The layers of one MLP as bf16, unpadded (`layers`, what the plain
     version multiplies) and packed the way the kernels read them, the
     layers back to back in one buffer each:
-    - `packed_general`: layer i a zero-padded (pad16(fan_in),
-      pad16(fan_out) + 8) row-major block (the general kernel);
+    - `packed_wgmma`: where the widths allow it (up to 256), layer i
+      zero-padded to `wgmma_layer_shapes(dims)[i]` and cut into chunks of
+      64 rows, each the swizzled shared-memory image that the wgmma
+      descriptor reads (`_sw128_offsets`; the general and the streamed
+      path), else None;
     - `packed`: where `mma_shape(dims)` names a shape, layer i zero-padded
       to that shape's widths in the order of `_fragment_order` (the mma
-      kernel); else the same buffer as `packed_general`."""
+      kernel); else the same buffer as `packed_wgmma`."""
 
     layers: Tuple[torch.Tensor, ...]
-    packed: torch.Tensor
-    packed_general: torch.Tensor
+    packed: Optional[torch.Tensor]
+    packed_wgmma: Optional[torch.Tensor]
     dims: Tuple[int, ...]
 
 
@@ -146,6 +157,49 @@ def mma_layer_shapes(dims: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
     in_p, hidden, out_p = mma_shape(dims)
     widths = [in_p] + [hidden] * (len(dims) - 2) + [out_p]
     return tuple(zip(widths[:-1], widths[1:]))
+
+
+def wgmma_hidden_width(dims: Sequence[int]) -> Optional[int]:
+    """The padded width NP of every hidden layer in the wgmma kernel: the
+    smallest of 64, 128 and 256 that holds every hidden width, the first
+    layer's 64-deep blocks and an output wider than 16; None beyond 256.
+    Mirrors hidden_class in csrc/fused_mlp_wgmma.cu."""
+    k = WGMMA_CHUNK_K
+    need = max([-(-dims[0] // k) * k, *dims[1:-1]]
+               + ([dims[-1]] if dims[-1] > WGMMA_NARROW else []))
+    return next((w for w in (64, 128, 256) if need <= w), None)
+
+
+def wgmma_layer_shapes(dims: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """Padded (fan_in, fan_out) of every layer in the wgmma packing: every
+    width to NP but the first layer's fan_in of a 256-wide net (to a
+    multiple of 64) and a last layer of at most 16 outputs (to 16)."""
+    np_ = wgmma_hidden_width(dims)
+    k = WGMMA_CHUNK_K
+    k0 = -(-dims[0] // k) * k if np_ == 256 else np_
+    ins = [k0] + [np_] * (len(dims) - 2)
+    outs = [np_] * (len(dims) - 2) + [
+        WGMMA_NARROW if dims[-1] <= WGMMA_NARROW else np_]
+    return tuple(zip(ins, outs))
+
+
+def _sw128_offsets(k_p: int, n_p: int) -> torch.Tensor:
+    """(k_p, n_p) int64: where element (k, n) of a padded layer lies in its
+    packing. Chunk k // 64 holds rows 64 (k // 64) .. + 63 as n_p rows of
+    128 bytes (one per output column n, K contiguous), in 8-row atoms of
+    1024 bytes; the 16-byte group k % 64 // 8 of row n sits at group
+    (k % 64 // 8) ^ (n % 8), the 128-byte swizzle of a K-major wgmma
+    operand."""
+    k = torch.arange(k_p)[:, None]
+    n = torch.arange(n_p)[None, :]
+    kk = k % WGMMA_CHUNK_K
+    return ((k // WGMMA_CHUNK_K) * (n_p * WGMMA_CHUNK_K) + (n // 8) * 512
+            + (n % 8) * 64 + ((kk // 8) ^ (n % 8)) * 8 + kk % 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _sw128_offsets_on(k_p: int, n_p: int, device: str) -> torch.Tensor:
+    return _sw128_offsets(k_p, n_p).reshape(-1).to(device)
 
 
 def pack_weights(weights: Sequence[torch.Tensor]) -> FusedMLPWeights:
@@ -168,10 +222,17 @@ def pack_weights(weights: Sequence[torch.Tensor]) -> FusedMLPWeights:
         block[:w.shape[0], :w.shape[1]] = w
         return block
 
-    general = torch.cat([padded(w, _pad16(w.shape[0]),
-                                _pad16(w.shape[1]) + 8).reshape(-1)
-                         for w in layers])
-    packed = general
+    wgmma = None
+    if wgmma_hidden_width(dims) is not None:
+        blocks = []
+        for w, (k_p, n_p) in zip(layers, wgmma_layer_shapes(dims)):
+            block = torch.empty(k_p * n_p, dtype=torch.bfloat16,
+                                device=w.device)
+            block[_sw128_offsets_on(k_p, n_p, str(w.device))] = \
+                padded(w, k_p, n_p).reshape(-1)
+            blocks.append(block)
+        wgmma = torch.cat(blocks)
+    packed = wgmma
     if mma_shape(dims) is not None:
         blocks = []
         for i, (w, (k_p, n_p)) in enumerate(zip(layers,
@@ -179,20 +240,18 @@ def pack_weights(weights: Sequence[torch.Tensor]) -> FusedMLPWeights:
             rows, cols = _fragment_order_on(k_p, n_p, i == 0, str(w.device))
             blocks.append(padded(w, k_p, n_p)[rows, cols])
         packed = torch.cat(blocks)
-    return FusedMLPWeights(layers, packed, general, tuple(dims))
+    return FusedMLPWeights(layers, packed, wgmma, tuple(dims))
 
 
 def general_smem_bytes(dims: Sequence[int]) -> int:
-    """Shared memory the general kernel needs for a chain `dims`."""
+    """The general path's admission rule for a chain `dims`: the first,
+    wmma general kernel's shared memory (its tiles beside every layer as a
+    zero-padded (pad16(fan_in), pad16(fan_out) + 8) block). `kernel_variant`
+    keeps it so that each net keeps its variant; the wgmma kernel that
+    serves the path holds a net's weights resident where they fit (every
+    configuration's do) and streams them otherwise."""
     return _SMEM_FIXED + 2 * sum(_pad16(i) * (_pad16(o) + 8)
                                  for i, o in zip(dims[:-1], dims[1:]))
-
-
-def stream_smem_bytes(dims: Sequence[int]) -> int:
-    """Shared memory the streamed kernel needs for a chain `dims`: its
-    tiles and the largest layer's block of the general packing."""
-    return _STREAM_SMEM_FIXED + 2 * max(
-        _pad16(i) * (_pad16(o) + 8) for i, o in zip(dims[:-1], dims[1:]))
 
 
 def mma_smem_bytes(dims: Sequence[int], stages: int) -> int:
@@ -209,11 +268,12 @@ def kernel_variant(dims: Sequence[int], activation: str = "ReLU",
                    output_activation: str = "None") -> str:
     """Which hand-written path `fused_mlp_forward` takes on a CUDA tensor
     for a chain of widths `dims`: the name of an instantiation of the mma
-    kernel where one fits in shared memory, else `GENERAL` where all the
-    weights fit beside the general kernel's tiles, else `STREAMED`. A
+    kernel where one fits in shared memory, else `GENERAL` where the chain
+    passes `general_smem_bytes`, else `STREAMED`. A
     function of the shape and the activations alone. (The streamed path's
     own limits are checked by `fused_mlp_forward`, which raises beyond
-    them.)"""
+    them.) Both GENERAL and STREAMED launch the wgmma kernel, whose plan
+    alone decides where the weights lie (`wgmma_plan`)."""
     dims = tuple(dims)
     shape = mma_shape(dims)
     if shape is not None and (*shape, activation,
@@ -229,9 +289,8 @@ def kernel_variant(dims: Sequence[int], activation: str = "ReLU",
 
 @functools.lru_cache(maxsize=None)
 def _plan(dims: Tuple[int, ...], activation: str, output_activation: str,
-          variant: Optional[str], stages: Optional[int]
-          ) -> Tuple[str, int]:
-    """(variant, stages of the mma kernel's ring) for a call, or the
+          variant: Optional[str], stages: Optional[int]) -> Tuple[str, int]:
+    """(variant, stages of the mma kernel's input ring) for a call, or the
     ValueError that says why there is no kernel for it. Cached: the render
     loop makes many small calls with the same few shapes."""
     if activation not in HIDDEN_ACTIVATIONS:
@@ -255,27 +314,56 @@ def _plan(dims: Tuple[int, ...], activation: str, output_activation: str,
     elif variant not in (chosen, GENERAL, STREAMED):
         raise ValueError(f"fused_mlp_forward: variant {variant!r} is "
                          f"none of {chosen!r}, {GENERAL!r}, {STREAMED!r}")
-    if variant == STREAMED:
-        needed, stages = stream_smem_bytes(dims), 0
-    elif variant == GENERAL:
-        if n_layers > MAX_LAYERS or max(dims) > MAX_WIDTH:
-            raise ValueError(f"fused_mlp_forward: the general kernel takes "
+    if variant in (GENERAL, STREAMED):
+        if variant == GENERAL and (n_layers > MAX_LAYERS
+                                   or max(dims) > MAX_WIDTH
+                                   or general_smem_bytes(dims)
+                                   > SMEM_LIMIT):
+            raise ValueError(f"fused_mlp_forward: the general path takes "
                              f"1-{MAX_LAYERS} layers of widths up to "
-                             f"{MAX_WIDTH}, not {dims}")
-        needed, stages = general_smem_bytes(dims), 0
-    else:
-        if stages is None:
-            # the deepest ring up to MMA_STAGES that fits
-            stages = next((k for k in range(MMA_STAGES, 1, -1)
-                           if mma_smem_bytes(dims, k) <= SMEM_LIMIT), 1)
-        elif not 1 <= stages <= 4:
-            raise ValueError(f"fused_mlp_forward: a ring of {stages} stages")
-        needed = mma_smem_bytes(dims, stages)
+                             f"{MAX_WIDTH} within {SMEM_LIMIT} B of shared "
+                             f"memory by its rule, not {dims}")
+        if stages is not None:
+            raise ValueError("fused_mlp_forward: the wgmma kernel sizes "
+                             "its rings itself; `stages` is the mma "
+                             "kernel's")
+        # every chain of widths up to 256 fits: at 256 a ring of 5 weight
+        # stages beside the A tiles, with per-row loads of x
+        return variant, 0
+    if stages is None:
+        # the deepest ring up to MMA_STAGES that fits
+        stages = next((k for k in range(MMA_STAGES, 1, -1)
+                       if mma_smem_bytes(dims, k) <= SMEM_LIMIT), 1)
+    elif not 1 <= stages <= 4:
+        raise ValueError(f"fused_mlp_forward: a ring of {stages} stages")
+    needed = mma_smem_bytes(dims, stages)
     if needed > SMEM_LIMIT:
         raise ValueError(f"fused_mlp_forward: widths {dims} need "
                          f"{needed} B of shared memory, more "
                          f"than {SMEM_LIMIT}")
     return variant, stages
+
+
+def wgmma_plan(dims: Sequence[int], x_dtype: torch.dtype = torch.float32,
+               aligned: bool = True) -> Tuple[bool, int, int, int]:
+    """(resident, weight stages, input stages, dynamic shared-memory
+    bytes) that the wgmma kernel plans on the current CUDA device for a
+    chain `dims` and an x of `x_dtype`, 16-byte `aligned` or not: the
+    weights resident (every chunk in shared memory, fetched once per
+    block) or streamed through a ring, the rows of x bulk-copied through
+    an input ring or loaded row by row (0 input stages). The kernel's own
+    answer (csrc/fused_mlp_wgmma.cu::plan); needs the card."""
+    from ._build import load_library
+
+    dims = tuple(int(d) for d in dims)
+    out = (ctypes.c_int * 4)()
+    err = load_library().fused_mlp_wgmma_plan(
+        len(dims) - 1, (ctypes.c_int * len(dims))(*dims),
+        int(x_dtype == torch.bfloat16), int(aligned), out)
+    if err != 0:
+        raise ValueError(f"wgmma_plan: no plan for {dims} (CUDA error "
+                         f"{err})")
+    return bool(out[0]), out[1], out[2], out[3]
 
 
 def _activate(name: str, h: torch.Tensor) -> torch.Tensor:
@@ -311,10 +399,10 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     """x (N, D_in) float32 or bf16 -> (N, D_out) float32.
 
     `variant` and `stages` are for measurements: `variant=GENERAL` or
-    `STREAMED` sends a shape through the general or the streamed kernel
-    instead of the path `kernel_variant` names, `stages` (1-4) sets the depth of the mma kernel's
-    input ring. By default the variant is `kernel_variant(...)` and the
-    ring as deep as fits, up to MMA_STAGES."""
+    `STREAMED` sends a shape through the general or the streamed path (the
+    wgmma kernel) instead of the one `kernel_variant` names; `stages` sets
+    the depth of the mma kernel's input ring (1-4; by default the deepest
+    up to MMA_STAGES that fits)."""
     variant, stages = _plan(weights.dims, activation, output_activation,
                             variant, stages)
     if x.device.type == "cpu":
@@ -329,9 +417,9 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
         raise ValueError(f"fused_mlp_forward: x dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_mlp_forward: x must be contiguous")
-    if weights.packed.device != x.device:
+    if weights.layers[0].device != x.device:
         raise ValueError(f"fused_mlp_forward: weights on "
-                         f"{weights.packed.device}, x on {x.device}")
+                         f"{weights.layers[0].device}, x on {x.device}")
     if x.shape[0] >= 1 << 31:
         raise ValueError("fused_mlp_forward: more than 2^31 rows")
     n = int(x.shape[0])
@@ -348,12 +436,11 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if variant in (GENERAL, STREAMED):
-            packed = weights.packed_general
-            launch = lib.fused_mlp_forward_launch if variant == GENERAL \
-                else lib.fused_mlp_stream_launch
-            err = launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                         packed.data_ptr(), packed.numel(), out.data_ptr(),
-                         n, n_layers, dims, *acts, stream)
+            packed = weights.packed_wgmma
+            err = lib.fused_mlp_wgmma_launch(
+                x.data_ptr(), int(x.dtype == torch.bfloat16),
+                packed.data_ptr(), 2 * packed.numel(), out.data_ptr(), n,
+                n_layers, dims, *acts, stream)
         else:
             err = lib.fused_mlp_mma_launch(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),

@@ -17,7 +17,7 @@ import torch
 
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
     _ACTIVATION_IDS, GENERAL, MMA_VARIANTS, STREAMED, fused_mlp_forward,
-    fused_mlp_forward_plain, kernel_variant, pack_weights)
+    fused_mlp_forward_plain, kernel_variant, pack_weights, wgmma_plan)
 from instant_ngp_tpu_torch.ops.mlp import MLP
 
 pytestmark = pytest.mark.cuda
@@ -438,3 +438,127 @@ def test_sdf_mode_on_the_card_matches_the_cpu(device, tmp_path):
     both = hits[0] & hits[1]
     close = np.abs(frames[device][..., 0] - frames["cpu"][..., 0])[both]
     assert (close <= 5e-3).mean() >= 0.95
+
+
+def _one_hot_chain(rng, d_in, width, d_out, device, depth=1):
+    """A permutation net d_in -> width (-> width, `depth` times) -> d_out:
+    every output is one input, routed through every hidden column."""
+    p0 = torch.from_numpy(rng.permutation(width)[:d_in])
+    keep = torch.from_numpy(rng.permutation(d_in)[:d_out])
+    w0 = torch.zeros(d_in, width)
+    w0[torch.arange(d_in), p0] = 1.0
+    ws, at = [w0], p0
+    for _ in range(depth):
+        p = torch.from_numpy(rng.permutation(width))
+        w = torch.zeros(width, width)
+        w[torch.arange(width), p] = 1.0
+        ws.append(w)
+        at = p[at]
+    w_out = torch.zeros(width, d_out)
+    w_out[at[keep], torch.arange(d_out)] = 1.0
+    ws.append(w_out)
+    return pack_weights([w.to(device) for w in ws]), keep
+
+
+@pytest.mark.parametrize("d_in,width,d_out,depth,variant,resident", [
+    (36, 64, 3, 1, GENERAL, True), (36, 64, 16, 1, GENERAL, True),
+    (64, 64, 3, 1, GENERAL, True), (67, 128, 16, 1, STREAMED, True),
+    (131, 256, 16, 1, STREAMED, False), (96, 256, 40, 1, STREAMED, False),
+    (36, 64, 3, 17, STREAMED, False), (67, 128, 16, 8, STREAMED, False)])
+def test_one_hot_routes_exactly_through_the_wgmma_paths(
+        device, d_in, width, d_out, depth, variant, resident):
+    """The general and the streamed path, each swizzle row, lane and
+    column, with the weights resident and streamed through the ring at
+    each padded width: a wrong mapping is an exact mismatch, not noise."""
+    rng = np.random.default_rng(width + d_in + d_out + depth)
+    packed, keep = _one_hot_chain(rng, d_in, width, d_out, device, depth)
+    x = torch.from_numpy(np.abs(rng.normal(size=(3000, d_in)))
+                         .astype(np.float32)).to(device)
+    want = x.to(torch.bfloat16).float()[:, keep.to(device)]
+    if width <= 64:
+        assert kernel_variant(packed.dims) == variant
+    assert wgmma_plan(packed.dims)[0] == resident
+    out = fused_mlp_forward(x, packed, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), (out - want).abs().max()
+
+
+@pytest.mark.parametrize("dims", [[3] + [256] * 7 + [16], [19, 256, 3],
+                                  [60] + [128] * 8 + [1]],
+                         ids=["3-wide", "19-wide", "60-wide"])
+def test_bf16_rows_that_are_not_16_byte_multiples(device, dims):
+    """bf16 input of 3, 19 and 60 columns (6, 38, 120 bytes a row): no bulk
+    copy of the rows, the per-row loads instead."""
+    rng = np.random.default_rng(dims[0])
+    packed = pack_weights(_weights(rng, dims, device))
+    x = torch.from_numpy(rng.normal(size=(100003, dims[0]))
+                         .astype(np.float32)).to(device).to(torch.bfloat16)
+    assert kernel_variant(dims) == STREAMED
+    out = fused_mlp_forward(x, packed)
+    ref = fused_mlp_forward_plain(x, packed.layers)
+    same = fused_mlp_forward(x.float(), packed)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+    assert torch.equal(out, same)
+
+
+@pytest.mark.parametrize("act,out_act", [("Sine", "None"),
+                                         ("ReLU", "Exponential"),
+                                         ("Sine", "Exponential")])
+def test_sine_and_exponential_on_the_streamed_path(device, act, out_act):
+    dims = [96] + [256] * 3 + [16]
+    assert kernel_variant(dims, act, out_act) == STREAMED
+    rng = np.random.default_rng(7)
+    packed = pack_weights(_weights(rng, dims, device))
+    x = torch.from_numpy(rng.normal(size=(20000, 96)).astype(np.float32)) \
+        .to(device)
+    ref = fused_mlp_forward_plain(x, packed.layers, act, out_act)
+    out = fused_mlp_forward(x, packed, act, out_act)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert err.max().item() <= 2e-2 * max(1.0, ref.abs().max().item())
+    assert err.mean().item() <= 1e-3 * max(1.0, ref.abs().mean().item())
+
+
+@pytest.mark.parametrize("n_tiles", [2, 3])
+@pytest.mark.parametrize("dims", [[96] + [256] * 7 + [16],
+                                  [60] + [128] * 8 + [1]])
+def test_two_and_three_tile_launches(device, dims, n_tiles):
+    """Tiles of 128 rows, one block each: every block's producer streams
+    the whole ring once and stops; the rows of one tile do not depend on
+    how many tiles run beside it."""
+    rng = np.random.default_rng(n_tiles)
+    packed = pack_weights(_weights(rng, dims, device))
+    n = n_tiles * 128
+    x = torch.from_numpy(rng.normal(size=(n, dims[0])).astype(np.float32)) \
+        .to(device)
+    assert not wgmma_plan(dims)[0]
+    ref = fused_mlp_forward_plain(x, packed.layers)
+    out = fused_mlp_forward(x, packed)
+    alone = fused_mlp_forward(x[:128], packed)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+    assert torch.equal(out[:128], alone)
+
+
+@pytest.mark.parametrize("dims,dtype,aligned,plan", [
+    # the configurations' nets: the 1-hidden-layer RGB nets and the general
+    # path's stay resident, the deep 128- and 256-wide nets stream
+    ([40, 256, 3], torch.float32, True, (True, 2)),
+    ([19, 256, 3], torch.float32, True, (True, 0)),
+    ([36, 64, 64, 3], torch.float32, True, (True, 2)),
+    ([96] + [256] * 7 + [16], torch.float32, True, (False, 1)),
+    ([96] + [256] * 7 + [16], torch.bfloat16, True, (False, 2)),
+    ([60] + [128] * 8 + [1], torch.float32, True, (False, 2)),
+    # rows that are not 16-byte multiples, or x off 16 bytes: no input ring
+    ([60] + [128] * 8 + [1], torch.bfloat16, True, (False, 0)),
+    ([36, 64, 64, 3], torch.float32, False, (True, 0))])
+def test_the_wgmma_plan_places_weights_and_input_rings(device, dims, dtype,
+                                                      aligned, plan):
+    resident, n_stages, in_stages, smem = wgmma_plan(dims, dtype, aligned)
+    assert (resident, in_stages) == plan
+    assert smem <= torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    assert n_stages >= (1 if resident else 2)

@@ -54,6 +54,12 @@ CASES = {
                          act="ReLU", out_act="None", n=96),
     "streamed_sdf_128": dict(d_in=60, width=128, hidden=3, d_out=1,
                              act="ReLU", out_act="None", n=130),
+    # the general path's nets: the RGB net of a capture with 4 latent dims
+    # and configs/image/frequency.json's and oneblob.json's
+    "general_latent_rgb": dict(d_in=36, width=64, hidden=2, d_out=3,
+                               act="ReLU", out_act="None", n=200),
+    "general_image_64": dict(d_in=64, width=64, hidden=2, d_out=3,
+                             act="ReLU", out_act="None", n=140),
 }
 
 

@@ -26,45 +26,28 @@ from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
     GENERAL, MMA_VARIANTS, SMEM_LIMIT, STREAMED, fused_mlp_forward,
     fused_mlp_forward_plain, general_smem_bytes, kernel_variant,
     mma_layer_shapes, mma_shape, mma_smem_bytes, pack_weights,
-    stream_smem_bytes)
+    wgmma_hidden_width)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _card_cases():
+def _sibling(name):
     spec = importlib.util.spec_from_file_location(
-        "_card_kernel_tests",
-        os.path.join(REPO, "tests", "test_torch_cuda_kernels.py"))
+        f"_{name}", os.path.join(REPO, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.CASES
+    return mod
 
 
-CARD_CASES = _card_cases()
+CARD_CASES = _sibling("test_torch_cuda_kernels").CASES
+# the decoder of the wgmma kernel's swizzled weight chunks
+_decode_wgmma_layers = _sibling("test_torch_mlp_wgmma")._decode_layers
 
 
 def _weights(rng, dims):
     return [torch.from_numpy(rng.uniform(-1, 1, (i, o)).astype(np.float32))
             for i, o in zip(dims[:-1], dims[1:])]
-
-
-def _pad16(n):
-    return (n + 15) // 16 * 16
-
-
-def _unpack_general(packed, dims):
-    """Padded (pad16(in), pad16(out)) layers of the general packing and
-    the skew columns that must be zero."""
-    layers, skews, at = [], [], 0
-    for i, o in zip(dims[:-1], dims[1:]):
-        rows, ld = _pad16(i), _pad16(o) + 8
-        block = packed[at:at + rows * ld].reshape(rows, ld)
-        layers.append(block[:, :ld - 8])
-        skews.append(block[:, ld - 8:])
-        at += rows * ld
-    assert at == packed.numel()
-    return layers, skews
 
 
 def _unpack_mma(packed, dims):
@@ -107,12 +90,12 @@ def test_packing_unpacks_bit_for_bit(case):
     dims, _, _ = CARD_CASES[case]
     ws = _weights(np.random.default_rng(case), dims)
     packed = pack_weights(ws)
-    general, skews = _unpack_general(packed.packed_general, dims)
-    for s in skews:
-        assert not s.view(torch.int16).any()
-    layouts = [general]
+    # the wgmma kernel's chunks (general and streamed path), decoded from
+    # the 128-byte swizzle rule by tests/test_torch_mlp_wgmma.py
+    layouts = [[torch.from_numpy(w).view(torch.bfloat16) for w in
+                _decode_wgmma_layers(packed.packed_wgmma, dims)]]
     if mma_shape(dims) is None:
-        assert packed.packed is packed.packed_general
+        assert packed.packed is packed.packed_wgmma
     else:
         assert packed.packed.numel() % 8 == 0
         layouts.append(_unpack_mma(packed.packed, dims))
@@ -273,7 +256,8 @@ def test_every_nerf_config_net_that_fits_has_an_instantiation(name):
         if max(dims) > 128:
             assert name in ("frequency.json", "none.json"), dims
             assert variant == STREAMED, (dims, variant)
-            assert stream_smem_bytes(dims) <= SMEM_LIMIT
+            # the wgmma kernel takes every chain up to 256 wide
+            assert wgmma_hidden_width(dims) == 256
             x = torch.from_numpy(np.random.default_rng(0).normal(
                 size=(3, dims[0])).astype(np.float32))
             packed = pack_weights(_weights(np.random.default_rng(0), dims))
@@ -314,7 +298,7 @@ def test_every_sdf_config_net_has_a_kernel(name):
         assert width == 128 and hidden in (6, 8)
         assert general_smem_bytes(dims) > SMEM_LIMIT
         assert variant == STREAMED
-        assert stream_smem_bytes(dims) <= SMEM_LIMIT
+        assert wgmma_hidden_width(dims) == 128
     else:
         assert variant == "mma_32x64x8_ReLU_None", (dims, variant)
 
