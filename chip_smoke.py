@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's NeRF render and training paths, the path
 from a capture on disk to every render mode, Image mode, the mesh tools
 and FLIP, Volume mode, SDF mode, Geometry mode, the nets of the wide
-configurations and the command line, once on one NVIDIA GPU.
+configurations, the command line and data- and level-parallel NeRF, once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; needs one card)
 
@@ -160,6 +161,25 @@ Phases, each of which raises on failure (a non-zero exit):
    trained CLI_STEPS steps with --save_snapshot, reloaded with --n_steps 0
    and screenshots of two views, and the Geometry scene; each must
    return 0 and leave its files.
+17. data- and level-parallel NeRF (nerf/parallel.py, parallel/tp.py) at
+   base.json's width on the orbit scene. (a) `data_parallel_mesh()`, a
+   1-rank NCCL group on the card: `NerfTestbed(dataset, config, mesh=)`
+   trains TRAIN_STEPS steps at a global batch of 2^18 beside an unsharded
+   testbed timed in turns with it (steps/s of each, and the CUDA-event
+   milliseconds of the collectives a step); it fails unless the loss fell,
+   PSNR of view 0 reached TRAIN_MIN_PSNR, the kernel was launched by the
+   sharded density updates and by no train step, and a 400x400 frame from
+   `make_sharded_render` matches render_tile's frame of the same model
+   within phase 5's tolerances. (b) two gloo ranks spawned on the one card
+   (NCCL refuses two ranks on one device; the kernels are built before):
+   every collective of parallel/mesh.py on CUDA tensors; one sharded train
+   step at full width from supplied draws against one testbed's step over
+   the same global rays (the CPU tests' tolerances); 8 steps with the
+   defaults, after which both ranks' parameters, optimizer state, density
+   grid, bitfield and error map must have the same bits; one
+   tensor-parallel step (data=1, model=2) against the data-parallel step,
+   and the level-sharded features against the plain encode. Each step's
+   time is printed.
 
     python3 chip_smoke.py --profile OUT.txt
 
@@ -180,6 +200,14 @@ n_march) and prints PSNR and training seconds at steps 128, 256, 512 and
 1024 beside that record's PSNRs; a third does the same with the exact
 encode. It fails if a milestone of the default run lies more than
 CURVE_SLACK_DB from the record, above or below.
+
+    python3 chip_smoke.py --deposit-ab
+
+builds the kernels and then only times the table gradient's deposit by
+`index_put_` (the port's) against `index_add_` (atomic adds), in turns in
+one process: the gradient alone, NeRF train steps with the defaults and
+exact, and Image steps of each encode (`deposit_ab`); it prints no result
+line.
 
 The last lines are one JSON object describing the kernel (its
 instantiations and the paths that launch each; its streamed path as a
@@ -2905,6 +2933,505 @@ def wide_nets_and_cli(root, ds, dev, smi, fused_mlp_forward):
     return by_variant, out
 
 
+
+def deposit_ab(cfg, image_cfg, dev, smi):
+    """--deposit-ab: the table gradient summed by `index_put_` (the port's
+    deposit, in an order the indices fix) against `index_add_` (atomic
+    adds, the deposit the port had before), swapped in turns
+    (put, add, add, put) in one process: the gradient alone at the shapes
+    of a NeRF train step (exact, and the one-corner stochastic deposit)
+    and of an Image step, then 16 NeRF train steps with the defaults and
+    16 exact ones (base.json, batch 2^18, after 32 steps of warm-up, the
+    density updates left out), then 16 Image steps of each encode
+    (configs/image/base.json on phase 10's image, batch 2^18)."""
+    import torch
+
+    from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+    from instant_ngp_tpu_torch.ops import grid_encoding
+
+    put = grid_encoding._deposit
+
+    def add(grad, rows, values):
+        grad.index_add_(0, rows, values)
+
+    variants = {"index_put_": put, "index_add_": add}
+    results = {}
+
+    def ab(name, fn, n):
+        for v in ("index_put_", "index_add_", "index_add_", "index_put_"):
+            grid_encoding._deposit = variants[v]
+            fn()                                   # one untimed call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            results.setdefault(name, {}).setdefault(v, []).append(
+                1e3 * (time.perf_counter() - t0) / n)
+        grid_encoding._deposit = put
+        r = results[name]
+        print(f"deposit A/B: {name}: index_put_ "
+              f"{statistics.mean(r['index_put_']):.3f} ms, index_add_ "
+              f"{statistics.mean(r['index_add_']):.3f} ms (in turns "
+              f"{[round(x, 3) for x in r['index_put_']]} / "
+              f"{[round(x, 3) for x in r['index_add_']]}) [{smi}]",
+              flush=True)
+
+    ds = make_scene()
+    nerf = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                       seed=SEED)
+    img = ImageTestbed(procedural_image(IMAGE_SIDE, SEED), image_cfg,
+                       seed=SEED, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    n = 1 << 18
+    for name, enc, j in (("NeRF table gradient, exact", nerf.model
+                          .pos_encoding, None),
+                         ("NeRF table gradient, stochastic one-corner",
+                          nerf.model.pos_encoding, 1),
+                         ("Image table gradient, exact", img.model.encoding,
+                          None)):
+        x = torch.rand(n, enc.n_dims, device=dev, generator=gen)
+        g_out = torch.randn(n, enc.n_output_dims, device=dev, generator=gen)
+        if j is None:
+            ab(f"{name} ({n} samples)",
+               lambda e=enc, x=x, g=g_out: e._table_gradient(x, g, None), 16)
+        else:
+            draws = grid_encoding.draw_corner_randoms(gen, n, enc.n_dims,
+                                                      enc.n_levels, j)
+            ab(f"{name} ({n} samples)",
+               lambda e=enc, x=x, g=g_out, d=draws, j=j:
+               e._table_gradient_stochastic(x, g, None, d, j), 16)
+    nerf.train(32)
+    ab("NeRF train step, defaults", nerf.train_step, 16)
+    nerf.stochastic_corners = False
+    ab("NeRF train step, exact encode", nerf.train_step, 16)
+    img.train(8, IMAGE_BATCH)
+    ab("Image train step, stochastic encode",
+       lambda: img.train(1, IMAGE_BATCH), 16)
+    img.stochastic_corners = False
+    ab("Image train step, exact encode", lambda: img.train(1, IMAGE_BATCH),
+       16)
+    return results
+
+
+# -- phase 17: data- and level-parallel NeRF ---------------------------------
+def _digest(*tensors):
+    """sha256 of the tensors' bytes, in order (on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_testbed(ds, cfg, mesh):
+    """A base.json testbed at full width (bf16 compute, weights from SEED)
+    on this rank's card; on `mesh` where one is given."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return NerfTestbed(ds, cfg, compute_dtype=torch.bfloat16, seed=SEED,
+                       mesh=mesh)
+
+
+def _split_draws(both, n, part):
+    """Rows part*n .. (part+1)*n of every field of a TrainDraws."""
+    return type(both)(*(None if v is None else v[part * n:(part + 1) * n]
+                        for v in both))
+
+
+def _step_errors(got, ref, table_key="pos_encoding"):
+    """How one step's parameters and Adam moments `got` (trees of tensors)
+    stand against `ref`, by the CPU tests' rules: the moments to rtol 1e-4
+    / atol 1e-7 everywhere; the parameters to the same on at least 99 %
+    of each leaf's entries and within one Adam step (lr 1e-2) on the rest
+    (Adam's eps of 1e-15 turns float32 noise in a near-zero gradient into
+    a full step of either sign) -> the worst numbers, and whether they
+    hold."""
+    from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
+
+    out = {"moment_violations": 0, "param_close_share": 1.0,
+           "param_max_diff": 0.0}
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(got[key]), tree_leaves(ref[key])):
+            bad = (a - b).abs() > 1e-7 + 1e-4 * b.abs()
+            out["moment_violations"] += int(bad.sum())
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(ref["params"])):
+        diff = (a - b).abs()
+        close = (diff <= 1e-7 + 1e-4 * b.abs()).float().mean().item()
+        out["param_close_share"] = min(out["param_close_share"], close)
+        out["param_max_diff"] = max(out["param_max_diff"],
+                                    diff.max().item())
+    out["ok"] = (out["moment_violations"] == 0
+                 and out["param_close_share"] > 0.99
+                 and out["param_max_diff"] <= 2e-2)
+    return out
+
+
+def pair_collectives_job():
+    """Every collective of parallel/mesh.py on CUDA tensors of two gloo
+    ranks that share one card -> {name: values as this rank sees them}."""
+    import torch
+
+    from instant_ngp_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.Mesh({"data": 2}, "cuda")
+    g, r = mesh.group("data"), float(mesh.rank)
+    x = torch.tensor([r + 1.0, 2.0 * r], device=mesh.device)
+    return {"device": str(mesh.device),
+            "all_reduce": pm.psum(x, g).tolist(),
+            "all_gather_into_tensor": pm.all_gather(x, g).tolist(),
+            "reduce_scatter_tensor": pm.psum_scatter(x, g).tolist(),
+            "broadcast": pm.broadcast(x, g).tolist()}
+
+
+def pair_step_job(ds, cfg, n_rays, max_k):
+    """One sharded train step of two gloo ranks on one card at full
+    width, each from its half of one set of draws (exact encode, no error
+    map, every cell occupied: the capacity cannot truncate); rank 0 then
+    takes the same step on one testbed over both halves and holds the two
+    against each other."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.parallel import make_sharded_train_step
+    from instant_ngp_tpu_torch.nerf.sampler import draw_train_randoms
+    from instant_ngp_tpu_torch.nerf.training import nerf_train_step
+    from instant_ngp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"data": 2}, "cuda")
+    rank = mesh.index("data")
+    tb = _rank_testbed(ds, cfg, mesh)
+    bits = torch.full_like(tb.bitfield, 255)
+    mean = torch.zeros((), device=tb.device)
+    both = draw_train_randoms(torch.Generator().manual_seed(SEED + 17),
+                              2 * n_rays, tb.data.n_images).to(tb.device)
+
+    def cfg_of(t, rays):
+        return t._train_cfg(rays, max_k)._replace(stochastic_corners=False,
+                                                  use_error_map=False)
+
+    step = make_sharded_train_step(tb.model, tb.optimizer,
+                                   cfg_of(tb, n_rays), tb.aabb_min,
+                                   tb.aabb_max, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = step(tb.opt_state, tb.data, bits, mean,
+                 _split_draws(both, n_rays, rank))
+    torch.cuda.synchronize()
+    out = {"ms": 1e3 * (time.perf_counter() - t0),
+           "loss": float(stats["loss"]),
+           "measured": float(stats["measured_batch_size"]),
+           "capacity": cfg_of(tb, n_rays).sample_capacity}
+    if rank == 0:
+        ref = _rank_testbed(ds, cfg, None)
+        ref_stats = nerf_train_step(
+            ref.model, ref.optimizer, cfg_of(ref, 2 * n_rays), ref.aabb_min,
+            ref.aabb_max, ref.opt_state, ref.data, bits, mean, both)
+        out["ref_loss"] = float(ref_stats["loss"])
+        out["ref_measured"] = float(ref_stats["measured_batch_size"])
+        out["errors"] = _step_errors(
+            {"params": tb.model.param_tree(), "m": tb.opt_state["m"],
+             "v": tb.opt_state["v"]},
+            {"params": ref.model.param_tree(), "m": ref.opt_state["m"],
+             "v": ref.opt_state["v"]})
+    return out
+
+
+def pair_loop_job(ds, cfg, n_steps):
+    """n_steps of `NerfTestbed(mesh=)` with the defaults (stochastic
+    encode, error map, sharded density updates) on two gloo ranks of one
+    card -> the digests of everything replicated, the loss and the time of
+    each step, and this rank's first rays."""
+    import torch
+
+    from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
+    from instant_ngp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh({"data": 2}, "cuda")
+    tb = _rank_testbed(ds, cfg, mesh)
+    first_uv = tb._train_draws(64).rays.uv.cpu().numpy()
+    ms = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tb.train(1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"ms": ms, "loss": loss, "first_uv": first_uv,
+            "measured": tb.measured_batch_size,
+            "digests": {
+                "params": _digest(*tree_leaves(tb.model.param_tree())),
+                "opt": _digest(*tree_leaves(
+                    [tb.opt_state[k] for k in ("step", "m", "v", "ema")])),
+                "density_grid": _digest(tb.density_grid),
+                "bitfield": _digest(tb.bitfield),
+                "error_map": _digest(tb._error_map)}}
+
+
+def pair_tp_job(ds, cfg, n_rays, max_k):
+    """One hybrid (data=1, model=2) step of two gloo ranks on one card at
+    full width, against the data-parallel step of one testbed from the same
+    draws; and the level-sharded features against the plain encode."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.sampler import draw_train_randoms
+    from instant_ngp_tpu_torch.nerf.training import nerf_train_step
+    from instant_ngp_tpu_torch.parallel.mesh import Mesh, all_gather
+    from instant_ngp_tpu_torch.parallel.tp import make_tp_train_step, tp_state
+
+    mesh = Mesh({"data": 1, "model": 2}, "cuda")
+    index, group = mesh.index("model"), mesh.group("model")
+    tb = _rank_testbed(ds, cfg, None)
+    ref = _rank_testbed(ds, cfg, None)
+    cfg_step = tb._train_cfg(n_rays, max_k)._replace(
+        stochastic_corners=False, use_error_map=False)
+    bits = torch.full_like(tb.bitfield, 255)
+    mean = torch.zeros((), device=tb.device)
+    draws = draw_train_randoms(torch.Generator().manual_seed(SEED + 19),
+                               n_rays, tb.data.n_images).to(tb.device)
+
+    step, grid = make_tp_train_step(tb.model, tb.optimizer, cfg_step,
+                                    tb.aabb_min, tb.aabb_max, mesh)
+    # the features of this rank's levels against the plain encode
+    x = torch.rand(1 << 18, 3, device=tb.device,
+                   generator=torch.Generator(tb.device).manual_seed(SEED))
+    with torch.no_grad():
+        block = grid.shard(grid.pack(tb.model.pos_encoding.params), index)
+        feats = grid.local_features(block, x, index, group)
+        plain = tb.model.pos_encoding(x)
+    feat_err = (feats - plain).abs()
+    feats_ok = bool((feat_err <= 1e-7 + 1e-5 * plain.abs()).all())
+
+    state = tp_state(tb.model, tb.optimizer, grid, index)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = step(state, tb.data, bits, mean, draws)
+    torch.cuda.synchronize()
+    tp_ms = 1e3 * (time.perf_counter() - t0)
+    nerf_train_step(ref.model, ref.optimizer, cfg_step, ref.aabb_min,
+                    ref.aabb_max, ref.opt_state, ref.data, bits, mean, draws)
+
+    def whole(tree):
+        return dict(tree, pos_encoding=grid.unpack(all_gather(
+            tree["pos_encoding"].detach(), group)))
+
+    errors = _step_errors(
+        {"params": whole(state["params"]), "m": whole(state["opt"]["m"]),
+         "v": whole(state["opt"]["v"])},
+        {"params": ref.model.param_tree(), "m": ref.opt_state["m"],
+         "v": ref.opt_state["v"]})
+    return {"ms": tp_ms, "loss": float(stats["loss"]), "errors": errors,
+            "features_max_abs": feat_err.max().item(),
+            "features_ok": feats_ok}
+
+
+def sharded_on_card(ds, cfg, dev, smi, fused_mlp_forward):
+    """Phase 17a: a 1-rank NCCL mesh trains and renders on the card ->
+    the numbers of the phase, the kernel's launches by the sharded density
+    updates and the sharded render among them."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from instant_ngp_tpu_torch.nerf.parallel import make_sharded_render
+    from instant_ngp_tpu_torch.nerf.render import camera_rays_for_frame
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+    from instant_ngp_tpu_torch.parallel.mesh import (collective_log,
+                                                     data_parallel_mesh)
+
+    mesh = data_parallel_mesh()
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise RuntimeError(f"the default mesh is not NCCL on the card: "
+                           f"{dist.get_backend()}, {mesh.device}")
+    tb = NerfTestbed(ds, cfg, compute_dtype=torch.bfloat16, seed=SEED,
+                     mesh=mesh)
+    plain_tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                           seed=SEED)
+    psnr_before = tb.eval_psnr(0)
+    counts = {"prep": 0, "step": 0}
+    prep, step = tb.training_prep, tb.train_step
+    tb.training_prep = counting_launches(fused_mlp_forward, counts, "prep",
+                                         prep)
+    tb.train_step = counting_launches(fused_mlp_forward, counts, "step",
+                                      step)
+    fused_mlp_forward.launches = 0
+    fused_mlp_forward.launches_by_variant.clear()
+    first_loss = tb.train(1)
+    tb.train(TRAIN_WARMUP - 1)
+    plain_tb.train(TRAIN_WARMUP)
+    n_timed = TRAIN_STEPS - TRAIN_WARMUP
+    rates = {}
+    # in turns: sharded, plain, sharded, plain, each half of the window
+    for name, t in (("mesh", tb), ("plain", plain_tb)) * 2:
+        collective_log.enabled = name == "mesh"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = t.train(n_timed // 2)
+        torch.cuda.synchronize()
+        rates.setdefault(name, []).append(
+            (n_timed // 2) / (time.perf_counter() - t0))
+        if name == "mesh":
+            last_loss = loss
+    collective_log.enabled = False
+    coll_ms = collective_log.total_ms()
+    collective_log.reset()
+    del tb.training_prep, tb.train_step
+    psnr_after = tb.eval_psnr(0)
+    launches_prep = counts["prep"]
+    print(f"mesh[1 rank, nccl]: {TRAIN_STEPS} steps, loss {first_loss:.6f}"
+          f" -> {last_loss:.6f}; PSNR of view 0 {psnr_before:.2f} -> "
+          f"{psnr_after:.2f} dB; {statistics.mean(rates['mesh']):.2f} "
+          f"steps/s against {statistics.mean(rates['plain']):.2f} unsharded "
+          f"(the same {n_timed} steps each, in turns: "
+          f"{[round(r, 2) for r in rates['mesh']]} vs "
+          f"{[round(r, 2) for r in rates['plain']]}); collectives "
+          + ", ".join(f"{k} {v / n_timed:.4f} ms" for k, v in
+                      coll_ms.items())
+          + f" a step (CUDA events, {n_timed} steps); kernel launches: "
+          f"{counts['prep']} by sharded density updates, {counts['step']} by"
+          f" train steps [{smi}]", flush=True)
+
+    # a 400x400 frame through make_sharded_render, against the same
+    # model's render_tile frame
+    tile = 1 << 13
+    cam = orbit_camera(angle=0.3, elevation=0.4)
+    origins, dirs = camera_rays_for_frame(WIDTH, HEIGHT, (FOCAL, FOCAL), cam,
+                                          device=dev)
+    n_pix = origins.shape[0]
+    n_tiles = -(-n_pix // tile)
+    pad = n_tiles * tile - n_pix
+    # padding rays start far outside the box and point away from it
+    origins = torch.cat([origins, origins.new_full((pad, 3), 10.0)])
+    dirs = torch.cat([dirs, dirs.new_tensor([[1.0, 0.0, 0.0]]).expand(pad,
+                                                                      3)])
+    render = make_sharded_render(tb.inference_model,
+                                 tb._render_config("Shade", 1e-2, tile),
+                                 tb.aabb_min, tb.aabb_max, mesh)
+    before = fused_mlp_forward.launches
+    by_variant_before = dict(fused_mlp_forward.launches_by_variant)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render(origins.view(n_tiles, tile, 3),
+                     dirs.view(n_tiles, tile, 3), tb.bitfield,
+                     torch.zeros(3, device=dev))
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    launches_render = fused_mlp_forward.launches - before
+    render_by_variant = {
+        k: v - by_variant_before.get(k, 0)
+        for k, v in fused_mlp_forward.launches_by_variant.items()
+        if v != by_variant_before.get(k, 0)}
+    frame = torch.cat([out["rgb"].reshape(-1, 3),
+                       out["alpha"].reshape(-1, 1)], -1)[:n_pix]
+    frame = frame.reshape(HEIGHT, WIDTH, 4).cpu().numpy()
+    tb.render_wavefront = False
+    ref = tb.render_frame(WIDTH, HEIGHT, cam, focal_length=FOCAL)
+    err = np.abs(frame - ref)
+    print(f"mesh[1 rank, nccl]: sharded render {WIDTH}x{HEIGHT} in "
+          f"{n_tiles} tiles of {tile}: {render_s:.3f} s, "
+          f"{int(out['n_samples'])} samples, {launches_render} kernel "
+          f"launches {render_by_variant}; against render_tile's frame max "
+          f"abs "
+          f"{err.max():.3g}, mean abs {err.mean():.3g} [{smi}]",
+          flush=True)
+    dist.destroy_process_group()
+
+    if not last_loss < first_loss:
+        raise RuntimeError("the mesh testbed's loss did not fall")
+    if not psnr_after >= TRAIN_MIN_PSNR["default"]:
+        raise RuntimeError(f"the mesh testbed's PSNR of view 0 is "
+                           f"{psnr_after:.2f} dB (at least "
+                           f"{TRAIN_MIN_PSNR['default']} asked)")
+    if launches_prep == 0 or counts["step"] != 0 or launches_render == 0:
+        raise RuntimeError(f"the kernel must be launched by the sharded "
+                           f"density updates and render and by no train "
+                           f"step: {counts}, render {launches_render}")
+    if not (err.max() <= FRAME_MAX_ABS and err.mean() <= FRAME_MEAN_ABS) \
+            or ref[..., 3].max() <= 0.0:
+        raise RuntimeError("the sharded frame disagrees with render_tile's")
+    if set(coll_ms) != {"all_reduce", "all_gather"}:
+        raise RuntimeError(f"the mesh steps ran collectives {coll_ms}")
+    return {
+        "launches_density_updates": launches_prep,
+        "launches_render": launches_render,
+        "launches_render_by_variant": render_by_variant,
+        "steps_per_s": rates, "collective_ms_per_step": {
+            k: v / n_timed for k, v in coll_ms.items()},
+        "psnr_db": psnr_after, "frame_max_abs": float(err.max())}
+
+
+def two_ranks_on_card(ds, cfg, smi):
+    """Phase 17b: two gloo ranks share the card (NCCL refuses two ranks on
+    one device)."""
+    import numpy as np
+
+    from instant_ngp_tpu_torch.parallel.ranks import RankPool
+
+    n_rays, max_k = 1 << 12, 32
+    t0 = time.perf_counter()
+    with RankPool(2, backend="gloo") as pool:
+        spawn_s = time.perf_counter() - t0
+        coll = pool.run(pair_collectives_job)
+        want = {"all_reduce": [[3.0, 2.0]] * 2,
+                "all_gather_into_tensor": [[1.0, 0.0, 2.0, 2.0]] * 2,
+                "reduce_scatter_tensor": [[3.0], [2.0]],
+                "broadcast": [[1.0, 0.0]] * 2}
+        got = {k: [c[k] for c in coll] for k in want}
+        print(f"pair[2 ranks, gloo, one card]: spawned in {spawn_s:.1f} s; "
+              f"collectives on CUDA tensors ({coll[0]['device']}, "
+              f"{coll[1]['device']}): {got}", flush=True)
+        if got != want:
+            raise RuntimeError(f"gloo's collectives on CUDA tensors: {got}, "
+                               f"expected {want}")
+        step = pool.run(pair_step_job, ds, cfg, n_rays, max_k)
+        loop = pool.run(pair_loop_job, ds, cfg, 8)
+        tp = pool.run(pair_tp_job, ds, cfg, 2 * n_rays, max_k)
+    err = step[0]["errors"]
+    print(f"pair: one sharded step at full width, {n_rays} rays x 2 ranks "
+          f"(capacity {step[0]['capacity']} a rank), "
+          f"{[round(s['ms'], 2) for s in step]} ms; loss {step[0]['loss']:.6f}"
+          f" vs one testbed's {step[0]['ref_loss']:.6f}, samples "
+          f"{step[0]['measured']:.0f} vs {step[0]['ref_measured']:.0f}; "
+          f"moments off tolerance {err['moment_violations']}, parameters "
+          f"within it {100 * err['param_close_share']:.3f} % (max diff "
+          f"{err['param_max_diff']:.3g}) [{smi}]", flush=True)
+    digests = [r["digests"] for r in loop]
+    same = {k: digests[0][k] == digests[1][k] for k in digests[0]}
+    print(f"pair: 8 steps with the defaults, ms a step "
+          f"{[round(m, 1) for m in loop[0]['ms']]} (rank 0), loss "
+          f"{loop[0]['loss']:.6f}, {loop[0]['measured']} samples; rank 1 "
+          f"bit-identical to rank 0: {same} [{smi}]", flush=True)
+    terr = tp[0]["errors"]
+    print(f"pair: tensor-parallel step (data=1, model=2), {2 * n_rays} rays:"
+          f" {[round(r['ms'], 2) for r in tp]} ms, loss {tp[0]['loss']:.6f};"
+          f" against the data-parallel step: moments off tolerance "
+          f"{terr['moment_violations']}, parameters within it "
+          f"{100 * terr['param_close_share']:.3f} % (max diff "
+          f"{terr['param_max_diff']:.3g}); level-sharded features against "
+          f"the plain encode, max abs {tp[0]['features_max_abs']:.3g} "
+          f"[{smi}]", flush=True)
+    if not (err["ok"] and step[0]["measured"] == step[0]["ref_measured"]
+            and abs(step[0]["loss"] - step[0]["ref_loss"])
+            <= 1e-5 * abs(step[0]["ref_loss"])):
+        raise RuntimeError("the two ranks' step disagrees with one "
+                           "testbed's")
+    if not all(same.values()):
+        raise RuntimeError(f"the replicas parted after 8 steps: {same}")
+    if np.array_equal(loop[0]["first_uv"], loop[1]["first_uv"]):
+        raise RuntimeError("the two ranks drew the same rays")
+    if not (terr["ok"] and all(r["features_ok"] for r in tp)):
+        raise RuntimeError("the tensor-parallel step or its features "
+                           "disagree with the data-parallel ones")
+    return {"step_ms": [s["ms"] for s in step],
+            "loop_ms": loop[0]["ms"], "tp_ms": [r["ms"] for r in tp],
+            "bit_identical": same}
+
+
 def main():
     import numpy as np
     import torch
@@ -2917,6 +3444,10 @@ def main():
                         help="also train 1024 steps under the protocol of "
                              "the JAX package's quality record and print "
                              "PSNR by step beside it")
+    parser.add_argument("--deposit-ab", action="store_true",
+                        help="after the build, only time the table "
+                             "gradient's deposit by index_put_ against "
+                             "index_add_ (deposit_ab) and stop")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2952,6 +3483,11 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    if args.deposit_ab:
+        deposit_ab(load_network_config(find_network_config("base", "nerf")),
+                   load_network_config(find_network_config("base", "image")),
+                   dev, smi)
+        return
 
     # the network of the main path, at full width, weights from a seed
     cfg = load_network_config(find_network_config("base", "nerf"))
@@ -3339,6 +3875,16 @@ def main():
     print(f"phases 15-16 (Geometry, wide nets, CLI): "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
+    # phase 17: data- and level-parallel NeRF at base.json's width: a
+    # 1-rank NCCL mesh, then two gloo ranks sharing the card
+    t_new = time.perf_counter()
+    sharded_path = sharded_on_card(ds, cfg, dev, smi, fused_mlp_forward)
+    launches_sharded = (sharded_path["launches_density_updates"]
+                        + sharded_path["launches_render"])
+    sharded_path.update(two_ranks_on_card(ds, cfg, smi))
+    print(f"phase 17 (mesh, two ranks): {time.perf_counter() - t_new:.1f} s",
+          flush=True)
+
     if args.curve:
         train_curve(ds, cfg, dev, smi)
 
@@ -3354,10 +3900,11 @@ def main():
         # (extraction at 256^3; its optimisation launches nothing), Volume
         # mode (training, a fixed batch's loss, three frames) and SDF mode
         # (both configurations: training, IoU, frames, the brick oracle
-        # launches nothing)
+        # launches nothing), Geometry mode and the 1-rank mesh (its sharded
+        # density updates and its sharded 400x400 frame)
         "launches": launches + launches_train + launches_capture
         + launches_image + launches_mesh + launches_volume + launches_sdf
-        + launches_geometry,
+        + launches_geometry + launches_sharded,
         "launches_render_path": launches,
         "launches_train_path": launches_train,
         "launches_capture_path": launches_capture,
@@ -3366,14 +3913,16 @@ def main():
         "launches_volume_path": launches_volume,
         "launches_sdf_path": launches_sdf,
         "launches_geometry_path": launches_geometry,
+        "launches_sharded_path": launches_sharded,
         # which paths launch each instantiation (and the general kernel)
         "instantiations": {
             shapes["density"]["variant"]: [
                 "render", "train (density updates, frames)", "capture",
-                "mesh", "geometry"],
+                "mesh", "geometry", "sharded density update",
+                "sharded render"],
             shapes["rgb"]["variant"]: ["render", "train (frames)", "image",
                                        "mesh", "sdf (base and Takikawa)",
-                                       "geometry"],
+                                       "geometry", "sharded render"],
             shapes["volume"]["variant"]: ["volume"],
             shapes["rgb_latent"]["variant"]: ["capture (RGB net with "
                                               "latent dims)"]},
@@ -3393,6 +3942,7 @@ def main():
         "shapes": shapes,
         "mesh_path": mesh_path,
         "geometry_path": geometry_path,
+        "sharded_path": sharded_path,
         "config_nets": config_nets,
         "other_shapes": other,
     }, {

@@ -11,6 +11,8 @@ state is `{"step", "m", "v", "ema"}` with the three trees in the
 parameters' layout. A trainable buffer (the envmap, the distortion map,
 the per-image latent codes) is one array with a state of the same form,
 `{"params", "opt": {"step", "m", "v", "ema"}}`, its trees single arrays.
+The tensor-parallel step keeps the table packed by level, (L, Tmax, F):
+`packed_params_from_jax` and `packed_opt_state_from_jax` unpack it.
 """
 
 from __future__ import annotations
@@ -105,6 +107,22 @@ def opt_state_from_jax(opt: Dict[str, Any],
         if k in opt:
             out[k] = params_fn(opt[k])
     return out
+
+
+def packed_params_from_jax(tree: Dict[str, Any], grid) -> Dict[str, Any]:
+    """A NeRF tree of the JAX package's tensor-parallel step, whose
+    `pos_encoding` is the packed (L, Tmax, F) table (all of its levels,
+    gathered), -> the port's tree with the flat table; `grid` is a
+    `parallel.tp.LevelShardedGrid` of the model's encoding."""
+    return params_from_jax(dict(
+        tree, pos_encoding=grid.unpack(tree["pos_encoding"]).numpy()))
+
+
+def packed_opt_state_from_jax(opt: Dict[str, Any], grid) -> Dict[str, Any]:
+    """The optimizer state of that step (its table's slots packed like the
+    table) -> the port's, in the flat layout."""
+    return opt_state_from_jax(
+        opt, lambda tree: packed_params_from_jax(tree, grid))
 
 
 def _numpy(t):

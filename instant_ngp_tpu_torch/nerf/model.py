@@ -95,10 +95,17 @@ class NerfNetwork(nn.Module):
     def density_forward(self, pos: torch.Tensor,
                         max_level: Optional[float] = None,
                         encode_draws=None, encode_generator=None,
-                        exact_axes: Optional[int] = None) -> torch.Tensor:
+                        exact_axes: Optional[int] = None,
+                        pos_feats: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """Warped positions (N, 3) -> raw density-net outputs (N, 16). An
-        encoding that is not a grid takes no level cap or corner draws."""
-        if self._table() is None:
+        encoding that is not a grid takes no level cap or corner draws.
+        `pos_feats` (N, L*F), where given, are the position encoding's
+        features, computed elsewhere (the level-sharded grid of
+        parallel/tp.py)."""
+        if pos_feats is not None:
+            feats = pos_feats
+        elif self._table() is None:
             feats = self.pos_encoding(pos)
         elif encode_draws is None and encode_generator is None:
             feats = self.pos_encoding(pos, max_level=max_level)
@@ -119,11 +126,14 @@ class NerfNetwork(nn.Module):
                          extra: Optional[torch.Tensor] = None,
                          max_level: Optional[float] = None,
                          encode_draws=None, encode_generator=None,
-                         exact_axes: Optional[int] = None) -> torch.Tensor:
+                         exact_axes: Optional[int] = None,
+                         pos_feats: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
         """Full forward: warped positions and directions (N, 3), extra
         latents (N, n_extra) -> raw (N, 4) = [r, g, b, density]."""
         density_out = self.density_forward(pos, max_level, encode_draws,
-                                           encode_generator, exact_axes)
+                                           encode_generator, exact_axes,
+                                           pos_feats)
         dir_in = dirs
         if self.n_extra_dims:
             if extra is None:

@@ -8,7 +8,8 @@ back once and adapts the rays per batch. Built from a `NerfSceneConfig` it
 only renders, with parameters from a seed or from `load_params`.
 
 Everything lives on one device: the CUDA device unless `device` names
-another (it raises where there is none).
+another (it raises where there is none), or the mesh's device of this
+rank.
 
 Two networks of one configuration exist while training: `model` holds the
 raw parameters the optimizer steps, `inference_model` holds the
@@ -61,9 +62,19 @@ the fused kernel); `optimise_mesh_step` moves vertices towards the
 iso-surface along the density's input gradient (taken under autograd:
 plain matmuls, no kernel), with Laplacian smoothing, by Adam on the host.
 
-Not ported, each raising `NotImplementedError`: the scanned multi-step
-block (`steps_per_dispatch`, a TPU dispatch workaround) and a device mesh
-(ROADMAP queue 1 item 8, Parallel).
+Data parallel (`mesh`, a `parallel.mesh.Mesh`, with `mesh_axis`): the same
+loop on every rank of the axis, each on its own device (the mesh's). Each
+rank takes `rays_per_batch // n` rays and `1/n` of the sample capacity and
+of a density update's cells, with draws of its own (its own generator
+stream; the hooks below hand each rank its own); nerf/parallel.py reduces
+the gradients, stats and error map and gathers the cells' densities, so
+the parameters, the occupancy grid, the error map's CDFs and the host-side
+camera updates stay the same on every rank. On the mesh a step always
+takes the camera gradient, unscaled (`cam_grad_interval` applies to one
+device only, as in the JAX testbed).
+
+Not ported, raising `NotImplementedError`: the scanned multi-step block
+(`steps_per_dispatch`, a TPU dispatch workaround).
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from ..ops.losses import loss_type_from_string
 from ..ops.optimizers import create_optimizer, tree_map
 from ..ops.sampling import ld_pixel_offset
 from ..ops.trainable_buffer import TrainableBuffer, read_envmap
+from ..parallel.mesh import Mesh
 from ..utils import Ema, PhaseTimers
 from .dataset import (NerfSceneConfig, pack_training_data,
                       scene_config_from_dataset)
@@ -97,6 +109,7 @@ from .occupancy import (CellDraws, cell_densities, density_grid_mean,
                         draw_cell_randoms, init_bitfield, init_density_grid,
                         mark_untrained_cells, sample_cells, splat_and_ema,
                         update_bitfield)
+from .parallel import make_sharded_density_update, shard_counts
 from .render import (RENDER_TILE_MODES, RenderConfig, WavefrontRenderer,
                      camera_rays_for_frame, distortion_flow_image,
                      render_tile)
@@ -117,11 +130,16 @@ class NerfTestbed:
     def __init__(self, dataset: Union[NerfDataset, NerfSceneConfig],
                  network_config: Dict[str, Any], device=None,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 seed: int = 1337, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh: data-parallel training is not "
-                                      "ported yet (ROADMAP queue 1 item 8: "
-                                      "Parallel)")
+                 seed: int = 1337, mesh: Optional[Mesh] = None,
+                 mesh_axis: str = "data"):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self._n_shards = 1 if mesh is None else mesh.size(mesh_axis)
+        self._group = None if mesh is None else mesh.group(mesh_axis)
+        if mesh is not None and device is None:
+            device = mesh.device
         # the card unless the caller names another device; never the CPU
         # by itself
         self.device = torch.device("cuda" if device is None else device)
@@ -245,9 +263,13 @@ class NerfTestbed:
             self.inference_model = network().to(self.device)
             self.inference_model.load_params(self.opt_state["ema"])
             self.opt_state["ema"] = self.inference_model.param_tree()
-        # the train step's draws, on the device
+        # the train step's draws, on the device; a stream of its own for
+        # every rank of a mesh (the seed's low 32 bits differ: the CPU
+        # generator reads no others)
+        rank = 0 if self.mesh is None else self.mesh.index(self.mesh_axis)
         self._train_generator = torch.Generator(
-            device=self.device).manual_seed(self.seed)
+            device=self.device).manual_seed(
+            self.seed ^ (0x9E3779B1 * rank & 0xFFFFFFFF))
 
         # adaptive ray batching towards the target sample count
         self.target_batch_size = 1 << 18
@@ -397,12 +419,28 @@ class NerfTestbed:
                             jitter: torch.Tensor, decay: float = 0.95,
                             corners: Union[CornerDraws, torch.Generator,
                                            None] = None) -> None:
-        """Query the density (inference parameters) at a point of each cell
-        in `indices`, offset by `jitter` (n, 3) in [0, 1), max-EMA merge it
-        into the grid and rebuild the bitfield (what the JAX testbed's
-        `_density_update_body` does after sampling the cells). With
-        `corners` (the draws of all n cells, or a generator to draw each
-        chunk's from) the encode samples one corner per cell and level."""
+        """Query the density (`evaluate_density`) at a point of each cell in
+        `indices`, max-EMA merge it into the grid and rebuild the bitfield
+        (what the JAX testbed's `_density_update_body` does after sampling
+        the cells)."""
+        idx = indices.to(self.device, torch.long)
+        dens = self.evaluate_density(idx, jitter, corners)
+        self.density_grid = splat_and_ema(self.density_grid, idx, dens,
+                                          decay)
+        self.bitfield = update_bitfield(self.density_grid,
+                                        self.scene.max_cascade)
+        self.mean_density = density_grid_mean(self.density_grid)
+
+    @torch.no_grad()
+    def evaluate_density(self, indices: torch.Tensor, jitter: torch.Tensor,
+                         corners: Union[CornerDraws, torch.Generator,
+                                        None] = None) -> torch.Tensor:
+        """The density (inference parameters) at a point of each cell in
+        `indices`, offset by `jitter` (n, 3) in [0, 1) -> (n,): the
+        evaluation half of a density update (the JAX testbed's
+        `_density_update_body(..., evaluate_only=True)`). With `corners`
+        (the draws of all n cells, or a generator to draw each chunk's
+        from) the encode samples one corner per cell and level."""
         idx = indices.to(self.device, torch.long)
         act = self.scene.density_activation
         net = self.inference_model
@@ -419,14 +457,9 @@ class NerfTestbed:
                     encode_draws=corners.rows(start, start + pos.shape[0]))
             return network_to_density(raw, act)
 
-        dens = cell_densities(
+        return cell_densities(
             density, idx, jitter.to(self.device, torch.float32),
             self.aabb_min, self.aabb_max)
-        self.density_grid = splat_and_ema(self.density_grid, idx, dens,
-                                          decay)
-        self.bitfield = update_bitfield(self.density_grid,
-                                        self.scene.max_cascade)
-        self.mean_density = density_grid_mean(self.density_grid)
 
     def _prep_draws(self, n_uniform: int, n_nonuniform: int
                     ) -> Tuple[Optional[CellDraws], torch.Tensor,
@@ -461,7 +494,9 @@ class NerfTestbed:
         cells no camera sees are marked untrained; then a full sweep of
         every cell (the first `warmup_full_grid_preps` steps) or 1/4 of
         the cells sampled regardless of state plus 1/4 sampled among the
-        occupied ones, queried with the inference parameters."""
+        occupied ones, queried with the inference parameters. On a mesh
+        each rank samples and queries its share of the cells with its own
+        draws (`make_sharded_density_update`)."""
         self._require_training()
         n_cascades = self.scene.max_cascade + 1
         n_cells = NERF_GRID_N_CELLS * n_cascades
@@ -479,10 +514,20 @@ class NerfTestbed:
             counts = (n_cells, 0)
         else:
             counts = (n_cells // 4, n_cells // 4)
-        draws, jitter, corners = self._prep_draws(*counts)
-        idx = sample_cells(draws, self.density_grid, *counts, n_cascades)
-        self.update_density_grid(
-            idx, jitter, decay, corners if self._stoch_now() else None)
+        if self.mesh is not None:
+            update = make_sharded_density_update(self, self.mesh,
+                                                 self.mesh_axis, *counts)
+            draws, jitter, corners = self._prep_draws(
+                *shard_counts(*counts, self._n_shards))
+            self.density_grid, self.bitfield, self.mean_density = update(
+                self.density_grid, draws, jitter,
+                corners if self._stoch_now() else None, decay)
+        else:
+            draws, jitter, corners = self._prep_draws(*counts)
+            idx = sample_cells(draws, self.density_grid, *counts,
+                               n_cascades)
+            self.update_density_grid(
+                idx, jitter, decay, corners if self._stoch_now() else None)
         self.density_grid_ema_step += 1
 
     # ------------------------------------------------------------------
@@ -533,8 +578,9 @@ class NerfTestbed:
                 "(ROADMAP: do not port TPU workarounds)")
         return NerfTrainStepConfig(
             n_rays=n_rays, n_march=self.n_march, max_samples_per_ray=max_k,
+            # the global target batch, split over the shards
             sample_capacity=self.target_batch_size
-            * self.sample_capacity_multiplier,
+            * self.sample_capacity_multiplier // self._n_shards,
             lens_mode=self.scene.lens_mode,
             cone_angle=self.scene.cone_angle_constant,
             max_mip=self.scene.max_cascade,
@@ -566,9 +612,12 @@ class NerfTestbed:
         -> the step's stats, on the device."""
         self._require_training()
         self._maybe_init_error_map()
-        n_rays = self.rays_per_batch
-        cfg = self._train_cfg(n_rays, self._bucket_k(n_rays))
-        interval = self._cam_grad_interval_eff()
+        # per rank; the effective batch is n_rays times the shards
+        n_rays = self.rays_per_batch // self._n_shards
+        cfg = self._train_cfg(n_rays, self._bucket_k(n_rays * self._n_shards))
+        # on a mesh every step takes the camera gradient, unscaled
+        interval = 1 if self.mesh is not None \
+            else self._cam_grad_interval_eff()
         if cfg.optimize_camera and \
                 self._n_steps_since_cam_update % interval != interval - 1:
             # an off-interval step: no pose or focal gradient, and so no
@@ -582,7 +631,7 @@ class NerfTestbed:
             error_cdfs=self._error_cdfs, error_map=self._error_map,
             envmap=self.envmap.params if self.train_envmap else None,
             distortion=self.distortion_map.params
-            if self.optimize_distortion else None)
+            if self.optimize_distortion else None, group=self._group)
         self.training_step += 1
 
         if "extra_dims_gradient" in stats:
@@ -768,9 +817,9 @@ class NerfTestbed:
         cap_rays = int(self.rays_per_batch * capacity
                        / max(measured_pre, 1))
         # the candidate-domain composite holds (rays, n_march) planes:
-        # at most 2^14 rays keeps each under 16 M lanes
+        # at most 2^14 rays a rank keeps each under 16 M lanes
         self.rays_per_batch = min(max(min(new_rays, cap_rays), 256),
-                                  1 << 14)
+                                  (1 << 14) * self._n_shards)
 
     def performance_stats(self) -> Dict[str, Any]:
         return {

@@ -49,6 +49,15 @@
   rebuilt under autograd as for the camera, so the exact encode runs; its
   gradient comes back as "distortion_gradient".
 The testbed steps the three buffers with their own optimizers.
+
+- Data parallel (`group` given, the role of JAX's `axis_name`): every rank
+  takes its own `cfg.n_rays` rays, and one all-reduce over the group's
+  ranks, before the optimizer, turns the rank's numbers into the global
+  batch's, as JAX reduces them: the parameter gradients by mean, so that
+  every replica takes the same step; the auxiliary gradients (camera,
+  exposure, latent codes, envmap, distortion map) and the error map's
+  deposit by sum; the stats' loss by sum over the rank count and the
+  three counts by sum.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from ..common import NERF_MIN_OPTICAL_THICKNESS
 from ..ops.grid_encoding import CornerDraws
@@ -63,6 +73,7 @@ from ..ops.losses import LossType, loss_and_gradient
 from ..ops.optimizers import Optimizer, tree_leaves, tree_map
 from ..ops.trainable_buffer import read_envmap
 from ..ops.trainer import default_l2_mask
+from ..parallel.mesh import psum_many
 from .dataset import NerfTrainingData
 from .model import NerfNetwork, network_to_density, network_to_rgb
 from .sampler import (RayBatch, SampleBatch, TrainDraws, build_rays,
@@ -231,6 +242,14 @@ def deposit_error_map(error_map: torch.Tensor, rays: RayBatch,
                       ) -> torch.Tensor:
     """error_map (n_images, H_c * W_c) plus each ray's loss, spread
     bilinearly over the four cells around its pixel (`res` = (W_c, H_c))."""
+    delta = error_map_delta(error_map, rays, per_ray_loss, res)
+    return (error_map.reshape(-1) + delta).view_as(error_map)
+
+
+def error_map_delta(error_map: torch.Tensor, rays: RayBatch,
+                    per_ray_loss: torch.Tensor, res: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """What `deposit_error_map` adds, flat (n_images * H_c * W_c,)."""
     cw, ch = res
     scale = torch.tensor([cw, ch], dtype=torch.float32,
                          device=error_map.device)
@@ -247,7 +266,7 @@ def deposit_error_map(error_map: torch.Tensor, rays: RayBatch,
                            (1, 1, w[:, 0] * w[:, 1])):
         idx = flat_img + (p0[:, 1] + dy) * cw + (p0[:, 0] + dx)
         delta.index_add_(0, idx, weight * per_ray_loss)
-    return (error_map.reshape(-1) + delta).view_as(error_map)
+    return delta
 
 
 class StepDraws(NamedTuple):
@@ -269,7 +288,8 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
                     error_cdfs: Optional[Dict[str, torch.Tensor]] = None,
                     error_map: Optional[torch.Tensor] = None,
                     envmap: Optional[torch.Tensor] = None,
-                    distortion: Optional[torch.Tensor] = None
+                    distortion: Optional[torch.Tensor] = None,
+                    group: Optional[dist.ProcessGroup] = None
                     ) -> Dict[str, Any]:
     """One training step: updates the model's parameters (which must
     require grad) and `opt_state` in place and returns the step's stats,
@@ -287,7 +307,9 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
     them whether or not their gradient is taken.
     envmap (H, W, 4), distortion (H, W, 2): the trainable buffers' current
     values; given, they take part in the step and their gradients come
-    back."""
+    back.
+    group: the data-parallel process group (the module docstring says what
+    is reduced over it); `draws` are then this rank's."""
     use_cdfs = cfg.use_error_map and error_cdfs is not None
     cam_grad = cfg.optimize_camera and cam is not None
     rebuild = cam_grad or distortion is not None
@@ -382,11 +404,6 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             cfg.depth_supervision_lambda)
         grads = torch.autograd.grad(result.loss_for_grad,
                                     leaves + list(aux.values()))
-    aux_grads = dict(zip(aux, grads[len(leaves):]))
-    grads = iter(grads[:len(leaves)])
-    optimizer.step(opt_state, params, tree_map(lambda _: next(grads), params),
-                   l2_mask=default_l2_mask(params))
-
     with torch.no_grad():
         stats = {
             "loss": result.per_ray_loss.sum() / cfg.n_rays,
@@ -394,8 +411,31 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             "measured_batch_size_before_compaction": samples.n_samples,
             "n_rays": rays.valid.sum(),
         }
-        stats["fused"] = torch.stack([v.to(torch.float32)
-                                      for v in stats.values()])
+        fused = torch.stack([v.to(torch.float32) for v in stats.values()])
+        deposit = None
+        if cfg.use_error_map and error_map is not None:
+            deposit = error_map_delta(error_map, rays,
+                                      result.per_ray_loss.detach(),
+                                      cfg.error_map_res)
+        if group is not None:
+            # one all-reduce of everything a rank contributes
+            n_dev, n_grads = dist.get_world_size(group), len(grads)
+            parts = psum_many(list(grads) + [fused] + (
+                [] if deposit is None else [deposit]), group)
+            grads = [g / n_dev for g in parts[:len(leaves)]] \
+                + parts[len(leaves):n_grads]
+            fused = parts[n_grads] / torch.tensor(
+                [n_dev, 1.0, 1.0, 1.0], device=fused.device)
+            if deposit is not None:
+                deposit = parts[n_grads + 1]
+            stats = dict(zip(stats, fused))
+    aux_grads = dict(zip(aux, grads[len(leaves):]))
+    grads = iter(grads[:len(leaves)])
+    optimizer.step(opt_state, params, tree_map(lambda _: next(grads), params),
+                   l2_mask=default_l2_mask(params))
+
+    with torch.no_grad():
+        stats["fused"] = fused
         if cam_grad:
             stats["cam_gradient"] = {k: aux_grads[f"cam.{k}"] for k in cam}
         for key, name in (("exposure", "exposure_gradient"),
@@ -404,8 +444,7 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
                           ("distortion", "distortion_gradient")):
             if key in aux_grads:
                 stats[name] = aux_grads[key]
-        if cfg.use_error_map and error_map is not None:
-            stats["error_map"] = deposit_error_map(
-                error_map, rays, result.per_ray_loss.detach(),
-                cfg.error_map_res)
+        if deposit is not None:
+            stats["error_map"] = (error_map.reshape(-1)
+                                  + deposit).view_as(error_map)
     return stats

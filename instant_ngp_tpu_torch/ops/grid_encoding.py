@@ -19,10 +19,15 @@ of old snapshots into it.
 Under autograd (grad mode on and the table requires grad) the forward
 runs inside `_GridEncode`, which saves x alone; its backward recomputes
 each level's indices and d-linear weights and deposits grad * weight into
-the table gradient with `index_add_` (atomic adds on a CUDA device, so the
-summation order varies between runs). Autograd through `table[idx]` would
-instead keep every level's gather alive and sort all indices in
-`index_put_`. Where x requires grad (camera optimisation), the backward
+the table gradient, one level at a time, with `index_put_(...,
+accumulate=True)`. On a CUDA device that sorts the level's indices and adds
+each entry's deposits in one fixed sequence, so the gradient has the same
+bits in every run (`index_add_` adds by atomics there, in an order that
+changes between runs, and Adam's eps of 1e-15 turns the differences of
+near-zero sums into full-size steps; data-parallel replicas stay
+identical only if the arithmetic each repeats is deterministic).
+Autograd through `table[idx]` would instead keep every level's gather
+alive. Where x requires grad (camera optimisation), the backward
 also returns the hand-derived gradient with respect to x: per corner, the
 feature times d(weight)/dx_k, which is the interpolant's derivative along
 axis k (1, Smoothstep's 6w(1-w), or 0 for Nearest) times the other axes'
@@ -65,6 +70,13 @@ from torch import nn
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32_MASK = 0xFFFFFFFF
+
+
+def _deposit(grad: torch.Tensor, rows: torch.Tensor,
+             values: torch.Tensor) -> None:
+    """grad[rows] += values (rows may repeat), summed in an order that the
+    rows alone fix (see the module docstring)."""
+    grad.index_put_((rows,), values, accumulate=True)
 
 
 def grid_scale(level: int, log2_per_level_scale: float,
@@ -292,8 +304,7 @@ class GridEncoding(nn.Module):
             idx, weight = self._level_corners(x, lvl)
             g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]     # (N, F)
             deposit = g[:, None, :] * weight[..., None]          # (N, C, F)
-            grad.index_add_(0, idx.reshape(-1),
-                            deposit.reshape(-1, n_feat))
+            _deposit(grad, idx.reshape(-1), deposit.reshape(-1, n_feat))
         return grad.view(-1)
 
     def _input_gradient(self, params: torch.Tensor, x: torch.Tensor,
@@ -390,8 +401,8 @@ class GridEncoding(nn.Module):
             g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]
             for idx, weight in self._stochastic_corners(
                     x, lvl, draws, j, sampled_only=self.stochastic_bwd):
-                grad.index_add_(0, idx, g if weight is None
-                                else g * weight[:, None])
+                _deposit(grad, idx, g if weight is None
+                         else g * weight[:, None])
         return grad.view(-1)
 
     def forward(self, x: torch.Tensor, max_level: Optional[float] = None,

@@ -15,6 +15,14 @@ tensors themselves, in the JAX layout>, "opt": {"step", "m", "v"[,
   trainer then also keeps `inference_model`, a second model whose
   parameter tensors ARE the EMA leaves (renders use it under no_grad,
   which sends its MLP through the fused kernel).
+
+Given a `mesh` (parallel/mesh.py), the steps are data parallel over
+`mesh_axis`: every rank passes its own shard of the batch (`shard_batch`),
+and the gradients are averaged over the ranks in one all-reduce before
+the optimizer, so that with shards of equal size the step is the one of
+the whole batch and every replica takes it alike; `train_step` returns the
+loss averaged the same way. (JAX's counterpart is no code: GSPMD makes
+`train_step` the global-batch step over sharded inputs.)
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import pmean, psum_many
 from .optimizers import Optimizer, tree_leaves, tree_map
 
 
@@ -41,8 +50,10 @@ def default_l2_mask(params: Any) -> Any:
 class Trainer:
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Optional[Callable] = None, seed: int = 1337,
-                 loss_scale: float = 1.0):
+                 loss_scale: float = 1.0, mesh=None,
+                 mesh_axis: str = "data"):
         self.model = model
+        self._group = None if mesh is None else mesh.group(mesh_axis)
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.seed = seed
@@ -70,6 +81,10 @@ class Trainer:
     def _step(self, state: Dict[str, Any], grads: Any) -> Dict[str, Any]:
         if self.loss_scale != 1.0:
             grads = tree_map(lambda g: g / self.loss_scale, grads)
+        if self._group is not None:
+            n = torch.distributed.get_world_size(self._group)
+            summed = iter(psum_many(tree_leaves(grads), self._group))
+            grads = tree_map(lambda _: next(summed) / n, grads)
         self.optimizer.step(state["opt"], state["params"], grads,
                             l2_mask=default_l2_mask(state["params"]))
         return state
@@ -98,7 +113,10 @@ class Trainer:
             pred = self.model(inputs, draws=draws, generator=generator)
             loss = self.loss_fn(pred, targets) * self.loss_scale
             grads = self._grads(loss, state["params"])
-        return self._step(state, grads), loss.detach() / self.loss_scale
+        loss = loss.detach() / self.loss_scale
+        if self._group is not None:
+            loss = pmean(loss, self._group)
+        return self._step(state, grads), loss
 
     def train_step_custom_gradient(
             self, state: Dict[str, Any], inputs: torch.Tensor,

@@ -562,3 +562,32 @@ def test_the_wgmma_plan_places_weights_and_input_rings(device, dims, dtype,
     assert smem <= torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     assert n_stages >= (1 if resident else 2)
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_table_gradient_has_the_same_bits_in_every_run(device, stochastic):
+    """The hash grid's table gradient at configs/nerf/base.json's width
+    (L=8, F=4, 2^19 entries a level) from 2^18 samples, the exact deposit
+    and the one-corner stochastic one: summed by `index_put_` in an order
+    the indices fix (atomic adds would change it between runs)."""
+    from instant_ngp_tpu_torch.ops.grid_encoding import (GridEncoding,
+                                                         draw_corner_randoms)
+
+    enc = GridEncoding(3, n_levels=8, n_features_per_level=4,
+                       log2_hashmap_size=19, base_resolution=16,
+                       stochastic_exact_axes=1, stochastic_bwd=True).to(device)
+    n = 1 << 18
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand(n, 3, device=device, generator=gen)
+    g_out = torch.randn(n, enc.n_output_dims, device=device, generator=gen)
+    draws = draw_corner_randoms(gen, n, 3, enc.n_levels, 1)
+
+    def grad():
+        if stochastic:
+            return enc._table_gradient_stochastic(x, g_out, None, draws, 1)
+        return enc._table_gradient(x, g_out, None)
+
+    first, second = grad(), grad()
+    torch.cuda.synchronize()
+    assert first.abs().max().item() > 0
+    assert torch.equal(first, second)

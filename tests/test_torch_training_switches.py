@@ -112,7 +112,9 @@ def test_ported_switch_matches_jax(switch):
 
 
 def test_out_of_scope_datasets_and_mesh_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh trains data parallel (tests/test_torch_parallel*.py); what is
+    # not a parallel.mesh.Mesh raises
+    with pytest.raises(TypeError, match="mesh"):
         NerfTestbed(port_dataset(make_dataset()), TRAIN_CFG, device="cpu",
                     mesh=object())
     # datasets with latent dims or depth images no longer raise: they pack
