@@ -25,7 +25,10 @@ Phases, each of which raises on failure (a non-zero exit):
    nets of Volume mode
    (32-64-64-4 ReLU/ReLU) and SDF mode (32-64-64-1, and the Takikawa
    net's 24-64-64-1, whose input is narrower than its padded width) at
-   ragged row counts and at 2^20 rows, timed the same way; then the nets
+   ragged row counts and at 2^20 rows, timed the same way; the Takikawa
+   net's input path besides (`narrow_input_paths`: the ring by a tensor
+   copy for an aligned f32 and bf16 x, the per-row loads for an x 4 bytes
+   off, each checked at RING_ROWS rows and timed); then the nets
    outside the general path's rule (WIDE_NETS: the 256-wide nets of
    configs/nerf/frequency.json and none.json, the 128-wide 8- and
    6-layer nets of configs/sdf/frequency.json and oneblob.json), which
@@ -63,7 +66,17 @@ Phases, each of which raises on failure (a non-zero exit):
    `aabb_scale` 4 (three occupancy cascades, the cone-angle step) trains
    AABB4_STEPS steps with the defaults; it fails unless the loss fell and
    the march emitted samples in cascades above 0, and prints the rate and
-   the occupied bits per cascade;
+   the occupied bits per cascade.
+   6b. base.json with the defaults trains REPEAT_STEPS (160) steps twice
+   from one seed, past the error CDFs' rebuild at step 128: the
+   parameters, optimizer state, occupancy, error map and CDFs must have
+   the same bits; then the same steps with error-map sampling off (PSNR
+   and steps/s of each run). 6c. the determinism sweep: SWEEP_STEPS steps
+   of NeRF with the defaults, NeRF exact with pose, focal, exposure and
+   distortion optimisation, Image, Volume and SDF (base.json widths)
+   under `torch.use_deterministic_algorithms(True, warn_only=True)`,
+   failing on a warned op outside `determinism.ORDER_FREE`, and twice
+   more with the mode off, failing unless both runs give the same bits;
 7. card against CPU: the same 2 train steps of a small network, with
    the same random draws, on the card and on the CPU: the losses and a
    48x48 frame agree within the stated tolerance; then 2 steps with pose,
@@ -73,11 +86,11 @@ Phases, each of which raises on failure (a non-zero exit):
    depth training on: losses, the three buffers' gradients and a 48x48
    frame in each render mode through `render_tile`;
 8. pose recovery: the scene at 200x200 with every training camera moved
-   by a seeded N(0, 0.01) translation trains 256 steps with
-   `optimize_extrinsics`; the mean distance of the cameras
-   (`effective_xform`) to the true ones must fall. It prints the
-   distance before and after and how often the two host-side updates
-   read the device;
+   by a seeded N(0, 0.01) translation and turned by an N(0, 0.01) rad
+   rotation vector trains 256 steps with `optimize_extrinsics`; the mean
+   distance of the cameras (`effective_xform`) to the true ones must
+   fall. It prints the distance and the mean angle before and after and
+   how often the two host-side updates read the device;
 9. a capture from disk: the scene is written to a temporary directory as
    a user's capture would lie there (`transforms.json` with an OpenCV
    lens and 4 latent dims per image, 64 views of 400x400 raytraced
@@ -89,8 +102,9 @@ Phases, each of which raises on failure (a non-zero exit):
    envmap, the distortion map and the latent codes moved, PSNR of view 0
    through its own lens reached CAPTURE_MIN_PSNR, a 400x400 frame in each
    of Shade, Depth, AO, Normals, Positions, EncodingVis, Cost, Distortion
-   and the density slice is finite and not constant, the Depth and
-   Normals frames agree with the raytracer on the opaque pixels, Shade by
+   and the density slice is finite and not constant (the Shade frame's
+   PSNR is printed on the sphere's pixels, on the sky's and on the whole
+   frame), the Depth and Normals frames agree with the raytracer on the opaque pixels, Shade by
    `render_tile` agrees with Shade by the wavefront renderer, the kernel
    was launched by the density updates and the renders, by no train step
    and not by the Normals frame (which differentiates the density
@@ -141,9 +155,10 @@ Phases, each of which raises on failure (a non-zero exit):
    400x400 frames (Shade with and without shadows, and for base.json
    Normals, Depth, Positions and the three GT oracles, whose silhouettes
    must agree on GT_SILHOUETTE_AGREE of the pixels). It fails unless the
-   loss on a fixed batch fell, IoU reached its floor, and every frame
+   loss on a fixed batch fell, IoU reached its floor, every frame
    launched the 32x64x8 ReLU/None instantiation 96 times (160 with
-   shadows) and no train step launched it. Then a small SDF net on the
+   shadows), no train step launched it, and every launch of both nets
+   took the input ring (launches counted by input path). Then a small SDF net on the
    card against the CPU: 2 train steps from the same samples and draws,
    and a Depth frame after 64 more steps.
 15. Geometry mode: a scene of the bumpy sphere, a box and phase 6's
@@ -206,8 +221,8 @@ CURVE_SLACK_DB from the record, above or below.
 builds the kernels and then only times the table gradient's deposit by
 `index_put_` (the port's) against `index_add_` (atomic adds), in turns in
 one process: the gradient alone, NeRF train steps with the defaults and
-exact, and Image steps of each encode (`deposit_ab`); it prints no result
-line.
+exact, and Image steps of each encode, and the error map's deposit alone
+and in default steps (`deposit_ab`); it prints no result line.
 
 The last lines are one JSON object describing the kernel (its
 instantiations and the paths that launch each; its streamed path as a
@@ -227,6 +242,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 N_ROWS = 1 << 20
 SMALL_ROWS = (1, 127, 129, 100003)
+# a narrow input's ring: one row, a tile less one, a tile, a tile and one,
+# and a full grid with a ragged last tile
+RING_ROWS = (1, 127, 128, 129, (1 << 20) + 37)
 OTHER_ROWS = (1 << 14, 1 << 17, 1 << 21)   # late render rounds; a full budget
 # shapes off the render path: (widths, hidden activation, output activation)
 OTHER_SHAPES = (([27, 48, 5], "None", "None"),
@@ -252,6 +270,9 @@ FRAME_MAX_ABS, FRAME_MEAN_ABS = 2e-2, 1e-3
 # much more than the card-vs-CPU mean tolerance
 FRAME_SENSITIVITY = 5.0
 TRAIN_STEPS, TRAIN_WARMUP = 128, 16
+# phase 6b: steps of each run, past the error CDFs' rebuild at step 128;
+# phase 6c: steps of each train path of the determinism sweep
+REPEAT_STEPS, SWEEP_STEPS = 160, 2
 # dB on view 0 after TRAIN_STEPS steps, by encode: the exact one reads
 # 24.6-24.9 dB; the default's floor is 2 dB under its first reading, 23.40
 TRAIN_MIN_PSNR = {"default": 21.4, "exact": 20.0}
@@ -311,6 +332,9 @@ IMAGE_MIN_PSNR = 33.7
 MESH_RES = 256
 MESH_RADIUS_BAND, MESH_IN_BAND, MESH_OUTER_TOL = 0.05, 0.5, 0.01
 POSE_NOISE, POSE_STEPS, POSE_SIZE = 0.01, 256, 200
+# the rotation vector's spread, in radians (0.57 degrees: ~2 pixels at the
+# edge of a 200x200 view)
+POSE_ROT_NOISE = 0.01
 # cam_grad_interval: the default, and the gradient on every step (which
 # also means the exact encode on every step)
 POSE_INTERVALS = (16, 1)
@@ -721,6 +745,21 @@ def capture_from_disk(cfg, dev, smi, fused_mlp_forward, variants, profile):
             raise RuntimeError(f"the {mode} frame launched the kernel "
                                f"{launched} times")
 
+    # the Shade frame's PSNR on the sphere's pixels, on the sky's and on
+    # the whole frame: a fog over the sphere shows in the first, the sky's
+    # missing sRGB transfer (fault 5 of the JAX package) in the second
+    from instant_ngp_tpu_torch.metrics import mse, psnr
+
+    gt = tb._gt_srgb(0, WIDTH, HEIGHT, 1)
+    shade = np.clip(frames["Shade"][..., :3], 0.0, 1.0)
+    split = {k: psnr(mse(shade[m], gt[m])) for k, m in (
+        ("sphere", hit), ("sky", ~hit), ("frame", np.ones_like(hit)))}
+    times["psnr_view0_db"] = split
+    print(f"capture: PSNR of view 0's Shade frame {split['sphere']:.2f} dB "
+          f"on the {hit.sum()} pixels the sphere covers, {split['sky']:.2f} "
+          f"dB on the sky's, {split['frame']:.2f} dB on the whole frame",
+          flush=True)
+
     opaque = hit & (frames["AO"][..., 3] > 0.99)
     depth_err = np.abs(frames["Depth"][..., 0] - depth_true)[opaque].mean()
     normal = frames["Normals"][..., :3] * 2.0 - 1.0
@@ -1016,6 +1055,162 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
     if not np.isfinite(frame).all() or tb.last_frame_n_samples <= 0:
         raise RuntimeError("the trained frame is not finite or empty")
     return tb, by_variant, by_variant_all
+
+
+def nerf_state(tb):
+    """The tensors a NeRF testbed carries from one step to the next: the
+    parameters, the optimizer state, the occupancy, the error map and its
+    CDFs, the camera gradients accumulated for the host's next update and
+    the distortion map with its optimizer state."""
+    from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
+
+    extra = [tb._error_map, tb._exposure_grad_accum,
+             *(tb._error_cdfs or {}).values(),
+             *(tb._cam_grad_accum or {}).values()]
+    return [*tree_leaves(tb.model.param_tree()),
+            *tree_leaves([tb.opt_state[k] for k in ("step", "m", "v", "ema")]),
+            tb.density_grid, tb.bitfield,
+            *tree_leaves(tb.distortion_map.state),
+            *[t for t in extra if t is not None]]
+
+
+def repeatable_training(ds, cfg, dev, smi):
+    """Phase 6b: base.json with the testbed's defaults trains REPEAT_STEPS
+    steps twice from SEED, past the error CDFs' rebuild at step 128: both
+    runs must end with the same bits in every tensor `nerf_state` names.
+    Then the same steps with error-map sampling off, beside them: PSNR of
+    view 0 and steps/s of each run (over the steps after TRAIN_WARMUP)."""
+    import torch
+
+    from instant_ngp_tpu_torch.determinism import digest
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    runs = {}
+    for tag, error_map in (("error map", True), ("error map, again", True),
+                           ("no error map", False)):
+        tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                         seed=SEED)
+        tb.use_error_map_sampling = error_map
+        tb.train(TRAIN_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tb.train(REPEAT_STEPS - TRAIN_WARMUP)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        runs[tag] = {"loss": loss, "psnr": tb.eval_psnr(0),
+                     "steps_per_s": (REPEAT_STEPS - TRAIN_WARMUP) / sec,
+                     "cdf_rebuilds": tb.host_syncs["error_cdfs"],
+                     "digest": digest(*nerf_state(tb))}
+        print(f"train[repeat]: {tag}: {REPEAT_STEPS} steps, loss {loss:.6f}"
+              f", PSNR of view 0 {runs[tag]['psnr']:.2f} dB, "
+              f"{runs[tag]['steps_per_s']:.2f} steps/s after "
+              f"{TRAIN_WARMUP}, {runs[tag]['cdf_rebuilds']} CDF rebuilds, "
+              f"state digest {runs[tag]['digest'][:16]} [{smi}]", flush=True)
+        del tb
+    first, second = runs["error map"], runs["error map, again"]
+    if first["cdf_rebuilds"] != 1 or runs["no error map"]["cdf_rebuilds"]:
+        raise RuntimeError(f"{REPEAT_STEPS} steps must rebuild the CDFs "
+                           f"once with the error map and never without")
+    if first["digest"] != second["digest"]:
+        raise RuntimeError("two runs from one seed part after the error "
+                           "CDFs' rebuild: a sum of the step is taken in "
+                           "an order that changes between runs")
+    return runs
+
+
+def sweep_paths(ds, dev, small, root):
+    """The five train paths of the determinism sweep, at base.json's
+    widths of each mode (`small`: tables of 2^14 entries a level and
+    batches of 2^14, for the card tests): {name: run}, where run() builds a
+    testbed from SEED, takes SWEEP_STEPS steps and returns the tensors of
+    its state. NeRF with the testbed's defaults (`ds` its scene); NeRF with
+    the exact encode, pose, focal and exposure optimisation (the gradient
+    on every step) and the distortion map; Image; Volume; SDF on a bumpy
+    sphere written to `root`."""
+    import torch
+
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+    from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+    from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
+    from instant_ngp_tpu_torch.sdf import SdfTestbed
+    from instant_ngp_tpu_torch.volume.testbed_volume import VolumeTestbed
+
+    cfgs = {m: load_network_config(find_network_config("base", m))
+            for m in ("nerf", "image", "volume", "sdf")}
+    batch = 1 << 14 if small else 1 << 18
+    if small:
+        for c in cfgs.values():
+            c["encoding"]["log2_hashmap_size"] = 14
+    mesh = os.path.join(root, "bumpy.obj")
+    bumpy_sphere_obj(mesh, 48 if small else 96)
+    image = procedural_image(256 if small else 1024, SEED)
+    cloud = procedural_cloud(64 if small else VOLUME_SIDE, SEED)
+
+    def nerf(camera):
+        tb = NerfTestbed(ds, cfgs["nerf"], device=dev,
+                         compute_dtype=torch.bfloat16, seed=SEED)
+        if small:
+            tb.target_batch_size, tb.rays_per_batch = batch, 1 << 10
+        if camera:
+            tb.stochastic_corners = False
+            tb.optimize_extrinsics = tb.optimize_focal_length = True
+            tb.optimize_exposure = tb.optimize_distortion = True
+            tb.cam_grad_interval = 1
+        tb.train(SWEEP_STEPS)
+        return nerf_state(tb)
+
+    def trainer(make):
+        tb = make()
+        tb.train(SWEEP_STEPS, batch)
+        return tree_leaves(tb.state)
+
+    return {
+        "NeRF, defaults": lambda: nerf(False),
+        "NeRF, exact, camera and distortion": lambda: nerf(True),
+        "Image": lambda: trainer(lambda: ImageTestbed(
+            image, cfgs["image"], seed=SEED, device=dev)),
+        "Volume": lambda: trainer(lambda: VolumeTestbed(
+            cloud, cfgs["volume"], seed=SEED, device=dev)),
+        "SDF": lambda: trainer(lambda: SdfTestbed(
+            mesh, cfgs["sdf"], seed=SEED, device=dev)),
+    }
+
+
+def determinism_sweep(ds, dev, smi, small=False):
+    """Phase 6c: each of the five train paths of `sweep_paths` once under
+    `torch.use_deterministic_algorithms(True, warn_only=True)` (with
+    CUBLAS_WORKSPACE_CONFIG set), collecting every op PyTorch warns about,
+    and twice with the mode off from one seed. Fails on a warned op outside
+    `determinism.ORDER_FREE` or on two runs whose states differ (which
+    also catches an op that the mode switches to a deterministic variant
+    without a warning) -> {path: {"warned", "outside", "repeats"}}."""
+    import shutil
+    import tempfile
+
+    from instant_ngp_tpu_torch.determinism import (ORDER_FREE, digest,
+                                                   warned_ops)
+
+    root = tempfile.mkdtemp(prefix="sweep_")
+    out = {}
+    try:
+        for name, run in sweep_paths(ds, dev, small, root).items():
+            _, ops = warned_ops(run)
+            repeats = digest(*run()) == digest(*run())
+            out[name] = {"warned": ops, "repeats": repeats, "outside": [
+                op for op in ops if op not in ORDER_FREE]}
+            print(f"determinism: {name}: {SWEEP_STEPS} steps warn of "
+                  f"{ops or 'no op'}; outside the allow-list "
+                  f"{out[name]['outside'] or 'none'}; two runs from one "
+                  f"seed {'equal' if repeats else 'DIFFER'} bit for bit "
+                  f"[{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root)
+    bad = {k: v for k, v in out.items() if v["outside"] or not v["repeats"]}
+    if bad:
+        raise RuntimeError(f"train paths that do not repeat: {bad}")
+    return out
 
 
 def train_curve(ds, cfg, dev, smi):
@@ -1563,44 +1758,59 @@ def mesh_and_flip(tb, smi, fused_mlp_forward, variants):
 
 def pose_recovery(cfg, dev, smi, interval):
     """Phase 8: training cameras moved by a seeded N(0, POSE_NOISE)
-    translation; POSE_STEPS steps with `optimize_extrinsics` -> the mean
-    distance of the cameras to the true ones before and after."""
+    translation and turned by an N(0, POSE_ROT_NOISE) rotation vector;
+    POSE_STEPS steps with `optimize_extrinsics`: the mean distance and
+    angle of the cameras to the true ones before and after."""
     import numpy as np
     import torch
 
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 
+    from instant_ngp_tpu_torch.ops.host_adam import rotvec_to_matrix
+
     ds = make_scene(size=POSE_SIZE)
     true_pos = ds.xforms_start[:, :3, 3].copy()
-    shift = np.random.default_rng(SEED + 8).normal(
-        0.0, POSE_NOISE, true_pos.shape).astype(np.float32)
+    true_rot = ds.xforms_start[:, :3, :3].copy()
+    rng = np.random.default_rng(SEED + 8)
+    shift = rng.normal(0.0, POSE_NOISE, true_pos.shape).astype(np.float32)
+    turn = rng.normal(0.0, POSE_ROT_NOISE, true_pos.shape)
     ds.xforms_start = ds.xforms_start.copy()
     ds.xforms_start[:, :3, 3] += shift
+    for i, r in enumerate(turn):
+        ds.xforms_start[i, :3, :3] = rotvec_to_matrix(r) @ true_rot[i]
     ds.xforms_end = ds.xforms_start.copy()
     tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
                      seed=SEED)
     tb.optimize_extrinsics = True
     tb.cam_grad_interval = interval
 
-    def distance():
-        pos = np.stack([tb.effective_xform(i)[:3, 3]
-                        for i in range(ds.n_images)])
-        return float(np.linalg.norm(pos - true_pos, axis=-1).mean())
+    def pose_error():
+        """(mean distance, mean angle in degrees) of the cameras to the
+        true ones."""
+        xf = np.stack([tb.effective_xform(i) for i in range(ds.n_images)])
+        dist = np.linalg.norm(xf[:, :, 3] - true_pos, axis=-1).mean()
+        rel = np.einsum("nij,nkj->nik", xf[:, :, :3], true_rot)
+        cos = (np.trace(rel, axis1=1, axis2=2) - 1.0) / 2.0
+        return float(dist), float(np.degrees(
+            np.arccos(np.clip(cos, -1.0, 1.0))).mean())
 
-    before = distance()
+    before = pose_error()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tb.train(POSE_STEPS)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    after = distance()
+    after = pose_error()
     updates = POSE_STEPS // tb.n_steps_between_cam_updates
     print(f"pose recovery: {ds.n_images} cameras of {POSE_SIZE}x{POSE_SIZE} "
-          f"moved by N(0, {POSE_NOISE}); {POSE_STEPS} steps with "
+          f"moved by N(0, {POSE_NOISE}) and turned by N(0, "
+          f"{POSE_ROT_NOISE}) rad; {POSE_STEPS} steps with "
           f"optimize_extrinsics, camera gradient on one step per "
           f"{tb._cam_grad_interval_eff()}, in {sec:.2f} s: mean distance "
-          f"to the true cameras {before:.5f} -> {after:.5f}; largest "
-          f"offset {np.abs(tb.cam_pos_offset).max():.5f}; PSNR of view 0 "
+          f"to the true cameras {before[0]:.5f} -> {after[0]:.5f}, mean "
+          f"angle {before[1]:.4f} -> {after[1]:.4f} degrees; largest "
+          f"offsets {np.abs(tb.cam_pos_offset).max():.5f}, "
+          f"{np.abs(tb.cam_rot_offset).max():.5f} rad; PSNR of view 0 "
           f"{tb.eval_psnr(0):.2f} dB; host reads {tb.host_syncs} [{smi}]",
           flush=True)
     if tb.host_syncs != {"camera_updates": updates,
@@ -1608,8 +1818,8 @@ def pose_recovery(cfg, dev, smi, interval):
         raise RuntimeError(f"the host-side updates read the device "
                            f"{tb.host_syncs}, not once per 16 and per 128 "
                            f"steps")
-    if not after < before:
-        raise RuntimeError("the pose error did not fall")
+    if not after[0] < before[0]:
+        raise RuntimeError("the cameras' distance did not fall")
 
 
 def profile_training(tb, smi, out_path):
@@ -2236,6 +2446,7 @@ def sdf_config(name, cfg, path, dev, smi, fused_mlp_forward, variant,
           f") built in {setup_s:.1f} s; encoding {n_params} parameters, MLP "
           f"{widths}", flush=True)
     counts = {"train": 0, "render": 0, "iou": 0}
+    paths_before = dict(fused_mlp_forward.launches_by_input_path)
     for attr, kind in (("train_step_on", "train"), ("render_frame", "render"),
                        ("calculate_iou", "iou")):
         setattr(tb, attr, counting_launches(fused_mlp_forward, counts, kind,
@@ -2350,6 +2561,15 @@ def sdf_config(name, cfg, path, dev, smi, fused_mlp_forward, variant,
     if counts["train"] != 0 or counts["iou"] == 0:
         raise RuntimeError(f"the {name} SDF path must launch the kernel "
                            f"from renders and IoU alone: {counts}")
+    by_path = {k: v - paths_before.get(k, 0) for k, v in
+               fused_mlp_forward.launches_by_input_path.items()
+               if v != paths_before.get(k, 0)}
+    print(f"sdf {name}: mma launches by input path {by_path} (MLP input "
+          f"{widths[0]} wide)", flush=True)
+    if set(by_path) != {"ring"}:
+        raise RuntimeError(f"the {name} SDF net's launches must all take "
+                           f"the input ring: {by_path}")
+    result["launches_by_input_path"] = by_path
     for attr in ("train_step_on", "render_frame", "calculate_iou"):
         delattr(tb, attr)
     if profile:
@@ -2475,6 +2695,74 @@ def check_mode_shape(name, x_all, w, act, out_act, smi):
             "ms": ms, "general_ms": general_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms}
+
+
+def narrow_input_paths(name, x_all, w, smi):
+    """Phase 3 for a net whose input is narrower than its padded width
+    (the Takikawa net's 24 of 32): the input path that both mma_input_path
+    and the library name for an aligned f32 and bf16 x (the ring, by a
+    tensor copy) and for an x 4 bytes off its alignment (per-row loads),
+    each held against the plain version at RING_ROWS rows; then the bf16
+    ring and the per-row path timed at N_ROWS -> numbers for the shape's
+    row of the kernel table."""
+    import ctypes
+
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels._build import load_library
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        RING, ROWS, fused_mlp_forward, fused_mlp_forward_plain,
+        mma_input_path, mma_shape)
+
+    lib = load_library()
+    in_p = mma_shape(w.dims)[0]
+    d_in = w.dims[0]
+    xb_all = x_all.to(torch.bfloat16)
+    shifted_all = torch.empty(x_all.numel() + 1,
+                              device=x_all.device)[1:].view_as(x_all)
+    shifted_all.copy_(x_all)
+    cases = {"f32": (x_all, RING), "bf16": (xb_all, RING),
+             "f32, 4 bytes off": (shifted_all, ROWS)}
+    out = {}
+    for tag, (x, want) in cases.items():
+        aligned = x.data_ptr() % 16 == 0
+        path = mma_input_path(d_in, in_p, x.element_size(), aligned)
+        c_path = RING if lib.fused_mlp_mma_input_path(
+            d_in, in_p, x.element_size(), int(aligned)) else ROWS
+        if not path == c_path == want:
+            raise RuntimeError(f"{name} {tag}: input path {path} (library "
+                               f"{c_path}), not {want}")
+        worst = 0.0
+        for n in RING_ROWS:
+            before = dict(fused_mlp_forward.launches_by_input_path)
+            got = fused_mlp_forward(x[:n], w)
+            if fused_mlp_forward.launches_by_input_path.get(path, 0) \
+                    != before.get(path, 0) + 1:
+                raise RuntimeError(f"{name} {tag} x {n} did not launch "
+                                   f"through the {path} path")
+            max_abs, _ = check_kernel(got, fused_mlp_forward_plain(
+                x[:n], w.layers), f"{name} {tag} x {n} ({path})")
+            worst = max(worst, max_abs)
+        out[tag] = {"input_path": path, "max_abs_err": worst}
+    x, xb, shifted = x_all[:N_ROWS], xb_all[:N_ROWS], shifted_all[:N_ROWS]
+    # in turns: ring f32, ring bf16, rows, rows, ring bf16, ring f32
+    ms = {k: [] for k in cases}
+    for tag, xt in (("f32", x), ("bf16", xb), ("f32, 4 bytes off", shifted),
+                    ("f32, 4 bytes off", shifted), ("bf16", xb),
+                    ("f32", x)):
+        ms[tag].append(cuda_ms(lambda: fused_mlp_forward(xt, w)))
+    for tag in cases:
+        bytes_per_value = 2 if tag == "bf16" else 4
+        out[tag].update(ms=min(ms[tag]), bound_ms=mlp_bound_ms(
+            N_ROWS, w.dims, bytes_per_value)[0])
+        out[tag]["share_of_bound"] = out[tag]["bound_ms"] / out[tag]["ms"]
+    print(f"kernel {name} input paths at {RING_ROWS} rows: " + "; ".join(
+        f"{tag} -> {r['input_path']} (max abs {r['max_abs_err']:.3g}), "
+        f"{r['ms']:.4f} ms at {N_ROWS} rows, bound {r['bound_ms']:.4f} ms, "
+        f"{100 * r['share_of_bound']:.1f} %" for tag, r in out.items())
+        + f" [{smi}]", flush=True)
+    del xb_all, shifted_all
+    return out
 
 
 def bf16_chain(x, layers, out_act="None"):
@@ -2943,14 +3231,18 @@ def deposit_ab(cfg, image_cfg, dev, smi):
     and of an Image step, then 16 NeRF train steps with the defaults and
     16 exact ones (base.json, batch 2^18, after 32 steps of warm-up, the
     density updates left out), then 16 Image steps of each encode
-    (configs/image/base.json on phase 10's image, batch 2^18)."""
+    (configs/image/base.json on phase 10's image, batch 2^18). The error
+    map's deposit the same way: alone, at the default step's rays and
+    map, and in 16 default steps."""
     import torch
 
     from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
+    from instant_ngp_tpu_torch.nerf import training
+    from instant_ngp_tpu_torch.nerf.sampler import RayBatch
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
     from instant_ngp_tpu_torch.ops import grid_encoding
 
-    put = grid_encoding._deposit
+    put = grid_encoding.ordered_deposit
 
     def add(grad, rows, values):
         grad.index_add_(0, rows, values)
@@ -2958,9 +3250,11 @@ def deposit_ab(cfg, image_cfg, dev, smi):
     variants = {"index_put_": put, "index_add_": add}
     results = {}
 
-    def ab(name, fn, n):
+    def ab(name, fn, n, module=grid_encoding):
+        """`module`'s deposit swapped in turns: the table gradient's
+        (grid_encoding) or the error map's (training)."""
         for v in ("index_put_", "index_add_", "index_add_", "index_put_"):
-            grid_encoding._deposit = variants[v]
+            module.ordered_deposit = variants[v]
             fn()                                   # one untimed call
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2969,7 +3263,7 @@ def deposit_ab(cfg, image_cfg, dev, smi):
             torch.cuda.synchronize()
             results.setdefault(name, {}).setdefault(v, []).append(
                 1e3 * (time.perf_counter() - t0) / n)
-        grid_encoding._deposit = put
+        module.ordered_deposit = put
         r = results[name]
         print(f"deposit A/B: {name}: index_put_ "
               f"{statistics.mean(r['index_put_']):.3f} ms, index_add_ "
@@ -3004,6 +3298,21 @@ def deposit_ab(cfg, image_cfg, dev, smi):
                e._table_gradient_stochastic(x, g, None, d, j), 16)
     nerf.train(32)
     ab("NeRF train step, defaults", nerf.train_step, 16)
+    # the error map's deposit alone at this step's rays and map, then in
+    # the step with the table gradient left sorted
+    n_rays = nerf.rays_per_batch
+    cw, ch = nerf._error_map_res
+    rays = RayBatch(None, None, None, None,
+                    img_idx=torch.randint(0, ds.n_images, (n_rays,),
+                                          device=dev, generator=gen),
+                    uv=torch.rand(n_rays, 2, device=dev, generator=gen))
+    loss = torch.rand(n_rays, device=dev, generator=gen)
+    ab(f"NeRF error-map deposit ({n_rays} rays, {cw}x{ch} cells x "
+       f"{ds.n_images} images)",
+       lambda: training.error_map_delta(nerf._error_map, rays, loss,
+                                        (cw, ch)), 64, training)
+    ab("NeRF train step, defaults, error map's deposit alone swapped",
+       nerf.train_step, 16, training)
     nerf.stochastic_corners = False
     ab("NeRF train step, exact encode", nerf.train_step, 16)
     img.train(8, IMAGE_BATCH)
@@ -3016,16 +3325,6 @@ def deposit_ab(cfg, image_cfg, dev, smi):
 
 
 # -- phase 17: data- and level-parallel NeRF ---------------------------------
-def _digest(*tensors):
-    """sha256 of the tensors' bytes, in order (on the host)."""
-    import hashlib
-
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 def _rank_testbed(ds, cfg, mesh):
     """A base.json testbed at full width (bf16 compute, weights from SEED)
     on this rank's card; on `mesh` where one is given."""
@@ -3148,6 +3447,7 @@ def pair_loop_job(ds, cfg, n_steps):
     each step, and this rank's first rays."""
     import torch
 
+    from instant_ngp_tpu_torch.determinism import digest
     from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
     from instant_ngp_tpu_torch.parallel.mesh import Mesh
 
@@ -3164,12 +3464,12 @@ def pair_loop_job(ds, cfg, n_steps):
     return {"ms": ms, "loss": loss, "first_uv": first_uv,
             "measured": tb.measured_batch_size,
             "digests": {
-                "params": _digest(*tree_leaves(tb.model.param_tree())),
-                "opt": _digest(*tree_leaves(
+                "params": digest(*tree_leaves(tb.model.param_tree())),
+                "opt": digest(*tree_leaves(
                     [tb.opt_state[k] for k in ("step", "m", "v", "ema")])),
-                "density_grid": _digest(tb.density_grid),
-                "bitfield": _digest(tb.bitfield),
-                "error_map": _digest(tb._error_map)}}
+                "density_grid": digest(tb.density_grid),
+                "bitfield": digest(tb.bitfield),
+                "error_map": digest(tb._error_map)}}
 
 
 def pair_tp_job(ds, cfg, n_rays, max_k):
@@ -3655,7 +3955,7 @@ def main():
         # the nets of Volume and SDF mode (phases 13, 14): 32-64-64-4
         # ReLU/ReLU on its own instantiation, 32-64-64-1 and the Takikawa
         # net's 24-64-64-1 on the 32x64x8 ReLU/None one (24 inputs: the
-        # per-row loads of an input narrower than its padded width)
+        # ring by a tensor copy that zero-fills the padded columns)
         for name, dims, out_act in (("volume", [32, 64, 64, 4], "ReLU"),
                                     ("sdf", [32, 64, 64, 1], "None"),
                                     ("takikawa", [24, 64, 64, 1], "None")):
@@ -3663,9 +3963,13 @@ def main():
                 -np.sqrt(6.0 / (i + o)), np.sqrt(6.0 / (i + o)), (i, o))
                 .astype(np.float32)).to(dev)
                 for i, o in zip(dims[:-1], dims[1:])]
-            shapes[name] = check_mode_shape(
-                name, feats[:, :dims[0]].contiguous(), pack_weights(ws),
-                "ReLU", out_act, smi)
+            x_mode = feats[:, :dims[0]].contiguous()
+            shapes[name] = check_mode_shape(name, x_mode, pack_weights(ws),
+                                            "ReLU", out_act, smi)
+            if dims[0] < 32:
+                shapes[name]["input_paths"] = narrow_input_paths(
+                    name, x_mode, pack_weights(ws), smi)
+            del x_mode
         del feats, rgb_in, path_shapes, x, x_all, ref, latent_net, codes
         # the nets whose weights do not fit in shared memory at once:
         # configs/nerf/frequency.json's and none.json's, configs/sdf/
@@ -3768,6 +4072,11 @@ def main():
         ds, cfg, dev, smi, fused_mlp_forward, "default")
     exact_tb, _, _ = train_on_card(ds, cfg, dev, smi, fused_mlp_forward,
                                    "exact")
+    t_new = time.perf_counter()
+    repeat = repeatable_training(ds, cfg, dev, smi)
+    sweep = determinism_sweep(ds, dev, smi)
+    print(f"phases 6b-6c (repeat, determinism sweep): "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     launches_train = sum(by_variant_train.values())
     check_variants(by_variant_phase6, main_variants, "the training path")
     train_aabb4(ds, cfg, dev, smi)
@@ -3942,6 +4251,9 @@ def main():
         "shapes": shapes,
         "mesh_path": mesh_path,
         "geometry_path": geometry_path,
+        # phases 6b-6c: what the kernel's path trains repeats bit for bit
+        "train_repeat": repeat,
+        "determinism_sweep": sweep,
         "sharded_path": sharded_path,
         "config_nets": config_nets,
         "other_shapes": other,

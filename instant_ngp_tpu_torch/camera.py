@@ -18,9 +18,18 @@ distortion map and the camera through it.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+class LensParams(NamedTuple):
+    """A lens: `mode` one of the LENS_* ids (0 Perspective, 1 OpenCV, 2
+    FTheta, 3 LatLong, 4 OpenCVFisheye, 5 Equirectangular) and its
+    `params` (7,)."""
+
+    mode: int
+    params: torch.Tensor
+
 
 LENS_PERSPECTIVE = 0
 LENS_OPENCV = 1

@@ -1,7 +1,7 @@
 """Shared enums (modes, losses, activations, colour spaces, tonemap curves,
 render and ground-truth modes, SDF modes, lenses), the NeRF grid and
-cone-stepping constants, the host-side `BoundingBox` and the sRGB transfer
-functions on numpy.
+cone-stepping constants, the host-side `Ray` and `BoundingBox`, the sRGB
+transfer functions on numpy, and `next_multiple` and `powi`.
 
 Counterpart of instant_ngp_tpu/common.py; values and names are kept so
 configs and snapshots written by either package read the same.
@@ -63,6 +63,8 @@ class RenderMode(enum.Enum):
     Normals = "Normals"
     Positions = "Positions"
     Depth = "Depth"
+    Distance = "Distance"
+    Stepsize = "Stepsize"
     Distortion = "Distortion"
     Cost = "Cost"
     Slice = "Slice"
@@ -110,6 +112,17 @@ NERF_MIN_OPTICAL_THICKNESS = 0.01      # density threshold for the bitfield
 
 # the constant loss scale of mixed-precision training
 DEFAULT_LOSS_SCALE = 128.0
+
+
+@dataclass
+class Ray:
+    """A ray with origin o and direction d (host side)."""
+
+    o: np.ndarray
+    d: np.ndarray
+
+    def at(self, t: float) -> np.ndarray:
+        return self.o + t * self.d
 
 
 @dataclass
@@ -165,3 +178,11 @@ def linear_to_srgb(x):
     x = np.asarray(x)
     return np.where(x <= 0.0031308, 12.92 * x,
                     1.055 * np.maximum(x, 1e-12) ** (1.0 / 2.4) - 0.055)
+
+
+def next_multiple(value: int, divisor: int) -> int:
+    return ((value + divisor - 1) // divisor) * divisor
+
+
+def powi(base: float, exp: int) -> float:
+    return float(base) ** int(exp)

@@ -29,16 +29,30 @@
 //     16-byte load per lane brings two fragments, used for every 16-row
 //     group the warp owns;
 //   - x is contiguous, so a 128-row tile is one run of bytes: one elected
-//     thread fetches it with cp.async.bulk into a ring of shared-memory
-//     stages, one mbarrier per stage, 1-3 tiles ahead of the arithmetic.
-//     A stage is released as soon as its rows sit in registers. Where x
-//     is not 16-byte aligned or narrower than its padded width, each warp
-//     loads its own rows with plain coalesced loads instead;
+//     thread fetches it into a ring of shared-memory stages, one mbarrier
+//     per stage, 1-3 tiles ahead of the arithmetic, and a stage is
+//     released as soon as its rows sit in registers. Rows of the padded
+//     width come by one cp.async.bulk of the run. Narrower rows (the
+//     Takikawa net's 24 inputs, padded to 32) come by one tiled tensor
+//     copy, cp.async.bulk.tensor.2d, over a map of x as (n_rows, d_in)
+//     with a box of (128, IN_P): the copy engine zero-fills the columns
+//     from d_in to IN_P and the rows past n_rows, so the stage holds the
+//     same padded rows as a full-width one and the loaders, the first
+//     layer's packing and their bank pattern stay as they are. (A plain
+//     bulk copy of the unpadded run would leave the loaders to read at
+//     stride d_in and zero the missing columns per lane, and move the
+//     odd-row swap that keeps their reads off each other's banks.) The
+//     map is encoded on the host per launch through the driver entry
+//     point, so the library links no libcuda. Only where neither copy is
+//     legal (x not 16-byte aligned, or a row of d_in values not a
+//     multiple of 16 bytes: `mma_input_path`) does each warp load its own
+//     rows with plain coalesced loads;
 //   - full-width outputs are stored from the accumulators (8 bytes a lane,
 //     whole 32-byte sectors); narrow ones (RGB's 3 floats a row) are
 //     gathered in shared memory and written as the warp's contiguous run;
 //   - the grid is the resident blocks, each staging the weights once.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -112,6 +126,18 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The box at column 0, row `row0` of the tensor map's x into shared memory
+// at `dst`; elements outside x arrive as zeros and count towards the
+// barrier's bytes like the rest of the box.
+__device__ __forceinline__ void tensor_load(uint32_t dst, const CUtensorMap* map,
+                                            int row0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row0), "r"(bar)
       : "memory");
 }
 
@@ -250,12 +276,18 @@ __device__ __forceinline__ void load_rows_bf16(const __nv_bfloat16* rows,
     }
 }
 
+// How the input tiles reach shared memory (the launch picks one):
+// per-row loads by each warp, one bulk copy of whole padded rows, or one
+// tensor copy of narrower rows through `x_map`.
+enum InputPath { kRows = 0, kBulk = 1, kTensor = 2 };
+
 // One block walks over 128-row tiles; a warp owns 16 * MT of a tile's rows.
 // Dynamic shared memory: [n_stages input stages][output gather, only where
 // d_out < OUT_P][weights][2 * kMaxStages mbarriers].
 template <int IN_P, int HID, int OUT_P, int HACT, int OACT, int MT>
 __global__ void __launch_bounds__(kTileRows / (16 * MT) * 32, MT == 2 ? 4 : 1)
-fused_mlp_mma_kernel(const void* __restrict__ x, int x_is_bf16, int use_bulk,
+fused_mlp_mma_kernel(const void* __restrict__ x, int x_is_bf16, int input_path,
+                     const __grid_constant__ CUtensorMap x_map,
                      const __nv_bfloat16* __restrict__ w, int w_elems,
                      float* __restrict__ out, int n_rows, int d_in, int d_out,
                      int n_layers, int n_stages) {
@@ -280,7 +312,8 @@ fused_mlp_mma_kernel(const void* __restrict__ x, int x_is_bf16, int use_bulk,
     int4* dst = reinterpret_cast<int4*>(w_s);
     for (int i = threadIdx.x; i < w_elems / 8; i += blockDim.x) dst[i] = src[i];
   }
-  if (use_bulk && threadIdx.x == 0) {
+  const bool ring = input_path != kRows;
+  if (ring && threadIdx.x == 0) {
     for (int s = 0; s < n_stages; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kWarps);
@@ -309,17 +342,22 @@ fused_mlp_mma_kernel(const void* __restrict__ x, int x_is_bf16, int use_bulk,
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     const long long row0 =
         (long long)(blockIdx.x + (long long)p_next * gridDim.x) * kTileRows;
-    const long long left = n_rows - row0;
-    const uint32_t bytes =
-        uint32_t((left < kTileRows ? left : kTileRows) * row_bytes);
-    mbar_expect_tx(full0 + 8 * p_stage, bytes);
-    bulk_load(smem_addr(stages + p_stage * kStageBytes), xb + row0 * row_bytes,
-              bytes, full0 + 8 * p_stage);
+    const uint32_t dst = smem_addr(stages + p_stage * kStageBytes);
+    if (input_path == kTensor) {
+      mbar_expect_tx(full0 + 8 * p_stage, uint32_t(kTileRows * row_bytes));
+      tensor_load(dst, &x_map, int(row0), full0 + 8 * p_stage);
+    } else {
+      const long long left = n_rows - row0;
+      const uint32_t bytes =
+          uint32_t((left < kTileRows ? left : kTileRows) * row_bytes);
+      mbar_expect_tx(full0 + 8 * p_stage, bytes);
+      bulk_load(dst, xb + row0 * row_bytes, bytes, full0 + 8 * p_stage);
+    }
     ++p_next;
     if (++p_stage == n_stages) { p_stage = 0; ++p_wraps; }
   };
 
-  if (use_bulk && threadIdx.x == 0)
+  if (ring && threadIdx.x == 0)
     while (p_next < n_stages - 1 && p_next < n_mine) fetch();
 
   for (int it = 0; it < n_mine; ++it) {
@@ -328,7 +366,7 @@ fused_mlp_mma_kernel(const void* __restrict__ x, int x_is_bf16, int use_bulk,
         warp * kWarpRows;
     uint32_t a_in[MT][KS_IN][4];
 
-    if (use_bulk) {
+    if (ring) {
       if (threadIdx.x == 0 && p_next < n_mine) fetch();
       __syncwarp();
       mbar_wait(full0 + 8 * c_stage, c_parity);
@@ -515,7 +553,76 @@ cudaError_t resident_blocks(const Variant& v, size_t smem, int* grid) {
   return cudaSuccess;
 }
 
+// The ring takes every x whose 128-row tile one copy can fetch: x 16-byte
+// aligned and a row of d_in values a multiple of 16 bytes (the bulk copy's
+// size unit and the tensor map's row stride). Mirrored by mma_input_path in
+// ops/kernels/mlp_kernels.py.
+bool takes_ring(int d_in, int in_p, int elem_bytes, bool aligned) {
+  return aligned && d_in <= in_p && (d_in * elem_bytes) % 16 == 0;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, looked up
+// once per process.
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::once_flag once;
+  static EncodeTiled found = nullptr;
+  static cudaError_t status = cudaSuccess;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    status = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                              12000, cudaEnableDefault, &q);
+#else
+    status = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                     cudaEnableDefault, &q);
+#endif
+    if (status == cudaSuccess && (q != cudaDriverEntryPointSuccess || !p))
+      status = cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  });
+  *fn = found;
+  return status;
+}
+
+// The map of x as (n_rows, d_in) row-major values whose box is (128, in_p):
+// one stage of the ring, the columns past d_in and rows past n_rows filled
+// with zeros.
+cudaError_t input_map(const void* x, int x_is_bf16, int n_rows, int d_in,
+                      int in_p, CUtensorMap* map) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t elem = x_is_bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {cuuint64_t(d_in), cuuint64_t(n_rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(d_in) * elem};
+  const cuuint32_t box[2] = {cuuint32_t(in_p), cuuint32_t(kTileRows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, x_is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(x), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// 1 where an x of rows of `d_in` values of `elem_bytes` each, padded to
+// `in_p`, 16-byte `aligned` or not, is fetched through the input ring,
+// 0 where each warp loads its own rows.
+extern "C" int fused_mlp_mma_input_path(int d_in, int in_p, int elem_bytes,
+                                        int aligned) {
+  return takes_ring(d_in, in_p, elem_bytes, aligned != 0);
+}
 
 // 1 where (dims, activations) has an instantiation here, else 0.
 extern "C" int fused_mlp_mma_has_variant(int n_layers, const int* dims,
@@ -541,9 +648,13 @@ extern "C" int fused_mlp_mma_launch(const void* x, int x_is_bf16, const void* w,
                                v->hid * v->out_p;
   if (expect != w_elems) return cudaErrorInvalidValue;
 
-  // the bulk copy needs 16-byte aligned runs of whole padded rows
-  int use_bulk = d_in == v->in_p && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (!use_bulk) n_stages = 1;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  int input_path = kRows;
+  CUtensorMap x_map = {};
+  if (takes_ring(d_in, v->in_p, x_is_bf16 ? 2 : 4, aligned))
+    input_path = d_in == v->in_p ? kBulk : kTensor;
+  else
+    n_stages = 1;
   const size_t smem = size_t(n_stages) * kTileRows * v->in_p * 4 +
                       (d_out == v->out_p ? 0 : kTileRows * v->out_p * 4) +
                       size_t(w_elems) * 2 + 2 * kMaxStages * 8;
@@ -554,11 +665,16 @@ extern "C" int fused_mlp_mma_launch(const void* x, int x_is_bf16, const void* w,
   const int n_tiles = (n_rows + kTileRows - 1) / kTileRows;
   const int grid = n_tiles < resident ? n_tiles : resident;
   if (grid == 0) return cudaSuccess;
+  if (input_path == kTensor) {
+    err = input_map(x, x_is_bf16, n_rows, d_in, v->in_p, &x_map);
+    if (err != cudaSuccess) return err;
+  }
 
   const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
   float* op = static_cast<float*>(out);
-  void* args[] = {&x,      &x_is_bf16, &use_bulk, &wp,       &w_elems, &op,
-                  &n_rows, &d_in,      &d_out,    &n_layers, &n_stages};
+  void* args[] = {&x,     &x_is_bf16, &input_path, &x_map,    &wp,
+                  &w_elems, &op,      &n_rows,     &d_in,     &d_out,
+                  &n_layers, &n_stages};
   return int(cudaLaunchKernel(v->fn, dim3(grid), dim3(v->threads), args, smem,
                               static_cast<cudaStream_t>(stream)));
 }

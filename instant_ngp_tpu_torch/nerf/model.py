@@ -8,7 +8,7 @@
   direction features) -> RGB MLP -> 3 raw outputs.
 
 Outputs are pre-activation; `network_to_rgb` / `network_to_density` apply
-the activations. Parameters load from the JAX layout
+the activations (`NerfActivations` names the pair). Parameters load from the JAX layout
 {"pos_encoding", "density_net", "dir_encoding", "rgb_net"}, and
 `param_tree` hands the module's own parameter tensors out in that layout:
 the optimizer updates them in place, and a second network of the same
@@ -25,6 +25,7 @@ and density updates; no gradient reaches the positions then).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -143,6 +144,15 @@ class NerfNetwork(nn.Module):
                            dim=-1)
         rgb = self.rgb_net(rgb_in)
         return torch.cat([rgb, density_out[:, :1]], dim=-1)
+
+
+@dataclasses.dataclass
+class NerfActivations:
+    """The RGB and density output activations (Exponential RGB where the
+    dataset is HDR)."""
+
+    rgb: str = "Logistic"
+    density: str = "Exponential"
 
 
 def network_to_rgb(raw: torch.Tensor, activation: str) -> torch.Tensor:

@@ -32,7 +32,10 @@
 - Error map (`cfg.use_error_map` with `error_map`): every ray's loss is
   deposited bilinearly at its pixel into a coarse per-image map ("error_map"
   in the stats), from which the testbed rebuilds the CDFs that
-  `sample_rays` follows.
+  `sample_rays` follows. The deposit is summed like the hash table's
+  gradient (`ops/grid_encoding.py::ordered_deposit`), in an order the
+  cells fix, as JAX's `.at[].add` is: atomic adds would change the map's
+  bits, and with them every later CDF, from run to run.
 
 - Depth supervision (`cfg.depth_supervision_lambda` with depth images in
   the data): the composited depth of each ray against the depth image's
@@ -68,7 +71,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import NERF_MIN_OPTICAL_THICKNESS
-from ..ops.grid_encoding import CornerDraws
+from ..ops.grid_encoding import CornerDraws, ordered_deposit
 from ..ops.losses import LossType, loss_and_gradient
 from ..ops.optimizers import Optimizer, tree_leaves, tree_map
 from ..ops.trainable_buffer import read_envmap
@@ -249,7 +252,10 @@ def deposit_error_map(error_map: torch.Tensor, rays: RayBatch,
 def error_map_delta(error_map: torch.Tensor, rays: RayBatch,
                     per_ray_loss: torch.Tensor, res: Tuple[int, int]
                     ) -> torch.Tensor:
-    """What `deposit_error_map` adds, flat (n_images * H_c * W_c,)."""
+    """What `deposit_error_map` adds, flat (n_images * H_c * W_c,): the
+    four corners' deposits in one sum whose order the cells alone fix
+    (`ordered_deposit`), so that a run repeats past the CDF rebuilds that
+    read the map."""
     cw, ch = res
     scale = torch.tensor([cw, ch], dtype=torch.float32,
                          device=error_map.device)
@@ -258,14 +264,16 @@ def error_map_delta(error_map: torch.Tensor, rays: RayBatch,
     p0 = pos.to(torch.int32).long()
     w = pos - p0
     flat_img = rays.img_idx * (cw * ch)
-    delta = torch.zeros(error_map.numel(), dtype=error_map.dtype,
-                        device=error_map.device)
+    cells, values = [], []
     for dx, dy, weight in ((0, 0, (1 - w[:, 0]) * (1 - w[:, 1])),
                            (1, 0, w[:, 0] * (1 - w[:, 1])),
                            (0, 1, (1 - w[:, 0]) * w[:, 1]),
                            (1, 1, w[:, 0] * w[:, 1])):
-        idx = flat_img + (p0[:, 1] + dy) * cw + (p0[:, 0] + dx)
-        delta.index_add_(0, idx, weight * per_ray_loss)
+        cells.append(flat_img + (p0[:, 1] + dy) * cw + (p0[:, 0] + dx))
+        values.append(weight * per_ray_loss)
+    delta = torch.zeros(error_map.numel(), dtype=error_map.dtype,
+                        device=error_map.device)
+    ordered_deposit(delta, torch.cat(cells), torch.cat(values))
     return delta
 
 

@@ -19,13 +19,15 @@ of old snapshots into it.
 Under autograd (grad mode on and the table requires grad) the forward
 runs inside `_GridEncode`, which saves x alone; its backward recomputes
 each level's indices and d-linear weights and deposits grad * weight into
-the table gradient, one level at a time, with `index_put_(...,
-accumulate=True)`. On a CUDA device that sorts the level's indices and adds
-each entry's deposits in one fixed sequence, so the gradient has the same
-bits in every run (`index_add_` adds by atomics there, in an order that
-changes between runs, and Adam's eps of 1e-15 turns the differences of
-near-zero sums into full-size steps; data-parallel replicas stay
-identical only if the arithmetic each repeats is deterministic).
+the table gradient, one level at a time, with `ordered_deposit`: on a
+CUDA device `index_put_(..., accumulate=True)`, which sorts the level's
+indices and adds each entry's deposits in one fixed sequence, and on the
+CPU `index_add_`, which adds serially in index order. So the gradient has
+the same bits in every run (`index_add_` adds by atomics on the card, and
+`index_put_` from several threads on the CPU, in orders that change
+between runs, and Adam's eps of 1e-15 turns the differences of near-zero
+sums into full-size steps; data-parallel replicas stay identical only if
+the arithmetic each repeats is deterministic).
 Autograd through `table[idx]` would instead keep every level's gather
 alive. Where x requires grad (camera optimisation), the backward
 also returns the hand-derived gradient with respect to x: per corner, the
@@ -72,11 +74,17 @@ _PRIMES = (1, 2654435761, 805459861)
 _U32_MASK = 0xFFFFFFFF
 
 
-def _deposit(grad: torch.Tensor, rows: torch.Tensor,
-             values: torch.Tensor) -> None:
+def ordered_deposit(grad: torch.Tensor, rows: torch.Tensor,
+                    values: torch.Tensor) -> None:
     """grad[rows] += values (rows may repeat), summed in an order that the
-    rows alone fix (see the module docstring)."""
-    grad.index_put_((rows,), values, accumulate=True)
+    rows alone fix (see the module docstring): on a CUDA device by
+    `index_put_` with accumulate, which sorts; on the CPU by `index_add_`,
+    which adds in the order of `rows` (`index_put_` adds there from several
+    threads at once)."""
+    if grad.device.type == "cpu":
+        grad.index_add_(0, rows, values)
+    else:
+        grad.index_put_((rows,), values, accumulate=True)
 
 
 def grid_scale(level: int, log2_per_level_scale: float,
@@ -215,6 +223,36 @@ class GridEncoding(nn.Module):
     def n_params(self) -> int:
         return self.params.numel()
 
+    def level_params(self, params, level: int):
+        """The (size_l, F) slice of one level of a flat interleaved table
+        (a tensor or a numpy array)."""
+        f = self.n_features_per_level
+        _, _, size, offset, _ = self.levels[level]
+        return params[offset * f:(offset + size) * f].reshape(size, f)
+
+    def level_stats(self, params=None) -> List[Dict[str, float]]:
+        """Per level of `params` (by default the module's own table): min,
+        max, mean, sigma, the fraction of zeros and the count of values
+        (the reference's LevelStats diagnostic)."""
+        if params is None:
+            params = self.params
+        if isinstance(params, torch.Tensor):
+            params = params.detach().cpu().numpy()
+        stats = []
+        for lvl in range(self.n_levels):
+            t = np.asarray(self.level_params(params, lvl)).ravel()
+            n = t.size
+            stats.append({
+                "min": float(t.min()) if n else 0.0,
+                "max": float(t.max()) if n else 0.0,
+                "mean": float(t.mean()) if n else 0.0,
+                "sigma": float(t.std()) if n else 0.0,
+                "fraczero": float(1.0 - np.count_nonzero(t) / n)
+                if n else 0.0,
+                "count": int(n),
+            })
+        return stats
+
     def init_params(self, generator: torch.Generator) -> None:
         """U(-1e-4, 1e-4), the tcnn grid default, drawn from `generator`."""
         p = torch.rand(self.n_params, generator=generator) * 2e-4 - 1e-4
@@ -304,7 +342,8 @@ class GridEncoding(nn.Module):
             idx, weight = self._level_corners(x, lvl)
             g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]     # (N, F)
             deposit = g[:, None, :] * weight[..., None]          # (N, C, F)
-            _deposit(grad, idx.reshape(-1), deposit.reshape(-1, n_feat))
+            ordered_deposit(grad, idx.reshape(-1),
+                            deposit.reshape(-1, n_feat))
         return grad.view(-1)
 
     def _input_gradient(self, params: torch.Tensor, x: torch.Tensor,
@@ -401,7 +440,7 @@ class GridEncoding(nn.Module):
             g = grad_out[:, lvl * n_feat:(lvl + 1) * n_feat]
             for idx, weight in self._stochastic_corners(
                     x, lvl, draws, j, sampled_only=self.stochastic_bwd):
-                _deposit(grad, idx, g if weight is None
+                ordered_deposit(grad, idx, g if weight is None
                          else g * weight[:, None])
         return grad.view(-1)
 

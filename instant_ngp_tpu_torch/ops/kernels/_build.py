@@ -151,7 +151,10 @@ def load_library() -> ctypes.CDLL:
     # (n_layers, dims, x_is_bf16, aligned, out[4])
     lib.fused_mlp_wgmma_plan.argtypes = [i32, dims, i32, i32, dims]
     lib.fused_mlp_mma_has_variant.argtypes = [i32, dims, i32, i32]
+    # (d_in, in_p, elem_bytes, aligned)
+    lib.fused_mlp_mma_input_path.argtypes = [i32, i32, i32, i32]
     for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
-               lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant):
+               lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant,
+               lib.fused_mlp_mma_input_path):
         fn.restype = ctypes.c_int
     return lib

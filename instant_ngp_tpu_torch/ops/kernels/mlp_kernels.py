@@ -152,6 +152,24 @@ class FusedMLPWeights:
     dims: Tuple[int, ...]
 
 
+RING = "ring"
+ROWS = "rows"
+
+
+def mma_input_path(d_in: int, in_p: int, elem_bytes: int,
+                   aligned: bool) -> str:
+    """How the mma kernel brings in the rows of an x of `d_in` values of
+    `elem_bytes` bytes each, padded to `in_p`: `RING` where one copy
+    fetches a 128-row tile into the kernel's ring of stages (a bulk copy
+    of whole padded rows, or a tensor copy that zero-fills the columns
+    from d_in to in_p), which needs x 16-byte `aligned` and a row that is
+    a multiple of 16 bytes; else `ROWS`, each warp loading its own rows.
+    Mirrors takes_ring in csrc/fused_mlp_mma.cu."""
+    if aligned and d_in <= in_p and d_in * elem_bytes % 16 == 0:
+        return RING
+    return ROWS
+
+
 def mma_layer_shapes(dims: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
     """Padded (fan_in, fan_out) of every layer in the mma packing."""
     in_p, hidden, out_p = mma_shape(dims)
@@ -442,6 +460,8 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
                 packed.data_ptr(), 2 * packed.numel(), out.data_ptr(), n,
                 n_layers, dims, *acts, stream)
         else:
+            path = mma_input_path(weights.dims[0], mma_shape(weights.dims)[0],
+                                  x.element_size(), x.data_ptr() % 16 == 0)
             err = lib.fused_mlp_mma_launch(
                 x.data_ptr(), int(x.dtype == torch.bfloat16),
                 weights.packed.data_ptr(), weights.packed.numel(),
@@ -452,8 +472,13 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     fused_mlp_forward.launches += 1
     fused_mlp_forward.launches_by_variant[variant] = \
         fused_mlp_forward.launches_by_variant.get(variant, 0) + 1
+    if variant not in (GENERAL, STREAMED):
+        fused_mlp_forward.launches_by_input_path[path] = \
+            fused_mlp_forward.launches_by_input_path.get(path, 0) + 1
     return out
 
 
 fused_mlp_forward.launches = 0
 fused_mlp_forward.launches_by_variant = {}
+#: the mma kernel's launches by `mma_input_path`
+fused_mlp_forward.launches_by_input_path = {}

@@ -10,7 +10,8 @@ tensors themselves, in the JAX layout>, "opt": {"step", "m", "v"[,
   back out of the gradients, Adam's l2_reg on the network's matrices only,
   one optimizer step;
 - `train_step_custom_gradient`: the caller supplies d(loss)/d(output) and
-  only the backward and the step run;
+  only the backward and the step run; `training_step` is `train_step`
+  under the JAX package's name for its jitted wrapper;
 - `inference_params`: the EMA copy when the optimizer keeps one. The
   trainer then also keeps `inference_model`, a second model whose
   parameter tensors ARE the EMA leaves (renders use it under no_grad,
@@ -78,6 +79,9 @@ class Trainer:
             opt["ema"] = self.inference_model.param_tree()
         return {"params": params, "opt": opt}
 
+    def n_params(self) -> int:
+        return self.model.n_params
+
     def _step(self, state: Dict[str, Any], grads: Any) -> Dict[str, Any]:
         if self.loss_scale != 1.0:
             grads = tree_map(lambda g: g / self.loss_scale, grads)
@@ -131,6 +135,14 @@ class Trainer:
             out = apply_fn(inputs)
             grads = self._grads(out, state["params"], dL_doutput)
         return self._step(state, grads), loss_value
+
+    def training_step(self, state: Dict[str, Any], inputs: torch.Tensor,
+                      targets: torch.Tensor, draws=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """`train_step` under the JAX package's name for its stateful
+        wrapper (which there jits the step once per shape)."""
+        return self.train_step(state, inputs, targets, draws, generator)
 
     @torch.no_grad()
     def load_state(self, state: Dict[str, Any], params: Any,

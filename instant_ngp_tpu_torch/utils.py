@@ -18,6 +18,10 @@ class Ema:
         self.value: Optional[float] = None
         self._last_t: Optional[float] = None
 
+    def set(self, value: float) -> None:
+        self.value = value
+        self._last_t = time.monotonic()
+
     def update(self, value: float, now: Optional[float] = None) -> float:
         now = now if now is not None else time.monotonic()
         if self.value is None or self._last_t is None:

@@ -591,3 +591,97 @@ def test_table_gradient_has_the_same_bits_in_every_run(device, stochastic):
     torch.cuda.synchronize()
     assert first.abs().max().item() > 0
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrow_rows_take_the_ring_and_match_plain(device, dtype):
+    """The Takikawa net's 24-wide rows (96 bytes in f32, 48 in bf16) take
+    the input ring by a tensor copy that zero-fills columns 24-31 and the
+    rows past the end: one row, a tile less one, a tile, a tile and one,
+    and 2^20 + 37 rows, each against the plain version; the same x 4
+    bytes off its alignment takes the per-row loads, with the same rows."""
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        RING, ROWS, mma_input_path)
+
+    rng = np.random.default_rng(24)
+    packed = pack_weights(_weights(rng, [24, 64, 64, 1], device))
+    n_max = (1 << 20) + 37
+    x_all = torch.from_numpy(rng.normal(size=(n_max, 24)).astype(
+        np.float32)).to(device).to(dtype)
+    shifted_all = torch.empty(x_all.numel() + 8, dtype=dtype,
+                              device=device)[4 // x_all.element_size():][
+        :x_all.numel()].view_as(x_all)
+    shifted_all.copy_(x_all)
+    assert shifted_all.data_ptr() % 16 == 4
+    for x, path in ((x_all, RING), (shifted_all, ROWS)):
+        assert mma_input_path(24, 32, x.element_size(),
+                              x.data_ptr() % 16 == 0) == path
+        for n in (1, 127, 128, 129, n_max):
+            before = dict(fused_mlp_forward.launches_by_input_path)
+            out = fused_mlp_forward(x[:n], packed)
+            assert fused_mlp_forward.launches_by_input_path[path] == \
+                before.get(path, 0) + 1
+            ref = fused_mlp_forward_plain(x[:n], packed.layers)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            assert out.shape == (n, 1) and torch.isfinite(out).all()
+            assert err.max().item() <= 2e-2 and err.mean().item() <= 1e-3
+            if path == ROWS:
+                assert torch.equal(out, fused_mlp_forward(x_all[:n], packed))
+
+
+def test_input_path_matches_the_library(device):
+    from instant_ngp_tpu_torch.ops.kernels._build import load_library
+    from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
+        RING, mma_input_path)
+
+    lib = load_library()
+    for d_in in range(1, 33):
+        in_p = 16 if d_in <= 16 else 32
+        for elem in (2, 4):
+            for aligned in (False, True):
+                assert (lib.fused_mlp_mma_input_path(d_in, in_p, elem,
+                                                     int(aligned)) == 1) \
+                    == (mma_input_path(d_in, in_p, elem, aligned) == RING)
+
+
+def test_error_map_has_the_same_bits_in_every_run(device):
+    """The error map's bilinear deposit of 2^16 rays into 64 maps of 64x64
+    cells (every cell takes a few deposits), summed in an order the cells
+    fix: the same bits on every call."""
+    from instant_ngp_tpu_torch.nerf.sampler import RayBatch
+    from instant_ngp_tpu_torch.nerf.training import error_map_delta
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    n = 1 << 16
+    rays = RayBatch(None, None, None, None,
+                    img_idx=torch.randint(0, 64, (n,), device=device,
+                                          generator=gen),
+                    uv=torch.rand(n, 2, device=device, generator=gen))
+    loss = torch.rand(n, device=device, generator=gen)
+    em = torch.zeros(64, 64 * 64, device=device)
+    first = error_map_delta(em, rays, loss, (64, 64))
+    second = error_map_delta(em, rays, loss, (64, 64))
+    torch.cuda.synchronize()
+    assert first.min().item() >= 0 and first.max().item() > 0
+    assert torch.equal(first, second)
+
+
+def test_train_paths_repeat_and_warn_only_of_order_free_ops(device):
+    """chip_smoke.py's determinism sweep at a small size: NeRF with the
+    defaults, NeRF exact with camera and distortion optimisation, Image,
+    Volume and SDF each take 2 steps under the deterministic mode (warnings
+    only), and twice more with it off from one seed; it raises on a warned
+    op outside determinism.ORDER_FREE or on runs that differ."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.determinism_sweep(smoke.make_scene(n_cams=4, size=32),
+                                  device, "", small=True)
+    assert len(out) == 5
+    assert all(r["repeats"] and not r["outside"] for r in out.values())

@@ -87,3 +87,32 @@ def test_base_config_table_matches_jax(aabb_scale):
     assert [lv[4] for lv in enc.levels] == list(jax_enc._hashed)
     if aabb_scale == 1:
         assert enc.n_entries == 2920448
+
+
+@pytest.mark.parametrize("grid_type", ["Hash", "Dense"])
+def test_level_params_and_level_stats_match_jax(grid_type):
+    """`level_params` and the LevelStats diagnostic on the same table, some
+    of it zero: slices bit for bit, the statistics to float32 rounding of
+    numpy's own sums over the same values."""
+    jax_enc = JaxGrid(n_dims=3, grid_type=grid_type, **KW)
+    enc = GridEncoding(n_dims=3, grid_type=grid_type, **KW)
+    rng = np.random.default_rng(7)
+    table = rng.uniform(-1.0, 1.0, enc.n_params).astype(np.float32)
+    table[rng.uniform(size=table.size) < 0.2] = 0.0
+    with torch.no_grad():
+        enc.params.copy_(torch.from_numpy(table))
+    for lvl in range(KW["n_levels"]):
+        ref = np.asarray(jax_enc.level_params(jnp.asarray(table), lvl))
+        np.testing.assert_array_equal(enc.level_params(table, lvl), ref)
+        np.testing.assert_array_equal(
+            enc.level_params(enc.params.detach(), lvl).numpy(), ref)
+    ref = jax_enc.level_stats(jnp.asarray(table))
+    ours = enc.level_stats()
+    assert ours == enc.level_stats(table)
+    assert [s["count"] for s in ours] == [s["count"] for s in ref]
+    for a, b in zip(ours, ref):
+        assert a.keys() == b.keys()
+        np.testing.assert_allclose([a[k] for k in sorted(a)],
+                                   [b[k] for k in sorted(b)], rtol=1e-6,
+                                   atol=1e-7)
+        assert 0.1 < a["fraczero"] < 0.3

@@ -329,3 +329,28 @@ def test_visible_cells_through_each_lens_match_jax(name):
         pack_training_data(port_dataset(jds0), "cpu"),
         scene_config_from_dataset(port_dataset(jds0))).numpy()
     assert (ours != pinhole).sum() > 100
+
+
+def test_lens_params_record_matches_jax():
+    """`LensParams` is the same named pair as JAX's, and a lens handed
+    over as one takes rays through the same directions."""
+    assert camera.LensParams._fields == jcamera.LensParams._fields
+    rng = np.random.default_rng(9)
+    uv = rng.uniform(0.0, 1.0, (500, 2)).astype(np.float32)
+    cam = _camera(rng)
+    for name in ("Perspective", "FTheta", "Equirectangular"):
+        p = np.array(LENS_PARAMS[name], np.float32)
+        lens = camera.LensParams(camera.lens_mode_id(name), _t(p))
+        jlens = jcamera.LensParams(jcamera.lens_mode_id(name),
+                                   jnp.asarray(p))
+        assert lens.mode == jlens.mode
+        _, d, ok = camera.uv_to_ray(_t(uv), RES, _t(FOCAL), _t(cam), CENTER,
+                                    lens_mode=lens.mode,
+                                    lens_params=lens.params)
+        _, jd, jok = jcamera.uv_to_ray(
+            jnp.asarray(uv), jnp.asarray(np.array(RES, np.float32)),
+            jnp.asarray(FOCAL), jnp.asarray(cam),
+            np.array(CENTER, np.float32), lens_mode=jlens.mode,
+            lens_params=jlens.params)
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TOL)

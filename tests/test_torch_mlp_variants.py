@@ -23,10 +23,10 @@ from instant_ngp_tpu_torch.nerf.dataset import scene_config
 from instant_ngp_tpu_torch.nerf.model import NerfNetwork
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
-    GENERAL, MMA_VARIANTS, SMEM_LIMIT, STREAMED, fused_mlp_forward,
-    fused_mlp_forward_plain, general_smem_bytes, kernel_variant,
-    mma_layer_shapes, mma_shape, mma_smem_bytes, pack_weights,
-    wgmma_hidden_width)
+    GENERAL, MMA_VARIANTS, RING, ROWS, SMEM_LIMIT, STREAMED,
+    fused_mlp_forward, fused_mlp_forward_plain, general_smem_bytes,
+    kernel_variant, mma_input_path, mma_layer_shapes, mma_shape,
+    mma_smem_bytes, pack_weights, wgmma_hidden_width)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -366,13 +366,56 @@ def test_wide_nets_raise_the_shared_memory_error():
                           variant="mma_32x64x8_ReLU_None")
 
 
+@pytest.mark.parametrize("d_in,in_p,elem,aligned,path", [
+    # the configurations' input widths: 32 and 16 (whole padded rows, one
+    # bulk copy) and the Takikawa net's 24 (96 and 48 bytes a row, one
+    # tensor copy that zero-fills columns 24-31), f32 and bf16
+    (32, 32, 4, True, RING), (32, 32, 2, True, RING),
+    (16, 16, 4, True, RING), (16, 16, 2, True, RING),
+    (24, 32, 4, True, RING), (24, 32, 2, True, RING),
+    (28, 32, 4, True, RING), (4, 16, 4, True, RING),
+    # rows that are no multiple of 16 bytes, or an x that is not 16-byte
+    # aligned: each warp loads its own rows
+    (28, 32, 2, True, ROWS), (27, 32, 4, True, ROWS), (3, 16, 4, True, ROWS),
+    (32, 32, 4, False, ROWS), (24, 32, 4, False, ROWS),
+    (24, 32, 2, False, ROWS)])
+def test_mma_input_path_is_the_ring_wherever_one_copy_fetches_a_tile(
+        d_in, in_p, elem, aligned, path):
+    assert mma_input_path(d_in, in_p, elem, aligned) == path
+
+
+def test_every_config_mma_net_takes_the_ring():
+    """Every net of the configurations that has an mma instantiation takes
+    the input ring for an aligned f32 or bf16 x: the NeRF configs' nets,
+    and the Image (32-64-64-3), Volume (32-64-64-4) and SDF nets (32- and,
+    for takikawa.json, 24-64-64-1; see the SDF test above)."""
+    nets = [([32, 64, 64, 3], "ReLU", "None"), ([32, 64, 64, 4], "ReLU",
+                                                "ReLU"),
+            ([32, 64, 64, 1], "ReLU", "None"), ([24, 64, 64, 1], "ReLU",
+                                                "None")]
+    for name in NERF_CONFIGS:
+        try:
+            nets += _config_nets(os.path.join(REPO, "configs", "nerf", name))
+        except (NotImplementedError, ValueError):
+            assert name == "tensor.json"
+    mma = [dims for dims, act, out_act in nets
+           if kernel_variant(dims, act, out_act).startswith("mma_")]
+    assert {dims[0] for dims in mma} == {16, 24, 32}
+    for dims in mma:
+        for elem in (4, 2):
+            assert mma_input_path(dims[0], mma_shape(dims)[0], elem,
+                                  True) == RING, dims
+
+
 def test_launch_counters_stay_zero_on_the_cpu():
     before = (fused_mlp_forward.launches,
-              dict(fused_mlp_forward.launches_by_variant))
+              dict(fused_mlp_forward.launches_by_variant),
+              dict(fused_mlp_forward.launches_by_input_path))
     ws = _weights(np.random.default_rng(0), [32, 64, 16])
     fused_mlp_forward(torch.zeros(2, 32), pack_weights(ws))
     assert before == (fused_mlp_forward.launches,
-                      fused_mlp_forward.launches_by_variant)
+                      fused_mlp_forward.launches_by_variant,
+                      fused_mlp_forward.launches_by_input_path)
 
 
 def _small_cfg():

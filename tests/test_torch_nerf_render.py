@@ -232,6 +232,34 @@ def test_ld_pixel_offset_matches_jax():
             np.asarray(jax_ld_pixel_offset(s)))
 
 
+def test_nerf_activations_match_jax():
+    """The named pair of output activations: the same fields and defaults,
+    and each applied to the same raw outputs gives the same values."""
+    import dataclasses
+
+    from instant_ngp_tpu.nerf import model as jmodel
+    from instant_ngp_tpu_torch.nerf import model
+
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        model.NerfActivations)] == [(f.name, f.default) for f in
+                                    dataclasses.fields(
+                                        jmodel.NerfActivations)]
+    raw = np.random.default_rng(4).normal(0, 3, 1000).astype(np.float32)
+    for rgb in ("Logistic", "Exponential"):
+        acts = model.NerfActivations(rgb=rgb)
+        jacts = jmodel.NerfActivations(rgb=rgb)
+        np.testing.assert_allclose(
+            model.network_to_rgb(torch.from_numpy(raw), acts.rgb).numpy(),
+            np.asarray(jmodel.network_to_rgb(jnp.asarray(raw), jacts.rgb)),
+            rtol=1e-6)
+        np.testing.assert_allclose(
+            model.network_to_density(torch.from_numpy(raw),
+                                     acts.density).numpy(),
+            np.asarray(jmodel.network_to_density(jnp.asarray(raw),
+                                                 jacts.density)),
+            rtol=1e-6)
+
+
 def test_port_imports_without_jax():
     """The port imports and renders with jax, msgpack, PIL and the JAX
     package made unimportable, as on a machine that has none of them."""

@@ -1,7 +1,8 @@
 """The port's shared trainer base against the JAX package: the vectorised
 QMC samplers, `create_loss`, `NetworkWithInputEncoding` with every
 encoding the Image, SDF and Volume configs name,
-`create_network_with_encoding` and `Trainer`.
+`create_network_with_encoding` and `Trainer` (`training_step` and
+`n_params` too), and the small names of common.py and utils.py.
 
 Tolerances:
 - the samplers are integer arithmetic (uint32 wraparound) and one float32
@@ -214,6 +215,36 @@ def test_common_enums_and_bounding_box_match_jax():
     np.testing.assert_array_equal(ours.contains(pts), ref.contains(pts))
 
 
+def test_common_ray_render_modes_and_integer_helpers_match_jax():
+    from instant_ngp_tpu import common as jcommon
+
+    assert [(m.name, m.value) for m in common.RenderMode] == \
+        [(m.name, m.value) for m in jcommon.RenderMode]
+    o = np.array([0.5, -1.0, 2.0], np.float32)
+    d = np.array([0.0, 0.6, 0.8], np.float32)
+    for t in (0.0, 0.25, 3.0):
+        np.testing.assert_array_equal(common.Ray(o, d).at(t),
+                                      jcommon.Ray(o, d).at(t))
+    for value in (0, 1, 7, 8, 9, 1000, 1023, 1024):
+        for divisor in (1, 8, 128):
+            assert common.next_multiple(value, divisor) == \
+                jcommon.next_multiple(value, divisor)
+    for base, exp in ((2.0, 10), (1.5, 3), (0.5, 0), (-3.0, 5), (2, -2)):
+        assert common.powi(base, exp) == jcommon.powi(base, exp)
+
+
+def test_ema_set_matches_jax():
+    from instant_ngp_tpu.utils import Ema as JaxEma
+    from instant_ngp_tpu_torch.utils import Ema
+
+    ours, ref = Ema(half_life_s=2.0), JaxEma(half_life_s=2.0)
+    for ema in (ours, ref):
+        ema.update(1.0, now=0.0)
+        ema.set(5.0)
+        ema.update(3.0, now=ema._last_t + 2.0)
+    assert ours.value == ref.value == 4.0
+
+
 @pytest.mark.parametrize("enc", list(ENCODINGS))
 def test_network_with_input_encoding_matches_jax(enc):
     n_in = 3 if enc == "DenseGrid" else 2
@@ -322,6 +353,23 @@ def test_trainer_steps_match_jax(compute, opt):
             state["opt"]["ema"]["net"][0]
     else:
         assert tr.inference_model is tr.model
+
+
+def test_trainer_training_step_and_n_params_match_jax():
+    """The stateful wrapper under the JAX name: the same 3 steps as
+    `train_step` at float32, held like them; the parameter count."""
+    jtr, jstate, tr, state = _trainers("f32", ADAM)
+    assert tr.n_params() == jtr.n_params() == jtr.model.n_params
+    rng = np.random.default_rng(13)
+    for _ in range(3):
+        x = rng.uniform(0, 1, (512, 2)).astype(np.float32)
+        y = rng.uniform(0, 1, (512, 3)).astype(np.float32)
+        jstate, jloss = jtr.training_step(jstate, jnp.asarray(x),
+                                          jnp.asarray(y))
+        state, loss = tr.training_step(state, torch.from_numpy(x),
+                                       torch.from_numpy(y))
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    _assert_state_close(state, jstate, 1e-5)
 
 
 def test_trainer_custom_gradient_step_matches_jax():
