@@ -40,6 +40,20 @@ Phases, each of which raises on failure (a non-zero exit):
    every other net of the configurations (CONFIG_NETS) the same way, on
    its mma instantiation or the general path. The general and the
    streamed path fail unless faster than their chain;
+   3b. the grid encode's kernels (csrc/grid_encoding.cu: the exact and
+   the stochastic-corner forward, the sorted table-gradient deposit of
+   every variant, the input gradient) against their plain versions on the
+   same CUDA tensors: the grids of configs/nerf/base.json, image, volume,
+   densegrid and densegrid_1res at GRID_SMALL points (the first on cell
+   faces), with and without max_level, then base.json's at 2^20 points on
+   a U(-1, 1) table, each kernel and plain version timed with CUDA events
+   beside the bytes bound and the bytes the gathers read. The gradients
+   must repeat bit for bit; whether each kernel gave the plain version's
+   bits is printed. From phase 4 on, the density pass, the frames, both
+   trainings of phase 6, the capture, Image, Volume, SDF and Geometry
+   paths each count their grid launches from 0 and must have launched
+   one, each grid kernel must have run on one of them, and no plain grid
+   method may run on a CUDA tensor in the whole run;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -218,15 +232,15 @@ CURVE_SLACK_DB from the record, above or below.
 
     python3 chip_smoke.py --deposit-ab
 
-builds the kernels and then only times the table gradient's deposit by
-`index_put_` (the port's) against `index_add_` (atomic adds), in turns in
-one process: the gradient alone, NeRF train steps with the defaults and
-exact, and Image steps of each encode, and the error map's deposit alone
-and in default steps (`deposit_ab`); it prints no result line.
+builds the kernels and then only times the plain table gradient's deposit
+by `index_put_` against `index_add_` (atomic adds), in turns in one
+process, beside the grid kernels' sorted deposit, and the error map's
+deposit alone and in default steps (`deposit_ab`); it prints no result
+line.
 
-The last lines are one JSON object describing the kernel (its
-instantiations and the paths that launch each; its streamed path as a
-second entry), the card's name and power limit (nvidia-smi's own line),
+The last lines are one JSON object describing the kernels (the fused
+MLP's instantiations and the paths that launch each; its general and
+streamed paths as further entries; one entry per grid kernel), the card's name and power limit (nvidia-smi's own line),
 and {"ok": true, "device": {...}}.
 """
 
@@ -389,6 +403,29 @@ WIDE_NETS = (("nerf_frequency_density", [96] + [256] * 7 + [16]),
              ("nerf_none_rgb", [19, 256, 3]),
              ("sdf_frequency", [60] + [128] * 8 + [1]),
              ("sdf_oneblob", [96] + [128] * 6 + [1]))
+# phase 3b, the grid encode's kernels: points of the timed checks (at
+# configs/nerf/base.json's width), the ragged counts each configuration's
+# grid is checked at first, and the tolerances the card tests state (the
+# exact forward sums 2^d products of order 1 in another order; the input
+# gradient sums products of order scale in another order, relative to the
+# reference's largest value; the table gradient, of the reference's
+# largest value, where it is not the plain card path's bits: sums of up to
+# a few thousand deposits of order 1 in another grouping. The result line
+# says where the stochastic forward and the deposits gave the plain bits)
+GRID_POINTS = 1 << 20
+GRID_SMALL = (1, 255, 257, 100003)
+GRID_MAX_ABS = 1e-5
+GRID_INPUT_REL = 1e-4
+GRID_DEPOSIT_REL = 1e-5
+# the grids of the other configurations, checked at GRID_SMALL points:
+# (name, mode, config)
+GRID_CONFIGS = (("image_base", "image", "base"),
+                ("volume_sdf_base", "volume", "base"),
+                ("nerf_densegrid", "nerf", "densegrid"),
+                ("nerf_densegrid_1res", "nerf", "densegrid_1res"))
+# the paths whose grid launches phase 4 on count, each from 0
+GRID_PATHS = ("density pass", "render", "train default", "train exact",
+              "capture", "image", "volume", "sdf", "geometry")
 # phase 15, Geometry mode: frames of the scene, the card against the CPU
 GEOMETRY_SIZE, GEOMETRY_SMALL = 400, 48
 SCREENSHOT = (1920, 1080)
@@ -1981,6 +2018,235 @@ def check_kernel(out, ref, what):
     return max_abs, mean_abs
 
 
+class GridPaths:
+    """The grid kernels' launches on each path of the run, counted from 0
+    over it (`grid_kernels.launch_counts` before and after)."""
+
+    def __init__(self):
+        self.by_path = {}
+
+    def run(self, path, fn, *args, **kwargs):
+        from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+
+        before = grid_kernels.launch_counts()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            counts = self.by_path.setdefault(path, {})
+            for key, n in grid_kernels.launch_counts().items():
+                if n != before.get(key, 0):
+                    counts[key] = counts.get(key, 0) + n - before.get(key, 0)
+            print(f"grid kernel launches, {path}: {counts}", flush=True)
+
+    def total(self, *keys):
+        return sum(c.get(k, 0) for c in self.by_path.values() for k in keys)
+
+
+def grid_case(enc_cfg, n_dims, n, dev, seed, padded=False):
+    """A GridEncoding of `enc_cfg` on the card with a U(-1, 1) table, n
+    points in [-0.05, 1.05]^d, the first on cell faces of every level (m /
+    scale, and 0 and 1), grad_out ~ N(0, 1), and corner draws for every j
+    -> (enc, x, grad_out, {j: draws}). `padded`: the last eighth of the
+    points are a train step's padding, one position with a zero
+    gradient."""
+    import numpy as np
+    import torch
+
+    from instant_ngp_tpu_torch.ops.grid_encoding import (GridEncoding,
+                                                         draw_corner_randoms)
+
+    enc = GridEncoding.from_config(n_dims, enc_cfg).to(dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        enc.params.uniform_(-1.0, 1.0, generator=gen)
+    x = torch.rand(n, n_dims, device=dev, generator=gen) * 1.1 - 0.05
+    faces = [np.float32(m) / np.float32(s) for s, *_ in enc.levels
+             for m in (1, 3, 7)] + [0.0, 1.0]
+    k = min(n, len(faces))
+    x[:k] = torch.tensor(faces[:k], dtype=torch.float32, device=dev)[:, None]
+    g_out = torch.randn(n, enc.n_output_dims, device=dev, generator=gen)
+    if padded:
+        x[n - n // 8:] = 0.3
+        g_out[n - n // 8:] = 0.0
+    draws = {j: draw_corner_randoms(gen, n, n_dims, enc.n_levels, j)
+             for j in range(n_dims)}
+    return enc, x, g_out, draws
+
+
+def grid_variants(enc, x, g_out, draws, max_level=None):
+    """Every grid kernel's call and its plain version's on the same inputs:
+    {(kernel name, variant): (kernel call, plain call)}."""
+    p = enc.params.detach()
+    calls = {("grid_encode_forward", "exact"): (
+        lambda: enc._encode(p, x, max_level),
+        lambda: enc._encode_plain(p, x, max_level)),
+        ("grid_table_gradient", "exact"): (
+        lambda: enc._table_gradient(x, g_out, max_level),
+        lambda: enc._table_gradient_plain(x, g_out, max_level)),
+        ("grid_input_gradient", "exact"): (
+        lambda: enc._input_gradient(p, x, g_out, max_level),
+        lambda: enc._input_gradient_plain(p, x, g_out, max_level))}
+
+    def deposit(one, dr, j, plain):
+        def call():
+            enc.stochastic_bwd = one
+            try:
+                fn = enc._table_gradient_stochastic_plain if plain \
+                    else enc._table_gradient_stochastic
+                return fn(x, g_out, max_level, dr, j)
+            finally:
+                enc.stochastic_bwd = False
+        return call
+
+    for j, dr in draws.items():
+        calls[("grid_encode_forward[stochastic]", f"j{j}")] = (
+            lambda dr=dr, j=j: enc._encode_stochastic(p, x, max_level, dr, j),
+            lambda dr=dr, j=j: enc._encode_stochastic_plain(p, x, max_level,
+                                                            dr, j))
+        for one in ((False, True) if j else (True,)):
+            name = f"j{j} {'one corner' if one else 'fetched'}"
+            calls[("grid_table_gradient[stochastic]", name)] = (
+                deposit(one, dr, j, False), deposit(one, dr, j, True))
+    return calls
+
+
+def check_grid_call(kernel, plain, name, variant, what):
+    """Kernel against plain version (and the gradients against a second run
+    of the kernel) -> (max abs error, the same bits as the plain version,
+    the plain version's largest magnitude)."""
+    import torch
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"{name} [{variant}] at {what}: shape "
+                           f"{tuple(out.shape)} / {tuple(ref.shape)} or "
+                           f"not finite")
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    same = torch.equal(out, ref)
+    scale = ref.abs().max().item() if ref.numel() else 0.0
+    if name.startswith("grid_encode_forward"):
+        ok = err <= GRID_MAX_ABS
+    elif name == "grid_input_gradient":
+        ok = err <= GRID_INPUT_REL * scale
+    else:
+        ok = err <= GRID_DEPOSIT_REL * scale
+    if name != "grid_encode_forward" and not torch.equal(out, kernel()):
+        raise RuntimeError(f"{name} [{variant}] at {what} does not repeat "
+                           f"bit for bit")
+    if not ok:
+        raise RuntimeError(f"{name} [{variant}] disagrees with its plain "
+                           f"version at {what}: max abs {err:.3g} (reference "
+                           f"max {scale:.3g})")
+    return err, same, scale
+
+
+def grid_kernels_on_card(dev, smi):
+    """Phase 3b: the grid encode's kernels against their plain versions
+    (the `_*_plain` methods of GridEncoding, on the same CUDA tensors):
+    every configuration's grid (configs/nerf/base.json's and GRID_CONFIGS)
+    at GRID_SMALL points, the last eighth padding, with and without
+    max_level, then base.json's at
+    GRID_POINTS on a U(-1, 1) table, where each kernel and its plain
+    version are timed with CUDA events beside the bytes bound and the bytes
+    the gathers read -> {kernel name: its row of the result line}."""
+    import torch
+
+    from instant_ngp_tpu_torch.config import (find_network_config,
+                                              load_network_config)
+
+    t0 = time.perf_counter()
+    rows = {}
+
+    def record(key, err, same, scale):
+        row = rows.setdefault(key[0], {"max_abs_err": 0.0,
+                                       "ref_max_abs": 0.0,
+                                       "bit_equal_to_plain": {}})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ref_max_abs"] = max(row["ref_max_abs"], scale)
+        row["bit_equal_to_plain"][key[1]] = \
+            row["bit_equal_to_plain"].get(key[1], True) and same
+
+    configs = [("nerf_base", "nerf", "base")] + list(GRID_CONFIGS)
+    for i, (name, mode, cfg_name) in enumerate(configs):
+        enc_cfg = load_network_config(find_network_config(cfg_name, mode))[
+            "encoding"]
+        n_dims = 2 if mode == "image" else 3
+        for n in GRID_SMALL:
+            enc, x, g_out, draws = grid_case(enc_cfg, n_dims, n, dev,
+                                             SEED + 10 * i + n, padded=True)
+            for max_level in (None, 1.5):
+                for key, (kernel, plain) in grid_variants(
+                        enc, x, g_out, draws, max_level).items():
+                    record(key, *check_grid_call(
+                        kernel, plain, *key,
+                        f"{name} x {n}, max_level {max_level}"))
+            del enc, x, g_out, draws
+        torch.cuda.empty_cache()
+    print(f"grid kernels at {GRID_SMALL} points of "
+          f"{[c[0] for c in configs]}, with and without max_level: ok "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    enc_cfg = load_network_config(find_network_config("base", "nerf"))[
+        "encoding"]
+    n = GRID_POINTS
+    enc, x, g_out, draws = grid_case(enc_cfg, 3, n, dev, SEED + 7)
+    f, n_levels, corners = enc.n_features_per_level, enc.n_levels, 8
+    table_bytes = 4 * enc.n_params
+    x_bytes, out_bytes = 4 * 3 * n, 4 * n * n_levels * f
+    u_bytes, axis_bytes = 4 * 3 * n * n_levels, 8 * n * n_levels
+    # the bytes each call must move (each input read once, each output
+    # written once) and the bytes its gathers read
+    moved = {("grid_encode_forward", "exact"):
+             x_bytes + table_bytes + out_bytes,
+             ("grid_encode_forward[stochastic]", "j1"):
+             x_bytes + u_bytes + axis_bytes + table_bytes + out_bytes,
+             ("grid_table_gradient", "exact"):
+             x_bytes + out_bytes + table_bytes,
+             ("grid_table_gradient[stochastic]", "j1 one corner"):
+             x_bytes + u_bytes + out_bytes + table_bytes,
+             ("grid_input_gradient", "exact"):
+             x_bytes + table_bytes + out_bytes + x_bytes}
+    gathered = {("grid_encode_forward", "exact"):
+                4 * f * n * n_levels * corners,
+                ("grid_encode_forward[stochastic]", "j1"):
+                4 * f * n * n_levels * 2,
+                ("grid_table_gradient", "exact"): 0,
+                ("grid_table_gradient[stochastic]", "j1 one corner"): 0,
+                ("grid_input_gradient", "exact"):
+                4 * f * n * n_levels * corners}
+    calls = grid_variants(enc, x, g_out, draws)
+    for key, (kernel, plain) in calls.items():
+        record(key, *check_grid_call(kernel, plain, *key,
+                                     f"nerf_base x {n}"))
+        if key not in moved:
+            continue
+        # in turns: kernel, plain, kernel
+        ms = [cuda_ms(kernel)]
+        plain_ms = cuda_ms(plain, reps=3, inner=2)
+        ms.append(cuda_ms(kernel))
+        row = rows[key[0]]
+        bound_ms = 1e3 * moved[key] / HBM_BYTES_PER_S
+        row.update(variant=key[1], points=n, ms=min(ms), plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by="bytes",
+                   bytes_moved=moved[key], bytes_gathered=gathered[key],
+                   share_of_bound=bound_ms / min(ms))
+        print(f"grid kernel {key[0]} [{key[1]}] x {n} (base.json: L="
+              f"{n_levels}, F={f}, {enc.n_entries} rows): kernel "
+              f"{min(ms):.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes: {moved[key] / 1e6:.1f} MB moved; "
+              f"{100 * bound_ms / min(ms):.1f} % reached), "
+              f"{gathered[key] / 1e6:.1f} MB gathered; bit-equal to plain: "
+              f"{row['bit_equal_to_plain'][key[1]]} [{smi}]", flush=True)
+    del enc, x, g_out, draws, calls
+    torch.cuda.empty_cache()
+    print(f"phase 3b (grid kernels): {time.perf_counter() - t0:.1f} s; "
+          f"bit-equal to the plain versions: "
+          f"{ {k: r['bit_equal_to_plain'] for k, r in rows.items()} }",
+          flush=True)
+    return rows
+
+
 def profile_frame(tb, cam, smi, out_path):
     """One warm frame with CUDA-event spans around each layer (device time
     between the events, no extra syncs), one under torch.profiler, and a
@@ -3223,17 +3489,16 @@ def wide_nets_and_cli(root, ds, dev, smi, fused_mlp_forward):
 
 
 def deposit_ab(cfg, image_cfg, dev, smi):
-    """--deposit-ab: the table gradient summed by `index_put_` (the port's
-    deposit, in an order the indices fix) against `index_add_` (atomic
-    adds, the deposit the port had before), swapped in turns
-    (put, add, add, put) in one process: the gradient alone at the shapes
-    of a NeRF train step (exact, and the one-corner stochastic deposit)
-    and of an Image step, then 16 NeRF train steps with the defaults and
-    16 exact ones (base.json, batch 2^18, after 32 steps of warm-up, the
-    density updates left out), then 16 Image steps of each encode
-    (configs/image/base.json on phase 10's image, batch 2^18). The error
-    map's deposit the same way: alone, at the default step's rays and
-    map, and in 16 default steps."""
+    """--deposit-ab: the plain table gradient summed by `index_put_` (the
+    plain version's deposit, in an order the indices fix) against
+    `index_add_` (atomic adds), swapped in turns (put, add, add, put) in
+    one process, with the grid kernels' sorted deposit
+    (`grid_kernels.table_gradient`, what the train steps run) timed
+    beside them: the gradient alone at the shapes of a NeRF train step
+    (exact, and the one-corner stochastic deposit) and of an Image step.
+    The error map's deposit the same way: alone, at the default step's
+    rays and map, and in 16 default NeRF steps (base.json, batch 2^18,
+    after 32 steps of warm-up)."""
     import torch
 
     from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
@@ -3288,16 +3553,24 @@ def deposit_ab(cfg, image_cfg, dev, smi):
         x = torch.rand(n, enc.n_dims, device=dev, generator=gen)
         g_out = torch.randn(n, enc.n_output_dims, device=dev, generator=gen)
         if j is None:
-            ab(f"{name} ({n} samples)",
-               lambda e=enc, x=x, g=g_out: e._table_gradient(x, g, None), 16)
+            plain = lambda e=enc, x=x, g=g_out: \
+                e._table_gradient_plain(x, g, None)     # noqa: E731
+            kernel = lambda e=enc, x=x, g=g_out: \
+                e._table_gradient(x, g, None)           # noqa: E731
         else:
             draws = grid_encoding.draw_corner_randoms(gen, n, enc.n_dims,
                                                       enc.n_levels, j)
-            ab(f"{name} ({n} samples)",
-               lambda e=enc, x=x, g=g_out, d=draws, j=j:
-               e._table_gradient_stochastic(x, g, None, d, j), 16)
+            plain = lambda e=enc, x=x, g=g_out, d=draws, j=j: \
+                e._table_gradient_stochastic_plain(x, g, None, d, j)  # noqa
+            kernel = lambda e=enc, x=x, g=g_out, d=draws, j=j: \
+                e._table_gradient_stochastic(x, g, None, d, j)  # noqa
+        ab(f"{name} ({n} samples), plain version", plain, 16)
+        results[f"{name} ({n} samples), grid kernel"] = \
+            cuda_ms(kernel, reps=4, inner=16)
+        print(f"deposit A/B: {name} ({n} samples): grid kernel "
+              f"{results[f'{name} ({n} samples), grid kernel']:.3f} ms "
+              f"[{smi}]", flush=True)
     nerf.train(32)
-    ab("NeRF train step, defaults", nerf.train_step, 16)
     # the error map's deposit alone at this step's rays and map, then in
     # the step with the table gradient left sorted
     n_rays = nerf.rays_per_batch
@@ -3313,14 +3586,6 @@ def deposit_ab(cfg, image_cfg, dev, smi):
                                         (cw, ch)), 64, training)
     ab("NeRF train step, defaults, error map's deposit alone swapped",
        nerf.train_step, 16, training)
-    nerf.stochastic_corners = False
-    ab("NeRF train step, exact encode", nerf.train_step, 16)
-    img.train(8, IMAGE_BATCH)
-    ab("Image train step, stochastic encode",
-       lambda: img.train(1, IMAGE_BATCH), 16)
-    img.stochastic_corners = False
-    ab("Image train step, exact encode", lambda: img.train(1, IMAGE_BATCH),
-       16)
     return results
 
 
@@ -3758,6 +4023,7 @@ def main():
     from instant_ngp_tpu_torch.nerf.dataset import scene_config
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
     from instant_ngp_tpu_torch.ops.encodings import sh_basis
+    from instant_ngp_tpu_torch.ops.grid_encoding import GridEncoding
     from instant_ngp_tpu_torch.ops.kernels import _build
     from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
         fused_mlp_forward, fused_mlp_forward_plain)
@@ -3983,14 +4249,21 @@ def main():
                        for name, dims, out_act in CONFIG_NETS}
         torch.cuda.empty_cache()
 
-    # phase 4: the main path, through the testbed's entry points
+    # phase 3b: the grid encode's kernels against their plain versions
+    grid_rows = grid_kernels_on_card(dev, smi)
+
+    # phase 4: the main path, through the testbed's entry points; from here
+    # on no plain grid method may run on a CUDA tensor, and every path
+    # counts its grid launches from 0
+    GridEncoding.plain_calls_on_cuda = 0
+    grid_paths = GridPaths()
     cam = orbit_camera(angle=0.3, elevation=0.4)
     fused_mlp_forward.launches = 0
     fused_mlp_forward.launches_by_variant.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tb.update_density_grid_full()
+    grid_paths.run("density pass", tb.update_density_grid_full)
     torch.cuda.synchronize()
     density_s = time.perf_counter() - t0
     launches_density = fused_mlp_forward.launches
@@ -4000,7 +4273,8 @@ def main():
     for _ in range(2):   # a cold frame, then a warm one
         by_variant_before = dict(fused_mlp_forward.launches_by_variant)
         t0 = time.perf_counter()
-        frame = tb.render_frame(WIDTH, HEIGHT, cam, focal_length=FOCAL)
+        frame = grid_paths.run("render", tb.render_frame, WIDTH, HEIGHT,
+                               cam, focal_length=FOCAL)
         torch.cuda.synchronize()
         frames.append((time.perf_counter() - t0, tb.last_frame_n_samples))
     launches = fused_mlp_forward.launches
@@ -4068,10 +4342,11 @@ def main():
     print(f"scene: {ds.n_images} views of {ds.images[0].shape[1]}x"
           f"{ds.images[0].shape[0]} raytraced in "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
-    train_tb, by_variant_train, by_variant_phase6 = train_on_card(
-        ds, cfg, dev, smi, fused_mlp_forward, "default")
-    exact_tb, _, _ = train_on_card(ds, cfg, dev, smi, fused_mlp_forward,
-                                   "exact")
+    train_tb, by_variant_train, by_variant_phase6 = grid_paths.run(
+        "train default", train_on_card, ds, cfg, dev, smi, fused_mlp_forward,
+        "default")
+    exact_tb, _, _ = grid_paths.run("train exact", train_on_card, ds, cfg,
+                                    dev, smi, fused_mlp_forward, "exact")
     t_new = time.perf_counter()
     repeat = repeatable_training(ds, cfg, dev, smi)
     sweep = determinism_sweep(ds, dev, smi)
@@ -4095,8 +4370,8 @@ def main():
 
     # phase 9: a capture from disk; its RGB net has latent dims and takes
     # the general kernel, its density net the mma kernel as before
-    by_variant_capture, mode_times = capture_from_disk(
-        cfg, dev, smi, fused_mlp_forward,
+    by_variant_capture, mode_times = grid_paths.run(
+        "capture", capture_from_disk, cfg, dev, smi, fused_mlp_forward,
         {"density": shapes["density"]["variant"],
          "rgb_latent": shapes["rgb_latent"]["variant"]}, args.profile)
     launches_capture = sum(by_variant_capture.values())
@@ -4108,9 +4383,9 @@ def main():
     # phase 10: Image mode at configs/image/base.json's width; its net is
     # 32-64-64-3 like the NeRF RGB net and takes the same instantiation
     image_cfg = load_network_config(find_network_config("base", "image"))
-    by_variant_image, image_path = image_mode(
-        image_cfg, dev, smi, fused_mlp_forward, shapes["rgb"]["variant"],
-        args.profile)
+    by_variant_image, image_path = grid_paths.run(
+        "image", image_mode, image_cfg, dev, smi, fused_mlp_forward,
+        shapes["rgb"]["variant"], args.profile)
     launches_image = sum(by_variant_image.values())
     image_card_against_cpu(image_cfg, dev)
     rows = image_path["rows_per_frame"]
@@ -4138,8 +4413,8 @@ def main():
     # phase 13: Volume mode at configs/volume/base.json's width; its net
     # takes the mma kernel's ReLU/ReLU instantiation
     volume_cfg = load_network_config(find_network_config("base", "volume"))
-    by_variant_volume, volume_path = volume_mode(
-        volume_cfg, dev, smi, fused_mlp_forward,
+    by_variant_volume, volume_path = grid_paths.run(
+        "volume", volume_mode, volume_cfg, dev, smi, fused_mlp_forward,
         shapes["volume"]["variant"], args.profile)
     launches_volume = sum(by_variant_volume.values())
     volume_card_against_cpu(volume_cfg, dev, fused_mlp_forward)
@@ -4149,9 +4424,9 @@ def main():
     # widths; both nets take the 32x64x8 ReLU/None instantiation
     sdf_cfgs = {name: load_network_config(find_network_config(name, "sdf"))
                 for name in ("base", "takikawa")}
-    by_variant_sdf, sdf_path = sdf_mode(
-        sdf_cfgs, dev, smi, fused_mlp_forward, shapes["sdf"]["variant"],
-        args.profile)
+    by_variant_sdf, sdf_path = grid_paths.run(
+        "sdf", sdf_mode, sdf_cfgs, dev, smi, fused_mlp_forward,
+        shapes["sdf"]["variant"], args.profile)
     launches_sdf = sum(by_variant_sdf.values())
     sdf_card_against_cpu(sdf_cfgs["base"], dev, fused_mlp_forward)
     shapes["sdf"]["sdf_path"] = sdf_path.get("base")
@@ -4168,9 +4443,9 @@ def main():
     t_new = time.perf_counter()
     work = tempfile.mkdtemp(prefix="geometry_")
     try:
-        by_variant_geometry, geometry_path = geometry_mode(
-            work, train_tb, dev, smi, fused_mlp_forward,
-            tuple(main_variants.values()))
+        by_variant_geometry, geometry_path = grid_paths.run(
+            "geometry", geometry_mode, work, train_tb, dev, smi,
+            fused_mlp_forward, tuple(main_variants.values()))
         launches_geometry = sum(by_variant_geometry.values())
         del train_tb
         torch.cuda.empty_cache()
@@ -4196,6 +4471,50 @@ def main():
 
     if args.curve:
         train_curve(ds, cfg, dev, smi)
+
+    # the grid kernels on the main paths: every path launched them, and no
+    # plain grid method ran on a CUDA tensor anywhere since phase 4
+    grid_keys = {
+        "grid_encode_forward": ("encode_forward[exact]",),
+        "grid_encode_forward[stochastic]": ("encode_forward[stochastic]",),
+        "grid_table_gradient": ("table_gradient[exact]",),
+        "grid_table_gradient[stochastic]": ("table_gradient[one_corner]",
+                                            "table_gradient[fetched]"),
+        "grid_input_gradient": ("input_gradient[exact]",)}
+    replaces = {"grid_encode_forward": 329, "grid_table_gradient": 329,
+                "grid_input_gradient": 329,
+                "grid_encode_forward[stochastic]": 817,
+                "grid_table_gradient[stochastic]": 817}
+    print(f"grid kernel launches by path: {grid_paths.by_path}; plain grid "
+          f"calls on CUDA tensors: {GridEncoding.plain_calls_on_cuda}",
+          flush=True)
+    if GridEncoding.plain_calls_on_cuda != 0:
+        raise RuntimeError(f"{GridEncoding.plain_calls_on_cuda} plain grid "
+                           f"calls on CUDA tensors on the main paths")
+    for path in GRID_PATHS:
+        if not sum(grid_paths.by_path.get(path, {}).values()):
+            raise RuntimeError(f"the {path} path launched no grid kernel")
+    for name, keys in grid_keys.items():
+        if grid_paths.total(*keys) == 0:
+            raise RuntimeError(f"{name} was launched on no main path")
+    grid_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "instant_ngp_tpu_torch/csrc/grid_encoding.cu",
+        "replaces": f"instant_ngp_tpu/ops/grid_encoding.py:{replaces[name]}",
+        # on GRID_PATHS, each counted from 0 (a table-gradient launch is
+        # its key kernel, the stable sort and its sum kernel)
+        "launches": grid_paths.total(*keys),
+        "launches_by_path": {path: sum(c.get(k, 0) for k in keys)
+                             for path, c in grid_paths.by_path.items()},
+        **{k: grid_rows[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        # no PyTorch call computes a grid encode or its gradients
+        "library_ms": None,
+        **{k: grid_rows[name][k] for k in (
+            "ref_max_abs", "variant", "points", "bytes_moved",
+            "bytes_gathered", "share_of_bound", "bit_equal_to_plain")},
+    } for name, keys in grid_keys.items()]
 
     kernels = [{
         "name": "fused_mlp_forward",
@@ -4310,7 +4629,7 @@ def main():
         "chain_ms": wide["nerf_frequency_density"]["chain_ms"],
         "shapes": wide,
         "wide_path": wide_path,
-    }]
+    }] + grid_entries
     print(json.dumps({"kernels": kernels}))
     print(smi)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -54,10 +54,17 @@ sampled one, with weight 1, which is unbiased too; otherwise to every
 corner the forward fetched, with its weight. The Function saves x and the
 draws and recomputes the indices.
 
-This is plain PyTorch: one gather per level and fetched corner. The CUDA
-kernel for the three variants (exact with both gradients, the j-axis
-stochastic forward, the one-corner deposit) is the next kernel the port
-needs (the JAX package has no TPU kernel for it).
+Five methods dispatch by the device of x: `_encode`,
+`_encode_stochastic`, `_table_gradient`, `_table_gradient_stochastic` and
+`_input_gradient` launch the hand-written kernels of
+`csrc/grid_encoding.cu` (through `ops/kernels/grid_kernels.py`) on a CUDA
+tensor, and on a CPU tensor run their plain PyTorch versions (the
+`_*_plain` methods: one gather per level and fetched corner, the deposit
+by `ordered_deposit`). On the card a kernel runs or the call raises. The
+kernels' table gradient keeps the plain card path's order (a stable sort
+of the table rows, then one sequential float32 sum a row) and so its bits.
+`plain_calls_on_cuda` counts calls of a plain version on a CUDA tensor,
+which no path of the port makes.
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .kernels import grid_kernels
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32_MASK = 0xFFFFFFFF
@@ -143,6 +152,9 @@ class GridEncoding(nn.Module):
     stochastic-corner estimator (see the module docstring); they change
     nothing unless `forward` is given draws or a generator."""
 
+    #: calls of a plain version (`_*_plain`) on a CUDA tensor
+    plain_calls_on_cuda = 0
+
     def __init__(self, n_dims: int, n_levels: int = 16,
                  n_features_per_level: int = 2, log2_hashmap_size: int = 19,
                  base_resolution: int = 16, per_level_scale: float = 2.0,
@@ -192,6 +204,7 @@ class GridEncoding(nn.Module):
                                        indexing="ij"), -1).reshape(-1, n_dims)
         self.register_buffer("corners", torch.from_numpy(corners).long(),
                              persistent=False)
+        self._kernel_desc = None
 
     @classmethod
     def from_config(cls, n_dims: int, config: Dict[str, Any]
@@ -318,8 +331,97 @@ class GridEncoding(nn.Module):
     def _masked(self, max_level: Optional[float], lvl: int) -> bool:
         return max_level is not None and not max_level >= lvl
 
+    # ---- dispatch: the kernels on CUDA tensors, the plain versions on
+    # CPU tensors ------------------------------------------------------------
+    @property
+    def kernel_desc(self):
+        """The levels as `ops/kernels/grid_kernels.py` takes them (built on
+        first use; raises where the kernels cannot take this grid)."""
+        if self._kernel_desc is None:
+            self._kernel_desc = grid_kernels.grid_desc(
+                self.n_dims, self.n_features_per_level, self.grid_type,
+                self.interpolation, self.levels)
+        return self._kernel_desc
+
+    def _active_levels(self, max_level: Optional[float]) -> int:
+        """How many levels `max_level` leaves on: the masked ones are the
+        levels above it (all of them where it is NaN)."""
+        return sum(not self._masked(max_level, lvl)
+                   for lvl in range(self.n_levels))
+
     def _encode(self, params: torch.Tensor, x: torch.Tensor,
                 max_level: Optional[float]) -> torch.Tensor:
+        """The exact encode (N, L*F): `grid_kernels.encode_forward` on a
+        CUDA tensor, `_encode_plain` on a CPU one."""
+        if x.device.type == "cpu":
+            return self._encode_plain(params, x, max_level)
+        return grid_kernels.encode_forward(
+            self.kernel_desc, params.detach(), x.detach().contiguous(),
+            self._active_levels(max_level))
+
+    def _table_gradient(self, x: torch.Tensor, grad_out: torch.Tensor,
+                        max_level: Optional[float]) -> torch.Tensor:
+        """d(loss)/d(params) of the exact encode, flat like params:
+        `grid_kernels.table_gradient` on a CUDA tensor,
+        `_table_gradient_plain` on a CPU one."""
+        if x.device.type == "cpu":
+            return self._table_gradient_plain(x, grad_out, max_level)
+        return grid_kernels.table_gradient(
+            self.kernel_desc, x.detach().contiguous(), grad_out.contiguous(),
+            self._active_levels(max_level), grid_kernels.EXACT)
+
+    def _input_gradient(self, params: torch.Tensor, x: torch.Tensor,
+                        grad_out: torch.Tensor, max_level: Optional[float]
+                        ) -> torch.Tensor:
+        """d(loss)/d(x) (N, d) of the exact encode:
+        `grid_kernels.input_gradient` on a CUDA tensor,
+        `_input_gradient_plain` on a CPU one."""
+        if x.device.type == "cpu":
+            return self._input_gradient_plain(params, x, grad_out, max_level)
+        return grid_kernels.input_gradient(
+            self.kernel_desc, params.detach(), x.detach().contiguous(),
+            grad_out.contiguous(), self._active_levels(max_level))
+
+    def _encode_stochastic(self, params: torch.Tensor, x: torch.Tensor,
+                           max_level: Optional[float], draws: CornerDraws,
+                           j: int) -> torch.Tensor:
+        """The stochastic-corner forward with j exact axes:
+        `grid_kernels.encode_forward` on a CUDA tensor,
+        `_encode_stochastic_plain` on a CPU one."""
+        if x.device.type == "cpu":
+            return self._encode_stochastic_plain(params, x, max_level,
+                                                 draws, j)
+        return grid_kernels.encode_forward(
+            self.kernel_desc, params.detach(), x.detach().contiguous(),
+            self._active_levels(max_level), draws, j)
+
+    def _table_gradient_stochastic(self, x: torch.Tensor,
+                                   grad_out: torch.Tensor,
+                                   max_level: Optional[float],
+                                   draws: CornerDraws, j: int
+                                   ) -> torch.Tensor:
+        """The stochastic-corner encode's table gradient (every fetched
+        corner, or the fully sampled one alone where j = 0 or
+        `stochastic_bwd`): `grid_kernels.table_gradient` on a CUDA tensor,
+        `_table_gradient_stochastic_plain` on a CPU one."""
+        if x.device.type == "cpu":
+            return self._table_gradient_stochastic_plain(x, grad_out,
+                                                         max_level, draws, j)
+        one = j == 0 or self.stochastic_bwd
+        return grid_kernels.table_gradient(
+            self.kernel_desc, x.detach().contiguous(), grad_out.contiguous(),
+            self._active_levels(max_level),
+            grid_kernels.ONE_CORNER if one else grid_kernels.FETCHED,
+            draws, 0 if one else j)
+
+    # ---- the plain versions ------------------------------------------------
+    def _count_plain(self, x: torch.Tensor) -> None:
+        if x.device.type == "cuda":
+            GridEncoding.plain_calls_on_cuda += 1
+
+    def _encode_plain(self, params: torch.Tensor, x: torch.Tensor,
+                      max_level: Optional[float]) -> torch.Tensor:
+        self._count_plain(x)
         table = params.view(-1, self.n_features_per_level)
         outs = []
         for lvl in range(self.n_levels):
@@ -330,9 +432,10 @@ class GridEncoding(nn.Module):
             outs.append((feats * weight[..., None]).sum(dim=1))
         return torch.cat(outs, dim=-1)
 
-    def _table_gradient(self, x: torch.Tensor, grad_out: torch.Tensor,
-                        max_level: Optional[float]) -> torch.Tensor:
+    def _table_gradient_plain(self, x: torch.Tensor, grad_out: torch.Tensor,
+                              max_level: Optional[float]) -> torch.Tensor:
         """d(loss)/d(params) from grad_out (N, L*F): flat, like params."""
+        self._count_plain(x)
         n_feat = self.n_features_per_level
         grad = torch.zeros(self.n_entries, n_feat, dtype=grad_out.dtype,
                            device=grad_out.device)
@@ -346,12 +449,13 @@ class GridEncoding(nn.Module):
                             deposit.reshape(-1, n_feat))
         return grad.view(-1)
 
-    def _input_gradient(self, params: torch.Tensor, x: torch.Tensor,
-                        grad_out: torch.Tensor, max_level: Optional[float]
-                        ) -> torch.Tensor:
+    def _input_gradient_plain(self, params: torch.Tensor, x: torch.Tensor,
+                              grad_out: torch.Tensor,
+                              max_level: Optional[float]) -> torch.Tensor:
         """d(loss)/d(x) (N, d) of the exact encode from grad_out (N, L*F):
         sum over levels and corners of (grad . feature) * d(weight)/dx_k,
         with d(weight)/dx_k = dw_sel_k * prod of the other axes' w_sel."""
+        self._count_plain(x)
         n_feat = self.n_features_per_level
         table = params.view(-1, n_feat)
         grad = torch.zeros_like(x)
@@ -405,9 +509,10 @@ class GridEncoding(nn.Module):
             pairs.append((self._index(pos0 + bits, lvl), weight))
         return pairs
 
-    def _encode_stochastic(self, params: torch.Tensor, x: torch.Tensor,
-                           max_level: Optional[float], draws: CornerDraws,
-                           j: int) -> torch.Tensor:
+    def _encode_stochastic_plain(self, params: torch.Tensor, x: torch.Tensor,
+                                 max_level: Optional[float],
+                                 draws: CornerDraws, j: int) -> torch.Tensor:
+        self._count_plain(x)
         table = params.view(-1, self.n_features_per_level)
         outs = []
         for lvl in range(self.n_levels):
@@ -426,11 +531,12 @@ class GridEncoding(nn.Module):
             outs.append(out)
         return torch.cat(outs, dim=-1)
 
-    def _table_gradient_stochastic(self, x: torch.Tensor,
-                                   grad_out: torch.Tensor,
-                                   max_level: Optional[float],
-                                   draws: CornerDraws, j: int
-                                   ) -> torch.Tensor:
+    def _table_gradient_stochastic_plain(self, x: torch.Tensor,
+                                         grad_out: torch.Tensor,
+                                         max_level: Optional[float],
+                                         draws: CornerDraws, j: int
+                                         ) -> torch.Tensor:
+        self._count_plain(x)
         n_feat = self.n_features_per_level
         grad = torch.zeros(self.n_entries, n_feat, dtype=grad_out.dtype,
                            device=grad_out.device)

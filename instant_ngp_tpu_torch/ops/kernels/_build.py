@@ -153,8 +153,28 @@ def load_library() -> ctypes.CDLL:
     lib.fused_mlp_mma_has_variant.argtypes = [i32, dims, i32, i32]
     # (d_in, in_p, elem_bytes, aligned)
     lib.fused_mlp_mma_input_path.argtypes = [i32, i32, i32, i32]
+    # the grid encode (csrc/grid_encoding.cu): (ints, scales, ...)
+    i64, f32s = ctypes.c_longlong, ctypes.POINTER(ctypes.c_float)
+    # (x, table, u, axis, out, n, active, j, stream)
+    lib.grid_forward_launch.argtypes = [
+        dims, f32s, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    # (n_dims, n, active, mode, j)
+    lib.grid_deposit_count.argtypes = [i32, i64, i32, i32, i32]
+    lib.grid_deposit_count.restype = i64
+    # (x, u, axis, grad_out, keys, n, active, mode, j, stream)
+    lib.grid_deposit_keys_launch.argtypes = [
+        dims, f32s, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    # (x, axis, grad_out, sorted keys, perm, grad, n, active, mode, j,
+    #  stream)
+    lib.grid_deposit_sum_launch.argtypes = [
+        dims, f32s, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    # (x, table, grad_out, grad_x, n, active, stream)
+    lib.grid_input_gradient_launch.argtypes = [
+        dims, f32s, ptr, ptr, ptr, ptr, i64, i32, ptr]
     for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
                lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant,
-               lib.fused_mlp_mma_input_path):
+               lib.fused_mlp_mma_input_path, lib.grid_forward_launch,
+               lib.grid_deposit_keys_launch, lib.grid_deposit_sum_launch,
+               lib.grid_input_gradient_launch):
         fn.restype = ctypes.c_int
     return lib

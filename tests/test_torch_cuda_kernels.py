@@ -685,3 +685,174 @@ def test_train_paths_repeat_and_warn_only_of_order_free_ops(device):
                                   device, "", small=True)
     assert len(out) == 5
     assert all(r["repeats"] and not r["outside"] for r in out.values())
+
+
+# -- the grid encode (csrc/grid_encoding.cu) ----------------------------------
+# Tolerances: the exact forward sums 2^d products of order 1 in another
+# order than the plain version's reduction: max abs 1e-5. The stochastic
+# forward and the table gradient repeat the plain arithmetic in its order
+# (the table gradient: index_put_'s stable order, sequential float32 sums,
+# one per group): the same bits. The input gradient sums products of order
+# scale (up to 2047 here) over levels and corners in another order: max
+# abs 1e-4 of the reference's largest value.
+GRID_CASES = [
+    # (n_dims, grid type, interpolation, features, levels, log2 hashmap,
+    #  base resolution, per-level scale)
+    (3, "Hash", "Linear", 4, 8, 19, 16, 2.0),       # configs/nerf/base.json
+    (2, "Hash", "Linear", 2, 16, 15, 16, 2.0),      # image, the hash cut
+    (3, "Hash", "Linear", 2, 16, 19, 16, 2.0),      # volume, sdf
+    (3, "Tiled", "Linear", 8, 2, 19, 128, 1.0),     # nerf densegrid_1res
+    (3, "Dense", "Smoothstep", 2, 4, 19, 16, 1.405),
+    (2, "Tiled", "Nearest", 4, 4, 10, 8, 2.0),
+    (3, "Hash", "Smoothstep", 2, 4, 12, 8, 2.0),
+]
+GRID_IDS = [f"{c[0]}d-{c[1]}-{c[2]}-F{c[3]}" for c in GRID_CASES]
+
+
+def _grid_case(case, n, device, seed=0):
+    """A grid on the card with a U(-1, 1) table, n points in [-0.05, 1.05]^d
+    of which the first lie on cell faces of every level (x = m / scale,
+    and 0, 1), grad_out ~ N(0, 1); from 1000 points on, the last eighth
+    are a train step's padding: one position and a zero gradient (one long
+    run of keys a corner, which the deposit skips)."""
+    from instant_ngp_tpu_torch.ops.grid_encoding import GridEncoding
+
+    d, gtype, interp, f, levels, log2_t, base, pls = case
+    enc = GridEncoding(d, n_levels=levels, n_features_per_level=f,
+                       log2_hashmap_size=log2_t, base_resolution=base,
+                       per_level_scale=pls, grid_type=gtype,
+                       interpolation=interp).to(device)
+    rng = np.random.default_rng(seed + levels * f)
+    with torch.no_grad():
+        enc.params.copy_(torch.from_numpy(rng.uniform(
+            -1.0, 1.0, enc.n_params).astype(np.float32)))
+    x = rng.uniform(-0.05, 1.05, (n, d)).astype(np.float32)
+    faces = [np.float32(m) / np.float32(s) for s, *_ in enc.levels
+             for m in (1, 3, 7)] + [0.0, 1.0]
+    k = min(n, len(faces))
+    x[:k] = np.asarray(faces[:k], dtype=np.float32)[:, None]
+    g_out = rng.normal(size=(n, enc.n_output_dims)).astype(np.float32)
+    if n >= 1000:
+        x[-(n // 8):] = 0.3
+        g_out[-(n // 8):] = 0.0
+    return enc, torch.from_numpy(x).to(device), \
+        torch.from_numpy(g_out).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 100003])
+@pytest.mark.parametrize("case", GRID_CASES, ids=GRID_IDS)
+def test_grid_forward_matches_plain(device, case, n):
+    from instant_ngp_tpu_torch.ops.grid_encoding import draw_corner_randoms
+    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+
+    enc, x, _ = _grid_case(case, n, device)
+    p = enc.params.detach()
+    for max_level in (None, 1.5):
+        before = grid_kernels.encode_forward.launches
+        out = enc._encode(p, x, max_level)
+        assert grid_kernels.encode_forward.launches == before + 1
+        ref = enc._encode_plain(p, x, max_level)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        assert (out - ref).abs().max().item() <= 1e-5
+        gen = torch.Generator(device=device).manual_seed(n)
+        for j in range(enc.n_dims):
+            draws = draw_corner_randoms(gen, n, enc.n_dims, enc.n_levels, j)
+            out = enc._encode_stochastic(p, x, max_level, draws, j)
+            ref = enc._encode_stochastic_plain(p, x, max_level, draws, j)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (j, max_level)
+
+
+@pytest.mark.parametrize("n", [257, 100003])
+@pytest.mark.parametrize("case", GRID_CASES, ids=GRID_IDS)
+def test_grid_table_gradient_has_the_plain_card_paths_bits(device, case, n):
+    """Every variant of the deposit (exact; j = 0; the fetched corners and
+    the one sampled corner at j = 1 and 2) equals `ordered_deposit`'s card
+    path (`index_put_` with accumulate) bit for bit, and repeats."""
+    from instant_ngp_tpu_torch.ops.grid_encoding import draw_corner_randoms
+
+    enc, x, g_out = _grid_case(case, n, device)
+    gen = torch.Generator(device=device).manual_seed(n + 1)
+    for max_level in (None, 1.5):
+        runs = [enc._table_gradient(x, g_out, max_level) for _ in range(2)]
+        ref = enc._table_gradient_plain(x, g_out, max_level)
+        torch.cuda.synchronize()
+        assert ref.abs().max().item() > 0
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], ref)
+        for j in range(enc.n_dims):
+            draws = draw_corner_randoms(gen, n, enc.n_dims, enc.n_levels, j)
+            for one in ((False, True) if j else (False,)):
+                enc.stochastic_bwd = one
+                runs = [enc._table_gradient_stochastic(x, g_out, max_level,
+                                                       draws, j)
+                        for _ in range(2)]
+                ref = enc._table_gradient_stochastic_plain(
+                    x, g_out, max_level, draws, j)
+                torch.cuda.synchronize()
+                assert torch.equal(runs[0], runs[1])
+                assert torch.equal(runs[0], ref), (j, one, max_level)
+        enc.stochastic_bwd = False
+
+
+@pytest.mark.parametrize("n", [1, 257, 100003])
+@pytest.mark.parametrize("case", GRID_CASES, ids=GRID_IDS)
+def test_grid_input_gradient_matches_plain_and_repeats(device, case, n):
+    enc, x, g_out = _grid_case(case, n, device)
+    p = enc.params.detach()
+    for max_level in (None, 1.5):
+        runs = [enc._input_gradient(p, x, g_out, max_level)
+                for _ in range(2)]
+        ref = enc._input_gradient_plain(p, x, g_out, max_level)
+        torch.cuda.synchronize()
+        assert runs[0].shape == (n, enc.n_dims)
+        assert torch.equal(runs[0], runs[1])
+        scale = ref.abs().max().item()
+        if enc.interpolation == "Nearest":
+            assert scale == 0 and (runs[0] == 0).all()
+        else:
+            assert (runs[0] - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_grid_kernels_serve_autograd_and_no_plain_call(device):
+    """The encode under autograd on the card (the exact one with both
+    gradients, the stochastic one with its table gradient) launches the
+    kernels and calls no plain version."""
+    from instant_ngp_tpu_torch.ops.grid_encoding import (GridEncoding,
+                                                         draw_corner_randoms)
+    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+
+    enc, x, g_out = _grid_case(GRID_CASES[0], 4096, device)
+    enc.stochastic_exact_axes, enc.stochastic_bwd = 1, True
+    plain_before = GridEncoding.plain_calls_on_cuda
+    before = grid_kernels.launch_counts()
+    enc.params.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    out = enc(xg)
+    torch.autograd.grad((out * g_out).sum(), (enc.params, xg))
+    draws = draw_corner_randoms(torch.Generator(device=device).manual_seed(1),
+                                4096, 3, enc.n_levels, 1)
+    out = enc(x, draws=draws)
+    torch.autograd.grad((out * g_out).sum(), enc.params)
+    after = grid_kernels.launch_counts()
+    for name in ("encode_forward[exact]", "encode_forward[stochastic]",
+                 "table_gradient[exact]", "table_gradient[one_corner]",
+                 "input_gradient[exact]"):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name
+    assert GridEncoding.plain_calls_on_cuda == plain_before
+
+
+def test_grid_wrappers_reject_what_the_kernels_do_not_take(device):
+    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+
+    enc, x, g_out = _grid_case(GRID_CASES[5], 64, device)
+    desc, p = enc.kernel_desc, enc.params.detach()
+    for call in (
+            lambda: grid_kernels.encode_forward(desc, p, x.double(), 4),
+            lambda: grid_kernels.encode_forward(desc, p, x.t(), 4),
+            lambda: grid_kernels.encode_forward(desc, p[1:], x, 4),
+            lambda: grid_kernels.encode_forward(desc, p, x, 4, None, 2),
+            lambda: grid_kernels.table_gradient(desc, x, g_out[:, :3], 4),
+            lambda: grid_kernels.input_gradient(desc, p, x, g_out.cpu(), 4)):
+        with pytest.raises(ValueError):
+            call()
