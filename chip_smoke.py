@@ -47,7 +47,11 @@ Phases, each of which raises on failure (a non-zero exit):
    densegrid and densegrid_1res at GRID_SMALL points (the first on cell
    faces), with and without max_level, then base.json's at 2^20 points on
    a U(-1, 1) table, each kernel and plain version timed with CUDA events
-   beside the bytes bound and the bytes the gathers read. The gradients
+   beside the bytes bound and the bytes the gathers read, the exact
+   forward also with an L2 persisting window on the table, the table
+   gradient split into its parts (CUDA events and a torch.profiler table
+   by kernel) beside one index_put_ call on its deposits' rows and
+   values (the library call the kernels line reports). The gradients
    must repeat bit for bit; whether each kernel gave the plain version's
    bits is printed. From phase 4 on, the density pass, the frames, both
    trainings of phase 6, the capture, Image, Volume, SDF and Geometry
@@ -229,6 +233,10 @@ n_march) and prints PSNR and training seconds at steps 128, 256, 512 and
 1024 beside that record's PSNRs; a third does the same with the exact
 encode. It fails if a milestone of the default run lies more than
 CURVE_SLACK_DB from the record, above or below.
+
+    python3 chip_smoke.py --grid-only
+
+builds the kernels and then only runs phase 3b; it prints no result line.
 
     python3 chip_smoke.py --deposit-ab
 
@@ -2141,6 +2149,89 @@ def check_grid_call(kernel, plain, name, variant, what):
     return err, same, scale
 
 
+def deposit_split(enc, x, g_out, draws, mode, reps=5):
+    """The CUDA-event milliseconds of each part of one table-gradient call
+    (`grid_kernels.table_gradient`'s marks), medians over `reps` warm
+    calls -> {part: ms}."""
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+
+    call = lambda marks=None: grid_kernels.table_gradient(  # noqa: E731
+        enc.kernel_desc, x, g_out, enc.n_levels, mode,
+        draws[1] if mode != grid_kernels.EXACT else None, 0, marks=marks)
+    call()
+    parts = {}
+    for _ in range(reps):
+        marks = []
+        call(marks)
+        torch.cuda.synchronize()
+        for (_, a), (label, b) in zip(marks, marks[1:]):
+            parts.setdefault(label, []).append(a.elapsed_time(b))
+    return {label: statistics.median(v) for label, v in parts.items()}
+
+
+def kernel_times(fn, reps=3):
+    """{CUDA kernel name: device ms a call} of `fn` under torch.profiler,
+    means over `reps` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, kernels, self_us = profiler_kernels(prof)
+    return {e.key[:60]: self_us(e) / 1e3 / reps for e in kernels}
+
+
+def forward_with_l2_window(enc, kernel):
+    """The exact forward's CUDA-event ms on a stream whose L2 access policy
+    window holds the table persisting (as much as the card sets aside;
+    `grid_l2_window`), the window cleared after."""
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels._build import load_library
+
+    lib = load_library()
+    params = enc.params.detach()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        err = lib.grid_l2_window(stream.cuda_stream, params.data_ptr(),
+                                 4 * params.numel())
+        if err:
+            raise RuntimeError(f"grid_l2_window: CUDA error {err}")
+        try:
+            return cuda_ms(kernel)
+        finally:
+            torch.cuda.synchronize()
+            lib.grid_l2_window(stream.cuda_stream, None, 0)
+
+
+def deposit_rows_and_values(enc, x, g_out, draws, one_corner):
+    """Every deposit of the exact (or the one-corner stochastic) table
+    gradient as (rows (K,) int64, values (K, F)), levels in turn: the
+    input of one `index_put_(..., accumulate=True)` call."""
+    import torch
+
+    f = enc.n_features_per_level
+    rows, values = [], []
+    for lvl in range(enc.n_levels):
+        g = g_out[:, lvl * f:(lvl + 1) * f]
+        if one_corner:
+            idx, _ = enc._stochastic_corners(x, lvl, draws[1], 1,
+                                             sampled_only=True)[0]
+            rows.append(idx)
+            values.append(g)
+        else:
+            idx, weight = enc._level_corners(x, lvl)
+            rows.append(idx.reshape(-1))
+            values.append((g[:, None, :] * weight[..., None]).reshape(-1, f))
+    return torch.cat(rows), torch.cat(values)
+
+
 def grid_kernels_on_card(dev, smi):
     """Phase 3b: the grid encode's kernels against their plain versions
     (the `_*_plain` methods of GridEncoding, on the same CUDA tensors):
@@ -2154,6 +2245,7 @@ def grid_kernels_on_card(dev, smi):
 
     from instant_ngp_tpu_torch.config import (find_network_config,
                                               load_network_config)
+    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
 
     t0 = time.perf_counter()
     rows = {}
@@ -2238,6 +2330,34 @@ def grid_kernels_on_card(dev, smi):
               f"{100 * bound_ms / min(ms):.1f} % reached), "
               f"{gathered[key] / 1e6:.1f} MB gathered; bit-equal to plain: "
               f"{row['bit_equal_to_plain'][key[1]]} [{smi}]", flush=True)
+        if key == ("grid_encode_forward", "exact"):
+            row["l2_window_ms"] = forward_with_l2_window(enc, kernel)
+            print(f"grid kernel {key[0]} [{key[1]}] x {n} with an L2 "
+                  f"persisting window on the table: "
+                  f"{row['l2_window_ms']:.4f} ms (without: {min(ms):.4f}) "
+                  f"[{smi}]", flush=True)
+        if key[0].startswith("grid_table_gradient"):
+            # the deposit's parts, and one index_put_ call (the plain card
+            # path's library call) on the same deposits' rows and values
+            one = key[0] != "grid_table_gradient"
+            row["split_ms"] = deposit_split(
+                enc, x, g_out, draws,
+                grid_kernels.ONE_CORNER if one else grid_kernels.EXACT)
+            row["kernel_ms"] = kernel_times(kernel)
+            dep_rows, dep_values = deposit_rows_and_values(enc, x, g_out,
+                                                           draws, one)
+            table = torch.zeros(enc.n_entries, f, device=dev)
+            row["library_ms"] = cuda_ms(lambda: table.index_put_(
+                (dep_rows,), dep_values, accumulate=True), reps=3, inner=2)
+            row["library_call"] = (f"index_put_(accumulate=True) of "
+                                   f"{dep_rows.numel()} rows")
+            del dep_rows, dep_values, table
+            print(f"grid kernel {key[0]} [{key[1]}] x {n}: parts "
+                  f"{ {k: round(v, 4) for k, v in row['split_ms'].items()} }"
+                  f" ms; one {row['library_call']}: "
+                  f"{row['library_ms']:.4f} ms; by kernel (torch.profiler) "
+                  f"{ {k: round(v, 4) for k, v in row['kernel_ms'].items()} }"
+                  f" [{smi}]", flush=True)
     del enc, x, g_out, draws, calls
     torch.cuda.empty_cache()
     print(f"phase 3b (grid kernels): {time.perf_counter() - t0:.1f} s; "
@@ -4009,6 +4129,9 @@ def main():
                         help="also train 1024 steps under the protocol of "
                              "the JAX package's quality record and print "
                              "PSNR by step beside it")
+    parser.add_argument("--grid-only", action="store_true",
+                        help="after the build, only run phase 3b (the grid "
+                             "kernels) and stop")
     parser.add_argument("--deposit-ab", action="store_true",
                         help="after the build, only time the table "
                              "gradient's deposit by index_put_ against "
@@ -4047,8 +4170,13 @@ def main():
     log = (lib_path.parent / "build.log")
     if log.is_file():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                print(f"  ptxas: {line.split('for ')[-1].strip()[:72]}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    if args.grid_only:
+        grid_kernels_on_card(dev, smi)
+        return
     if args.deposit_ab:
         deposit_ab(load_network_config(find_network_config("base", "nerf")),
                    load_network_config(find_network_config("base", "image")),
@@ -4503,14 +4631,15 @@ def main():
         "source": "instant_ngp_tpu_torch/csrc/grid_encoding.cu",
         "replaces": f"instant_ngp_tpu/ops/grid_encoding.py:{replaces[name]}",
         # on GRID_PATHS, each counted from 0 (a table-gradient launch is
-        # its key kernel, the stable sort and its sum kernel)
+        # its radix sort's passes and its sum, one wrapper call)
         "launches": grid_paths.total(*keys),
         "launches_by_path": {path: sum(c.get(k, 0) for k in keys)
                              for path, c in grid_paths.by_path.items()},
         **{k: grid_rows[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-        # no PyTorch call computes a grid encode or its gradients
-        "library_ms": None,
+        # no PyTorch call computes a grid encode; the deposits' rows and
+        # values summed by one index_put_ call, for the table gradient
+        "library_ms": grid_rows[name].get("library_ms"),
         **{k: grid_rows[name][k] for k in (
             "ref_max_abs", "variant", "points", "bytes_moved",
             "bytes_gathered", "share_of_bound", "bit_equal_to_plain")},

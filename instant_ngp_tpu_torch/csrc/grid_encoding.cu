@@ -12,33 +12,53 @@
 // wrappers in ops/kernels/grid_kernels.py validate every argument before
 // calling the launchers below. The index walk is grid_encoding.cuh.
 //
-// What bounds them on this card: bytes, and in practice the latency of
-// the gathers. A point at a level reads 2^d table rows of F floats at
+// What bounds them on this card: bytes, and in practice where the gathers
+// are served from. A point at a level reads 2^d table rows of F floats at
 // hashed addresses (1.07 GB gathered at 2^20 points of configs/nerf/
-// base.json against 193 MB that must move), so the design keeps every
-// gather one vector load and as many of them in flight as it can:
-//   - forward: one thread per (point, level), neighbouring threads on the
-//     levels of one point, so the output is written in whole runs; a
-//     row's F features are one 8-, 16- or two 16-byte loads in the
-//     interleaved layout;
+// base.json against 193 MB that must move); the table (46.7 MB there)
+// nearly fills the 50 MB L2 by itself. So:
+//   - exact forward: the work is ordered level-major, so the blocks
+//     resident at any moment gather from one or two levels' slice of the
+//     table (<= 16 MB there), which stays in the L2, instead of from all
+//     of it; two lanes encode a point, so that a pair of corners in one
+//     32-byte sector is one warp instruction's sector; a point's levels
+//     that fill one 32-byte sector of its output row are written with
+//     streaming stores, so the output passes the L2 in whole sectors
+//     without evicting the table. A (point, level)'s arithmetic is that of
+//     one thread a point: corners in order, each product and sum an
+//     explicit round-to-nearest intrinsic. The stochastic forward keeps
+//     one thread per (point, level): its draws are point-major;
 //   - table gradient: no float atomics (their order changes between runs,
 //     and Adam's eps of 1e-15 turns the difference of near-zero sums into
-//     full-size steps). `grid_deposit_keys` writes one int32 key, the
-//     table row, per deposited (group, level, point, corner), and kSkip for
-//     the deposits of a point whose gradient at that level is zero (a train
-//     step's padded samples: one position, so one very long run each); the
-//     wrapper orders the keys with a stable sort, once for all levels; and
-//     `grid_deposit_sum` gives each run of equal keys to the thread at its
-//     head, or to that thread's warp where the run is long, and recomputes
-//     every deposit g * weight from x and the draws (the (N, C, F)
-//     deposits are never stored) and adds them in that order, each product
-//     rounded before the add. That is the order and the arithmetic of
-//     `index_put_` with accumulate on CUDA, which the plain version calls
-//     once per level and group: within a row, one sequential float32 sum
-//     per group (the stochastic j-axis deposit calls it once per fetched
-//     corner), and the groups' sums added in turn: the plain card path's
-//     bits for 2, 4 and 8 features a level, the counts instantiated here
-//     (for a one-column slice index_put_ sums long runs by a warp tree);
+//     full-size steps) and no library sort. The deposits, laid out
+//     [group][point][level][corner], are put in the order of their table
+//     rows by a stable LSD radix sort written here: 8-bit digits of the
+//     key's own bits (3 passes for base.json's 2,920,448 rows), an int32
+//     position as payload, each pass a block histogram in shared memory, a
+//     scan of the tiles' counts, and a scatter ranked within the block (a
+//     warp's lanes with one digit find each other by atomicOr on shared
+//     bins) and staged in shared memory so that each digit's run leaves
+//     the block in whole sectors. The first pass computes the rows itself
+//     (they are never written unsorted), writes each (level, point)'s
+//     gradient row and weights level-major on the way, and leaves out the
+//     deposits of a point whose gradient at that level is zero (a train
+//     step's padded samples: one position, so one very long run each; they
+//     add +-0, which changes no bit). The sum then stages a tile of sorted
+//     deposits at a time: every thread gathers its deposits' records at
+//     once and writes g * weight to shared memory, and the owner of each
+//     run of equal rows adds them in order from there; a run that goes on
+//     past the tile (a coarse level's row, which thousands of points share)
+//     is added by one thread while the block stages the rest of it tile by
+//     tile. The sorted order walks one level (and for the exact deposit one
+//     point range) at a time, so the records it gathers stay in the L2.
+//     Within a row that is one sequential float32 sum per group, each
+//     product rounded before the add, and the groups' sums added in turn:
+//     the order and the arithmetic of `index_put_` with accumulate on CUDA,
+//     which the plain version calls once per level and group (the
+//     stochastic j-axis deposit once per fetched corner), so the plain card
+//     path's bits for 2, 4 and 8 features a level, the counts instantiated
+//     here (for a one-column slice index_put_ sums long runs by a warp
+//     tree);
 //   - input gradient: one thread per point walks its levels and corners
 //     and writes its d values once.
 
@@ -53,15 +73,33 @@ namespace {
 using namespace ngp_grid;
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
 // table-gradient modes: every corner weighted (the exact encode), the one
 // fully sampled corner with weight 1 (j = 0, or `stochastic_bwd`), the 2^j
 // fetched corners weighted, one group (plain `index_put_` call) each
 constexpr int kExact = 0, kOneCorner = 1, kFetched = 2;
-// the key of a deposit that adds nothing (its point's gradient at that
-// level is zero): above every table row, so it sorts last and is skipped
-constexpr int kSkip = 0x7fffffff;
-// the longest run of equal keys one thread sums alone
-constexpr long long kLongRun = 16;
+// the radix sort: digits of kRadixBits (one bucket a thread of the
+// block), kItems keys a thread, so a tile of kSortTile keys a block
+constexpr int kRadixBits = 8;
+constexpr int kBuckets = 1 << kRadixBits;
+constexpr int kItems = 16;
+constexpr int kWarpItems = 32 * kItems;
+constexpr int kSortTile = kBlock * kItems;
+static_assert(kBuckets == kBlock, "one bucket a thread");
+// the sorted deposits a block of the sum stages at a time
+constexpr int kSumTile = 1024;
+constexpr int kSumPerThread = kSumTile / kBlock;
+// The exact deposit's points are split into up to kMaxChunks ranges whose
+// records at one level take at most kChunkBytes, and sorted by (range,
+// row): the sum then gathers from one range's records of one level at a
+// time, which stay in the L2 (each is read by 2^D deposits; an SM reaches
+// about half the 50 MB fast, the L2 being two partitions). A row's
+// deposits keep their order, the ranges following one another in point
+// order, and each range's sum launch goes on from the partial sums the
+// previous one left in the rows. The other modes read a record once or
+// keep the groups' order, so they take one range.
+constexpr int kMaxChunks = 8;
+constexpr long long kChunkBytes = 12LL << 20;
 
 template <int F>
 __device__ __forceinline__ void load_row(const float* __restrict__ p,
@@ -95,6 +133,21 @@ __device__ __forceinline__ void store_row(float* __restrict__ p,
   }
 }
 
+// store_row with streaming (evict-first) stores: data written once and
+// read by the next kernel, which should not push the table out of the L2
+template <int F>
+__device__ __forceinline__ void stream_row(float* __restrict__ p,
+                                           const float* v) {
+  if constexpr (F == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < F; i += 4)
+      __stcs(reinterpret_cast<float4*>(p + i),
+             make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
+  }
+}
+
 template <int D>
 __device__ __forceinline__ void load_point(const float* __restrict__ x,
                                            long long pt, float* xp) {
@@ -113,10 +166,135 @@ __device__ __forceinline__ void sampled_bits(const float* __restrict__ u,
     bern[k] = u[(k * n + pt) * n_levels + lvl] < w[k] ? 1 : 0;
 }
 
-// Exact (j < 0) or stochastic forward; levels from `active` on are masked
-// (max_level) and give zeros.
+// The levels one thread of the forward encodes: as many as fill one
+// 32-byte sector of its output row.
+template <int F>
+constexpr int kLevelsPerThread = F >= 8 ? 1 : 8 / F;
+
+// One (point, level) of the exact (j < 0) or the stochastic forward into
+// acc; a level from `active` on is masked (max_level) and gives zeros.
 template <int D, int F>
-__global__ void __launch_bounds__(kBlock) grid_forward(
+__device__ __forceinline__ void encode_level(
+    const Grid& g, const float* __restrict__ table,
+    const float* __restrict__ u, const long long* __restrict__ axis,
+    long long n, long long pt, int lvl, int active, int j, const float* xp,
+    float* acc) {
+#pragma unroll
+  for (int k = 0; k < F; ++k) acc[k] = 0.0f;
+  if (lvl >= active) return;
+  float w[D], dw[D], f[F];
+  int pos0[D], c[D];
+  level_point<D>(g, lvl, xp, pos0, w, dw);
+  if (j < 0) {
+#pragma unroll
+    for (int corner = 0; corner < (1 << D); ++corner) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) c[k] = pos0[k] + corner_bit<D>(corner, k);
+      const float weight = corner_weight<D>(w, corner);
+      load_row<F>(table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F,
+                  f);
+#pragma unroll
+      for (int k = 0; k < F; ++k)
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(f[k], weight));
+    }
+    return;
+  }
+  int bern[D];
+  sampled_bits<D>(u, n, g.n_levels, pt, lvl, w, bern);
+  if (j == 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) c[k] = pos0[k] + bern[k];
+    load_row<F>(table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F,
+                acc);
+    return;
+  }
+  const int a = static_cast<int>(axis[pt * g.n_levels + lvl]);
+  for (int combo = 0; combo < (1 << j); ++combo) {
+    const float weight = fetched_corner<D>(j, a, combo, pos0, w, bern, c);
+    load_row<F>(table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F,
+                f);
+#pragma unroll
+    for (int k = 0; k < F; ++k)
+      acc[k] = combo == 0 ? __fmul_rn(f[k], weight)
+                          : __fadd_rn(acc[k], __fmul_rn(f[k], weight));
+  }
+}
+
+// The exact forward, level-major: blockIdx.y is a group of
+// kLevelsPerThread levels, and blocks are dispatched x first, so the
+// blocks resident at a time gather from one group's levels. Two
+// neighbouring lanes encode one point: lane h of the pair fetches the
+// corners whose axis-0 bit is h. Where the lower corner's axis-0
+// coordinate is even (half the points of a level; the hash XORs the raw
+// coordinate and the dense index adds it to a multiple of an even
+// resolution, and every level's offset and hashed size is a multiple of
+// 8), such two corners are neighbouring rows of one 32-byte sector, and
+// the pair's two loads are one warp instruction, which the L1 serves from
+// that one sector (sm_90 has no 32-byte load for one thread). Lane 0 sums
+// corners 0 .. 2^(D-1) - 1 in order and hands its partial sums to lane 1,
+// which adds the rest in order and writes: the arithmetic of one thread
+// per point.
+template <int D, int F>
+__global__ void __launch_bounds__(kBlock) grid_forward_exact(
+    const Grid g, const float* __restrict__ x, const float* __restrict__ table,
+    float* __restrict__ out, long long n, int active) {
+  constexpr int kLevels = kLevelsPerThread<F>;
+  constexpr int kHalf = 1 << (D - 1);
+  const long long t = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x;
+  const int h = threadIdx.x & 1;
+  const bool live = (t >> 1) < n;
+  const long long pt = live ? t >> 1 : n - 1;   // every lane meets the shuffles
+  float xp[D];
+  load_point<D>(x, pt, xp);
+#pragma unroll
+  for (int s = 0; s < kLevels; ++s) {
+    const int lvl = blockIdx.y * kLevels + s;
+    if (lvl >= g.n_levels) break;
+    float acc[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) acc[k] = 0.0f;
+    if (lvl < active) {
+      float w[D], dw[D], prod[kHalf][F];
+      int pos0[D], c[D];
+      level_point<D>(g, lvl, xp, pos0, w, dw);
+#pragma unroll
+      for (int m = 0; m < kHalf; ++m) {
+        const int corner = h * kHalf + m;
+#pragma unroll
+        for (int k = 0; k < D; ++k) c[k] = pos0[k] + corner_bit<D>(corner, k);
+        const float weight = corner_weight<D>(w, corner);
+        float f[F];
+        load_row<F>(
+            table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F, f);
+#pragma unroll
+        for (int k = 0; k < F; ++k) prod[m][k] = __fmul_rn(f[k], weight);
+      }
+      if (h == 0) {
+#pragma unroll
+        for (int m = 0; m < kHalf; ++m)
+#pragma unroll
+          for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], prod[m][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < F; ++k)
+        acc[k] = __shfl_sync(0xffffffffu, acc[k], threadIdx.x & 30);
+      if (h == 1) {
+#pragma unroll
+        for (int m = 0; m < kHalf; ++m)
+#pragma unroll
+          for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], prod[m][k]);
+      }
+    }
+    if (live && h == 1) stream_row<F>(out + (pt * g.n_levels + lvl) * F, acc);
+  }
+}
+
+// The stochastic forward, one thread per (point, level), the levels of a
+// point on neighbouring threads: the draws u (D, n, L) and axis (n, L) are
+// read in whole rows of a point's levels (a level-major order reads them a
+// float at a time and took 2.4x as long at 2^20 points of base.json).
+template <int D, int F>
+__global__ void __launch_bounds__(kBlock) grid_forward_stochastic(
     const Grid g, const float* __restrict__ x, const float* __restrict__ table,
     const float* __restrict__ u, const long long* __restrict__ axis,
     float* __restrict__ out, long long n, int active, int j) {
@@ -125,161 +303,434 @@ __global__ void __launch_bounds__(kBlock) grid_forward(
   if (t >= n * n_levels) return;
   const long long pt = t / n_levels;
   const int lvl = static_cast<int>(t - pt * n_levels);
-  float acc[F];
-#pragma unroll
-  for (int k = 0; k < F; ++k) acc[k] = 0.0f;
-  if (lvl < active) {
-    float xp[D], w[D], dw[D], f[F];
-    int pos0[D], c[D];
-    load_point<D>(x, pt, xp);
-    level_point<D>(g, lvl, xp, pos0, w, dw);
-    if (j < 0) {
-#pragma unroll
-      for (int corner = 0; corner < (1 << D); ++corner) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) c[k] = pos0[k] + corner_bit<D>(corner, k);
-        const float weight = corner_weight<D>(w, corner);
-        load_row<F>(table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F,
-                    f);
-#pragma unroll
-        for (int k = 0; k < F; ++k)
-          acc[k] = __fadd_rn(acc[k], __fmul_rn(f[k], weight));
-      }
-    } else {
-      int bern[D];
-      sampled_bits<D>(u, n, n_levels, pt, lvl, w, bern);
-      if (j == 0) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) c[k] = pos0[k] + bern[k];
-        load_row<F>(table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F,
-                    acc);
-      } else {
-        const int a = static_cast<int>(axis[pt * n_levels + lvl]);
-        for (int combo = 0; combo < (1 << j); ++combo) {
-          const float weight = fetched_corner<D>(j, a, combo, pos0, w, bern, c);
-          load_row<F>(
-              table + static_cast<long long>(corner_row<D>(g, lvl, c)) * F, f);
-#pragma unroll
-          for (int k = 0; k < F; ++k)
-            acc[k] = combo == 0 ? __fmul_rn(f[k], weight)
-                                : __fadd_rn(acc[k], __fmul_rn(f[k], weight));
-        }
-      }
-    }
-  }
-  store_row<F>(out + t * F, acc);
+  float xp[D], acc[F];
+  load_point<D>(x, pt, xp);
+  encode_level<D, F>(g, table, u, axis, n, pt, lvl, active, j, xp, acc);
+  stream_row<F>(out + t * F, acc);
 }
 
-// The deposits of one table-gradient call, laid out [group][level][point]
-// [corner] over the `active` levels: K corners a (group, level, point),
-// 2^D for kExact and 1 otherwise; 2^j groups for kFetched, else 1.
-struct Deposits {
-  long long n;
-  int active, mode, j, groups, k;
+// n / d for 0 <= n < 2^31 and a divisor fixed for a launch, by one
+// multiply and a shift: floor(n * m / 2^(31 + s)) with s = ceil(log2 d)
+// and m = ceil(2^(31 + s) / d) (<= 2^32, so n * m < 2^63) is floor(n / d)
+// for every such n (Granlund and Montgomery's bound: d * m - 2^(31 + s)
+// < d <= 2^s). A 64-bit division is some 70 instructions.
+struct FastDiv {
+  unsigned long long m;
+  int shift;
 };
 
-__device__ __forceinline__ void decode(const Deposits& dp, long long e,
-                                       int* group, int* lvl, long long* pt,
-                                       int* corner) {
-  *corner = static_cast<int>(e % dp.k);
-  const long long t = e / dp.k;
-  *pt = t % dp.n;
-  const long long gl = t / dp.n;
-  *lvl = static_cast<int>(gl % dp.active);
-  *group = static_cast<int>(gl / dp.active);
+FastDiv fast_div(unsigned d) {
+  int s = 0;
+  while ((1ULL << s) < d) ++s;
+  return {((1ULL << (31 + s)) + d - 1) / d, 31 + s};
 }
 
-// True where every feature of grad_out's row for (point, level) is zero.
-// Such a point adds +-0 at that level to every row it touches, which
-// leaves each float32 sum of the plain version's order with the bits it
-// has without them (a sum from +0 never becomes -0, and x + (+-0) = x), so
-// its deposits get the key kSkip and no thread adds them. A train step's
-// padded samples (the tail of its fixed batch) are such points.
+__device__ __forceinline__ unsigned quotient(unsigned n, const FastDiv& f) {
+  return static_cast<unsigned>((n * f.m) >> f.shift);
+}
+
+// The deposits of one table-gradient call, laid out [group][point][level]
+// [corner] over the `active` levels: K = 2^log2_k corners a (group, point,
+// level), 2^D for kExact and 1 otherwise; 2^j groups for kFetched, else 1.
+// A row belongs to one level, so its deposits come in the order (group,
+// point, corner), which is the order of the plain version's calls. The
+// layout follows grad_out, u and axis, which are point-major. K * n *
+// active * groups < 2^31, so a position is an int.
+struct Deposits {
+  int n, active, mode, j, log2_k, n_entries;
+  FastDiv by_n, by_active, by_chunk;
+};
+
+// The floats of a (level, point)'s record, which the first pass writes
+// for the sum: grad_out's row (F), the interpolation weights w (D) and the
+// exact axis of the draws (1, its bits), padded to a whole vector load.
+constexpr int record_floats(int n_dims, int n_features) {
+  return n_features + n_dims + 1 <= 8 ? 8 : 16;
+}
+
+// The point ranges of a call's sort and sum (see kMaxChunks).
+int deposit_chunks(int n_dims, int n_features, long long n_entries,
+                   long long n, int mode) {
+  if (mode != kExact) return 1;
+  const long long bytes = n * record_floats(n_dims, n_features) * 4;
+  long long chunks = (bytes + kChunkBytes - 1) / kChunkBytes;
+  chunks = chunks < 1 ? 1 : chunks > kMaxChunks ? kMaxChunks : chunks;
+  while (chunks > 1 && chunks * n_entries >= (1LL << 31)) --chunks;
+  return static_cast<int>(chunks);
+}
+
+Deposits make_deposits(const Grid& g, long long n, int active, int mode,
+                       int j, long long n_entries) {
+  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
+                                    mode);
+  return {static_cast<int>(n), active, mode, j,
+          mode == kExact ? g.n_dims : 0, static_cast<int>(n_entries),
+          fast_div(static_cast<unsigned>(n)),
+          fast_div(static_cast<unsigned>(active)),
+          fast_div(static_cast<unsigned>((n + chunks - 1) / chunks))};
+}
+
+// A deposit's sort key: its point's range, then its table row.
+__device__ __forceinline__ int deposit_key(const Deposits& dp, long long pt,
+                                           int row) {
+  return static_cast<int>(
+             quotient(static_cast<unsigned>(pt), dp.by_chunk)) *
+             dp.n_entries + row;
+}
+
+__device__ __forceinline__ void decode(const Deposits& dp, unsigned e,
+                                       int* group, int* lvl, long long* pt,
+                                       int* corner) {
+  *corner = static_cast<int>(e & ((1u << dp.log2_k) - 1u));
+  const unsigned t = e >> dp.log2_k;
+  const unsigned gp = quotient(t, dp.by_active);
+  *lvl = static_cast<int>(t - gp * static_cast<unsigned>(dp.active));
+  const unsigned grp = quotient(gp, dp.by_n);
+  *pt = gp - grp * static_cast<unsigned>(dp.n);
+  *group = static_cast<int>(grp);
+}
+
 template <int F>
-__device__ __forceinline__ bool zero_gradient(const float* __restrict__ grad_out,
-                                              long long pt, int n_levels,
-                                              int lvl) {
-  float gv[F];
-  load_row<F>(grad_out + (pt * n_levels + lvl) * F, gv);
+__device__ __forceinline__ bool all_zero(const float* v) {
   bool zero = true;
 #pragma unroll
-  for (int k = 0; k < F; ++k) zero = zero && gv[k] == 0.0f;
+  for (int k = 0; k < F; ++k) zero = zero && v[k] == 0.0f;
   return zero;
 }
 
-// One thread per (group, level, point): the keys (table rows, or kSkip)
-// of its K deposits.
 template <int D, int F>
-__global__ void __launch_bounds__(kBlock) grid_deposit_keys(
-    const Grid g, const Deposits dp, const float* __restrict__ x,
-    const float* __restrict__ u, const long long* __restrict__ axis,
-    const float* __restrict__ grad_out, int* __restrict__ keys) {
-  const long long t = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x;
-  if (t >= dp.n * dp.active * dp.groups) return;
-  const long long pt = t % dp.n;
-  const long long gl = t / dp.n;
-  const int lvl = static_cast<int>(gl % dp.active);
-  const int group = static_cast<int>(gl / dp.active);
-  if (zero_gradient<F>(grad_out, pt, g.n_levels, lvl)) {
-    for (int corner = 0; corner < dp.k; ++corner)
-      keys[t * dp.k + corner] = kSkip;
-    return;
-  }
-  float xp[D], w[D], dw[D];
+constexpr int kRecord = record_floats(D, F);
+
+// The table row of one deposit (its key); the point's weights at the
+// level to w.
+template <int D>
+__device__ __forceinline__ int deposit_row(const Grid& g, const Deposits& dp,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ u,
+                                           const long long* __restrict__ axis,
+                                           int group, int lvl, long long pt,
+                                           int corner, float* w) {
+  float xp[D], dw[D];
   int pos0[D], c[D];
   load_point<D>(x, pt, xp);
   level_point<D>(g, lvl, xp, pos0, w, dw);
   if (dp.mode == kExact) {
 #pragma unroll
-    for (int corner = 0; corner < (1 << D); ++corner) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) c[k] = pos0[k] + corner_bit<D>(corner, k);
-      keys[t * (1 << D) + corner] = corner_row<D>(g, lvl, c);
-    }
-    return;
-  }
-  int bern[D];
-  sampled_bits<D>(u, dp.n, g.n_levels, pt, lvl, w, bern);
-  if (dp.mode == kOneCorner) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) c[k] = pos0[k] + bern[k];
+    for (int k = 0; k < D; ++k) c[k] = pos0[k] + corner_bit<D>(corner, k);
   } else {
-    fetched_corner<D>(dp.j, static_cast<int>(axis[pt * g.n_levels + lvl]),
-                      group, pos0, w, bern, c);
+    int bern[D];
+    sampled_bits<D>(u, dp.n, g.n_levels, pt, lvl, w, bern);
+    if (dp.mode == kOneCorner) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) c[k] = pos0[k] + bern[k];
+    } else {
+      fetched_corner<D>(dp.j, static_cast<int>(axis[pt * g.n_levels + lvl]),
+                        group, pos0, w, bern, c);
+    }
   }
-  keys[t] = corner_row<D>(g, lvl, c);
+  return corner_row<D>(g, lvl, c);
+}
+
+// Exclusive prefix sum of one value a thread over the block, in thread
+// order; the block's total to *total. s_warp: kWarps ints of scratch.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
+                                                    int* total) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  __syncthreads();   // the previous use of s_warp is over
+  if (lane == 31) s_warp[w] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) {
+    const int s = s_warp[q];
+    before += q < w ? s : 0;
+    all += s;
+  }
+  *total = all;
+  return before + incl - v;
+}
+
+// Zeroes n 4-byte words (16 bytes a store where p is 16-byte aligned).
+__global__ void __launch_bounds__(kBlock) zero_words(unsigned* __restrict__ p,
+                                                     long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
+  const long long first = blockIdx.x * static_cast<long long>(kBlock) +
+                          threadIdx.x;
+  const long long n4 = reinterpret_cast<uintptr_t>(p) % 16 ? 0 : n / 4;
+  for (long long i = first; i < n4; i += stride)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long i = 4 * n4 + first; i < n; i += stride) p[i] = 0u;
+}
+
+// The first radix pass's histogram: one block a tile of kSortTile
+// deposit positions. Computes each deposit's row, counts the low digit of
+// those whose gradient is not zero (counts[digit * n_tiles + tile]), and
+// writes each (level, point)'s record level-major (rec[level][point]), so
+// that the sum, which walks the sorted rows one level at a time, gathers
+// one level's records, which stay in the L2, with one vector load each.
+template <int D, int F>
+__global__ void __launch_bounds__(kBlock) deposit_first_hist(
+    const Grid g, const Deposits dp, const float* __restrict__ x,
+    const float* __restrict__ u, const long long* __restrict__ axis,
+    const float* __restrict__ grad_out, float* __restrict__ rec,
+    long long n_keys, int n_tiles, int* __restrict__ counts,
+    int* __restrict__ chunk_counts) {
+  constexpr int R = kRecord<D, F>;
+  __shared__ int s_hist[kBuckets];
+  __shared__ int s_chunks[kMaxChunks];
+  s_hist[threadIdx.x] = 0;
+  if (threadIdx.x < kMaxChunks) s_chunks[threadIdx.x] = 0;
+  __syncthreads();
+  const long long tile = static_cast<long long>(blockIdx.x) * kSortTile;
+  for (int r = 0; r < kItems; ++r) {
+    const long long e = tile + r * kBlock + threadIdx.x;
+    if (e >= n_keys) break;
+    int group, lvl, corner;
+    long long pt;
+    decode(dp, static_cast<unsigned>(e), &group, &lvl, &pt, &corner);
+    float record[R] = {};
+    load_row<F>(grad_out + (pt * g.n_levels + lvl) * F, record);
+    const int row = deposit_row<D>(g, dp, x, u, axis, group, lvl, pt, corner,
+                                   record + F);
+    if (group == 0 && corner == 0) {
+      if (dp.mode == kFetched)
+        record[F + D] = __int_as_float(
+            static_cast<int>(axis[pt * g.n_levels + lvl]));
+      store_row<R>(rec + (static_cast<long long>(lvl) * dp.n + pt) * R,
+                   record);
+    }
+    if (all_zero<F>(record)) continue;
+    const int key = deposit_key(dp, pt, row);
+    atomicAdd(&s_hist[key & (kBuckets - 1)], 1);
+    atomicAdd(&s_chunks[quotient(static_cast<unsigned>(pt), dp.by_chunk)], 1);
+  }
+  __syncthreads();
+  counts[static_cast<long long>(threadIdx.x) * n_tiles + blockIdx.x] =
+      s_hist[threadIdx.x];
+  if (threadIdx.x < kMaxChunks && s_chunks[threadIdx.x] > 0)
+    atomicAdd(&chunk_counts[threadIdx.x], s_chunks[threadIdx.x]);
+}
+
+// A later radix pass's histogram over the first *n_valid keys.
+__global__ void __launch_bounds__(kBlock) radix_hist(
+    const int* __restrict__ keys, const int* __restrict__ n_valid,
+    int n_tiles, int shift, int* __restrict__ counts) {
+  __shared__ int s_hist[kBuckets];
+  s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  const long long nv = *n_valid;
+  const long long tile = static_cast<long long>(blockIdx.x) * kSortTile;
+  for (int r = 0; r < kItems; ++r) {
+    const long long i = tile + r * kBlock + threadIdx.x;
+    if (i >= nv) break;
+    atomicAdd(&s_hist[(__ldcs(keys + i) >> shift) & (kBuckets - 1)], 1);
+  }
+  __syncthreads();
+  counts[static_cast<long long>(threadIdx.x) * n_tiles + blockIdx.x] =
+      s_hist[threadIdx.x];
+}
+
+// Block d: the exclusive prefix sum, in place, of digit d's counts over
+// the tiles, and the digit's total to totals[d].
+__global__ void __launch_bounds__(kBlock) radix_scan(int* __restrict__ counts,
+                                                     int n_tiles,
+                                                     int* __restrict__ totals) {
+  __shared__ int s_warp[kWarps];
+  int* c = counts + static_cast<long long>(blockIdx.x) * n_tiles;
+  int carry = 0;
+  for (int base = 0; base < n_tiles; base += 4 * kBlock) {
+    int v[4], sum = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + 4 * threadIdx.x + q;
+      v[q] = i < n_tiles ? c[i] : 0;
+      sum += v[q];
+    }
+    int total;
+    int run = carry + block_exclusive_scan(sum, s_warp, &total);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + 4 * threadIdx.x + q;
+      if (i < n_tiles) c[i] = run;
+      run += v[q];
+    }
+    carry += total;
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+// Writes this block's keys (kItems a thread; item r of lane l of warp w
+// sits at tile position w * kWarpItems + r * 32 + l; invalid ones take no
+// place) to their places in the order of digit (key >> shift) & 255, in
+// tile order within a digit: the tile's start in each digit is the digits
+// before it (totals, summed here) plus the tiles before it (counts,
+// scanned). Ranks within a warp by the lanes' bits or-ed into a shared bin
+// of their digit (cheaper than __match_any_sync), within the block by
+// the warps' counts; staged in shared memory in digit order so that each
+// digit's run is written by neighbouring threads. Where n_valid is given,
+// block 0 writes the number of valid keys there.
+__device__ __forceinline__ void rank_and_scatter(
+    const int* key, const int* val, const bool* valid, int shift,
+    int n_tiles, const int* __restrict__ counts,
+    const int* __restrict__ totals, int* __restrict__ keys_out,
+    int* __restrict__ vals_out, int* __restrict__ n_valid) {
+  __shared__ unsigned short s_warp_counts[kWarps][kBuckets];  // <= kSortTile
+  __shared__ unsigned s_match[kWarps][kBuckets];
+  __shared__ int s_local[kBuckets];
+  __shared__ int s_base[kBuckets];
+  __shared__ int s_scan[kWarps];
+  __shared__ int s_keys[kSortTile];
+  __shared__ int s_vals[kSortTile];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int d = lane; d < kBuckets; d += 32) {
+    s_warp_counts[w][d] = 0;
+    s_match[w][d] = 0;
+  }
+  __syncwarp();
+  int digit[kItems], rank[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    digit[r] = (key[r] >> shift) & (kBuckets - 1);
+    if (valid[r]) atomicOr(&s_match[w][digit[r]], 1u << lane);
+    __syncwarp();
+    const unsigned peers = valid[r] ? s_match[w][digit[r]] : 0u;
+    const int before = valid[r] ? s_warp_counts[w][digit[r]] : 0;
+    __syncwarp();
+    if (valid[r] && (peers & lower) == 0) {   // the digit's first lane
+      s_warp_counts[w][digit[r]] =
+          static_cast<unsigned short>(before + __popc(peers));
+      s_match[w][digit[r]] = 0;
+    }
+    __syncwarp();
+    rank[r] = before + __popc(peers & lower);
+  }
+  __syncthreads();
+  // thread d: digit d's start in each warp and in the block, and its place
+  // in the output
+  const int d = threadIdx.x;
+  int in_block = 0;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) {
+    const int c = s_warp_counts[v][d];
+    s_warp_counts[v][d] = static_cast<unsigned short>(in_block);
+    in_block += c;
+  }
+  int n_here, n_all;
+  s_local[d] = block_exclusive_scan(in_block, s_scan, &n_here);
+  s_base[d] = block_exclusive_scan(totals[d], s_scan, &n_all) +
+              counts[static_cast<long long>(d) * n_tiles + blockIdx.x];
+  if (n_valid != nullptr && blockIdx.x == 0 && d == 0) *n_valid = n_all;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    if (!valid[r]) continue;
+    const int p = s_local[digit[r]] + s_warp_counts[w][digit[r]] + rank[r];
+    s_keys[p] = key[r];
+    s_vals[p] = val[r];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_here; i += kBlock) {
+    const int k = s_keys[i];
+    const int dg = (k >> shift) & (kBuckets - 1);
+    const int p = s_base[dg] + i - s_local[dg];
+    keys_out[p] = k;
+    vals_out[p] = s_vals[i];
+  }
+}
+
+// The first radix pass's scatter: the rows of the tile's deposits whose
+// gradient is not zero, sorted by their low digit, with their positions as
+// payload; the number of such deposits to n_valid.
+template <int D, int F>
+__global__ void __launch_bounds__(kBlock) deposit_first_scatter(
+    const Grid g, const Deposits dp, const float* __restrict__ x,
+    const float* __restrict__ u, const long long* __restrict__ axis,
+    const float* __restrict__ grad_out, long long n_keys, int n_tiles,
+    const int* __restrict__ counts, const int* __restrict__ totals,
+    int* __restrict__ keys_out, int* __restrict__ vals_out,
+    int* __restrict__ n_valid) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long base = static_cast<long long>(blockIdx.x) * kSortTile +
+                         w * kWarpItems + lane;
+  int key[kItems], val[kItems];
+  bool valid[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const long long e = base + r * 32;
+    key[r] = 0;
+    val[r] = static_cast<int>(e);
+    valid[r] = false;
+    if (e >= n_keys) continue;
+    int group, lvl, corner;
+    long long pt;
+    decode(dp, static_cast<unsigned>(e), &group, &lvl, &pt, &corner);
+    float gv[F], w[D];
+    load_row<F>(grad_out + (pt * g.n_levels + lvl) * F, gv);
+    if (all_zero<F>(gv)) continue;
+    key[r] = deposit_key(
+        dp, pt, deposit_row<D>(g, dp, x, u, axis, group, lvl, pt, corner, w));
+    valid[r] = true;
+  }
+  rank_and_scatter(key, val, valid, 0, n_tiles, counts, totals, keys_out,
+                   vals_out, n_valid);
+}
+
+// A later radix pass's scatter of the first *n_valid (key, position)
+// pairs by digit (key >> shift) & 255.
+__global__ void __launch_bounds__(kBlock) radix_scatter(
+    const int* __restrict__ keys_in, const int* __restrict__ vals_in,
+    const int* __restrict__ n_valid, int n_tiles, int shift,
+    const int* __restrict__ counts, const int* __restrict__ totals,
+    int* __restrict__ keys_out, int* __restrict__ vals_out) {
+  const long long nv = *n_valid;
+  if (static_cast<long long>(blockIdx.x) * kSortTile >= nv) return;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long base = static_cast<long long>(blockIdx.x) * kSortTile +
+                         w * kWarpItems + lane;
+  int key[kItems], val[kItems];
+  bool valid[kItems];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const long long i = base + r * 32;
+    valid[r] = i < nv;
+    key[r] = valid[r] ? __ldcs(keys_in + i) : 0;
+    val[r] = valid[r] ? __ldcs(vals_in + i) : 0;
+  }
+  rank_and_scatter(key, val, valid, shift, n_tiles, counts, totals, keys_out,
+                   vals_out, nullptr);
 }
 
 // The deposit at position e of the layout: writes g * weight (g alone for
-// kOneCorner) to v and returns its group.
+// kOneCorner) to v and returns its group; g, the weights and the exact
+// axis from the (level, point)'s record.
 template <int D, int F>
-__device__ __forceinline__ int deposit_value(
-    const Grid& g, const Deposits& dp, const float* __restrict__ x,
-    const long long* __restrict__ axis, const float* __restrict__ grad_out,
-    long long e, float* v) {
+__device__ __forceinline__ int deposit_value(const Deposits& dp,
+                                             const float* __restrict__ rec,
+                                             int e, float* v) {
+  constexpr int R = kRecord<D, F>;
   int group, lvl, corner;
   long long pt;
-  decode(dp, e, &group, &lvl, &pt, &corner);
+  decode(dp, static_cast<unsigned>(e), &group, &lvl, &pt, &corner);
+  float r[R];
+  load_row<R>(rec + (static_cast<long long>(lvl) * dp.n + pt) * R, r);
   float weight = 1.0f;
-  if (dp.mode != kOneCorner) {
-    float xp[D], w[D], dw[D];
-    int pos0[D];
-    load_point<D>(x, pt, xp);
-    level_point<D>(g, lvl, xp, pos0, w, dw);
-    if (dp.mode == kExact) {
-      weight = corner_weight<D>(w, corner);
-    } else {
-      int c[D], bern[D] = {};
-      weight = fetched_corner<D>(
-          dp.j, static_cast<int>(axis[pt * g.n_levels + lvl]), group, pos0, w,
-          bern, c);
-    }
+  if (dp.mode == kExact) {
+    weight = corner_weight<D>(r + F, corner);
+  } else if (dp.mode == kFetched) {
+    int pos0[D] = {}, c[D], bern[D] = {};
+    weight = fetched_corner<D>(dp.j, __float_as_int(r[F + D]), group, pos0,
+                               r + F, bern, c);
   }
-  load_row<F>(grad_out + (pt * g.n_levels + lvl) * F, v);
-  if (dp.mode != kOneCorner) {
 #pragma unroll
-    for (int k = 0; k < F; ++k) v[k] = __fmul_rn(v[k], weight);
-  }
+  for (int k = 0; k < F; ++k)
+    v[k] = dp.mode == kOneCorner ? r[k] : __fmul_rn(r[k], weight);
   return group;
 }
 
@@ -303,91 +754,141 @@ __device__ __forceinline__ void add_in_order(int group, const float* v,
   for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
 }
 
-// The end of the run of `key` that starts at p: a galloping search, then
-// a binary one.
-__device__ __forceinline__ long long run_end(const int* __restrict__ sorted,
-                                             long long p, long long n_keys,
-                                             int key) {
-  long long lo = p, hi = p + 1, step = 1;   // sorted[lo] == key
-  while (hi < n_keys && sorted[hi] == key) {
-    lo = hi;
-    step <<= 1;
-    hi = lo + step;
-  }
-  hi = min(hi, n_keys);                     // hi == n_keys or != key
-  while (hi - lo > 1) {
-    const long long mid = lo + (hi - lo) / 2;
-    if (sorted[mid] == key) lo = mid; else hi = mid;
-  }
-  return hi;
+// A row's sum starts from 0, or (`carry`) from the partial sum an earlier
+// point range's launch left in the row (one group: the exact deposit).
+template <int F>
+__device__ __forceinline__ void start_row(const float* row, bool carry,
+                                          float* total, float* acc,
+                                          int& current) {
+#pragma unroll
+  for (int k = 0; k < F; ++k) total[k] = acc[k] = 0.0f;
+  if (carry) load_row<F>(row, acc);
+  current = -1;
 }
 
-// One thread per position of the stably sorted keys (`sorted`, and
-// `perm`, each sorted key's position in the deposit layout); the thread at
-// the head of a run of equal keys owns the run. A run of up to kLongRun
-// deposits its owner sums alone; a longer one (a coarse level's row, that
-// many points share) the owner's whole warp sums: each lane computes one
-// deposit of every 32 and the lanes add the 32 in order through shuffles,
-// so 32 gathers are in flight and the sum is the same sequence. Either way
-// the sum is sequential in the sorted order, one partial sum a group added
-// to the total in turn, and written once to the key's table row.
+// Adds the last group's sum to the total and writes the row.
+template <int F>
+__device__ __forceinline__ void finish_row(float* row, float* total,
+                                           const float* acc) {
+#pragma unroll
+  for (int k = 0; k < F; ++k) total[k] = __fadd_rn(total[k], acc[k]);
+  store_row<F>(row, total);
+}
+
+// Stages the deposits at sorted positions [p0, p0 + m), m <= kSumTile,
+// into shared memory: their values (g * weight) in s_v, their groups in
+// s_group. A thread's positions, then their records, are loaded all at
+// once, so kSumPerThread gathers of each are in flight together.
 template <int D, int F>
-__global__ void __launch_bounds__(kBlock) grid_deposit_sum(
-    const Grid g, const Deposits dp, const float* __restrict__ x,
-    const long long* __restrict__ axis, const float* __restrict__ grad_out,
-    const int* __restrict__ sorted, const long long* __restrict__ perm,
-    long long n_keys, float* __restrict__ grad) {
-  const long long p = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x;
-  const int lane = threadIdx.x % 32;
-  const int key = p < n_keys ? sorted[p] : kSkip;
-  const bool head = key != kSkip && (p == 0 || sorted[p - 1] != key);
-  const long long end = head ? run_end(sorted, p, n_keys, key) : p;
-  const bool long_run = end - p > kLongRun;
-  float total[F], acc[F], v[F];
-  int current = -1;
-  if (head && !long_run) {
+__device__ __forceinline__ void stage_values(
+    const Deposits& dp, const float* __restrict__ rec,
+    const int* __restrict__ perm, long long p0, int m, float* s_v,
+    unsigned char* s_group) {
+  int e[kSumPerThread];
 #pragma unroll
-    for (int k = 0; k < F; ++k) total[k] = acc[k] = 0.0f;
-    for (long long q = p; q < end; ++q) {
-      const int group =
-          deposit_value<D, F>(g, dp, x, axis, grad_out, perm[q], v);
-      add_in_order<F>(group, v, current, total, acc);
-    }
-#pragma unroll
-    for (int k = 0; k < F; ++k) total[k] = __fadd_rn(total[k], acc[k]);
-    store_row<F>(grad + static_cast<long long>(key) * F, total);
+  for (int q = 0; q < kSumPerThread; ++q) {
+    const int i = threadIdx.x + q * kBlock;
+    e[q] = i < m ? __ldcs(perm + p0 + i) : -1;
   }
-  // every lane takes part: the warp sums its lanes' long runs one by one
-  unsigned owners = __ballot_sync(0xffffffffu, long_run);
-  while (owners) {
-    const int src = __ffs(owners) - 1;
-    owners &= owners - 1;
-    const long long rp = __shfl_sync(0xffffffffu, p, src);
-    const long long rend = __shfl_sync(0xffffffffu, end, src);
-    const int rkey = __shfl_sync(0xffffffffu, key, src);
 #pragma unroll
-    for (int k = 0; k < F; ++k) total[k] = acc[k] = 0.0f;
-    current = -1;
-    for (long long base = rp; base < rend; base += 32) {
-      int group = 0;
-      if (base + lane < rend)
-        group = deposit_value<D, F>(g, dp, x, axis, grad_out,
-                                    perm[base + lane], v);
-      const int count = static_cast<int>(min(32LL, rend - base));
-      for (int i = 0; i < count; ++i) {
-        float vi[F];
+  for (int q = 0; q < kSumPerThread; ++q) {
+    if (e[q] < 0) continue;
+    const int i = threadIdx.x + q * kBlock;
+    float v[F];
+    s_group[i] = static_cast<unsigned char>(
+        deposit_value<D, F>(dp, rec, e[q], v));
 #pragma unroll
-        for (int k = 0; k < F; ++k) vi[k] = __shfl_sync(0xffffffffu, v[k], i);
-        add_in_order<F>(__shfl_sync(0xffffffffu, group, i), vi, current, total,
-                        acc);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < F; ++k) total[k] = __fadd_rn(total[k], acc[k]);
-      store_row<F>(grad + static_cast<long long>(rkey) * F, total);
-    }
+    for (int k = 0; k < F; ++k) s_v[i * F + k] = v[k];
   }
+}
+
+// The ordered sum over the sorted keys of one point range (`chunk`; its
+// keys follow those of the ranges before it, chunk_counts holding each
+// range's count), `perm` holding each one's position in the deposit
+// layout: one block a tile of kSumTile positions. The block stages the
+// tile's values; the thread whose positions hold the head of a run of
+// equal keys adds the run from shared memory and writes the row once. The
+// tile's last run, where it goes on past the tile, its owner's thread 0
+// adds while the block finds where it ends (a tile of keys compared at
+// once) and stages the rest of it a tile at a time. Either way one
+// sequential float32 sum per group, the groups' sums added to the total in
+// turn; a range after the first goes on from the row's partial sum.
+template <int D, int F>
+__global__ void __launch_bounds__(kBlock) deposit_sum(
+    const Deposits dp, const float* __restrict__ rec,
+    const int* __restrict__ sorted, const int* __restrict__ perm,
+    const int* __restrict__ chunk_counts, int chunk,
+    float* __restrict__ grad) {
+  __shared__ __align__(16) float s_v[kSumTile * F];
+  __shared__ int s_key[kSumTile];
+  __shared__ unsigned char s_group[kSumTile];
+  __shared__ int s_cross;
+  long long lo = 0;
+  for (int c = 0; c < chunk; ++c) lo += chunk_counts[c];
+  const long long hi = lo + chunk_counts[chunk];
+  const long long t0 = lo + static_cast<long long>(blockIdx.x) * kSumTile;
+  if (t0 >= hi) return;
+  const int cnt = static_cast<int>(min(static_cast<long long>(kSumTile),
+                                       hi - t0));
+  const int prev = t0 > lo ? sorted[t0 - 1] : -1;
+  const int next = t0 + cnt < hi ? sorted[t0 + cnt] : -1;
+  const int key_base = chunk * dp.n_entries;
+  if (threadIdx.x == 0) s_cross = -1;
+  for (int i = threadIdx.x; i < cnt; i += kBlock)
+    s_key[i] = __ldcs(sorted + t0 + i);
+  stage_values<D, F>(dp, rec, perm, t0, cnt, s_v, s_group);
+  __syncthreads();
+  float total[F], acc[F];
+  int current;
+  for (int q = 0; q < kSumPerThread; ++q) {
+    const int i = threadIdx.x * kSumPerThread + q;
+    if (i >= cnt) break;
+    const int key = s_key[i];
+    if (key == (i == 0 ? prev : s_key[i - 1])) continue;   // not a head
+    int end = i + 1;
+    while (end < cnt && s_key[end] == key) ++end;
+    if (end == cnt && next == key) {   // goes on past the tile
+      s_cross = i;
+      continue;
+    }
+    float* out = grad + static_cast<long long>(key - key_base) * F;
+    start_row<F>(out, chunk > 0, total, acc, current);
+    for (int p = i; p < end; ++p)
+      add_in_order<F>(s_group[p], s_v + p * F, current, total, acc);
+    finish_row<F>(out, total, acc);
+  }
+  __syncthreads();
+  const int head = s_cross;
+  if (head < 0) return;
+  const int key = s_key[head];
+  float* out = grad + static_cast<long long>(key - key_base) * F;
+  if (threadIdx.x == 0) {
+    start_row<F>(out, chunk > 0, total, acc, current);
+    for (int p = head; p < cnt; ++p)
+      add_in_order<F>(s_group[p], s_v + p * F, current, total, acc);
+  }
+  for (long long p0 = t0 + cnt;; p0 += kSumTile) {
+    const int m = static_cast<int>(min(static_cast<long long>(kSumTile),
+                                       hi - p0));
+    __syncthreads();   // thread 0 is done with s_v and s_cross
+    if (threadIdx.x == 0) s_cross = m;
+    __syncthreads();
+    // the run's end in this tile of positions: its first other key
+#pragma unroll
+    for (int q = 0; q < kSumPerThread; ++q) {
+      const int i = threadIdx.x + q * kBlock;
+      if (i < m && __ldcs(sorted + p0 + i) != key) atomicMin(&s_cross, i);
+    }
+    __syncthreads();
+    const int stop = s_cross;
+    stage_values<D, F>(dp, rec, perm, p0, stop, s_v, s_group);
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int p = 0; p < stop; ++p)
+        add_in_order<F>(s_group[p], s_v + p * F, current, total, acc);
+    if (stop < m || p0 + m >= hi) break;
+  }
+  if (threadIdx.x == 0) finish_row<F>(out, total, acc);
 }
 
 // One thread per point: d(loss)/dx = sum over levels and corners of
@@ -471,6 +972,8 @@ unsigned int blocks_for(long long threads) {
   return static_cast<unsigned int>((threads + kBlock - 1) / kBlock);
 }
 
+unsigned int blocks(long long n) { return static_cast<unsigned int>(n); }
+
 // Runs the statement with D and F as the constants of the grid's (n_dims,
 // n_features); the error of the launch, or cudaErrorInvalidValue where
 // there is no instantiation.
@@ -487,6 +990,7 @@ unsigned int blocks_for(long long threads) {
     }                                                          \
     return cudaGetLastError();                                 \
   } while (0)
+
 
 }  // namespace
 
@@ -507,12 +1011,19 @@ extern "C" int grid_forward_launch(const int* ints, const float* scales,
       (j > 0 && axis == nullptr) || (j >= 0 && u == nullptr))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  GRID_DISPATCH(g, grid_forward<D, F><<<blocks_for(n * g.n_levels), kBlock,
-                                          0, s>>>(g, x, table, u, axis, out, n,
-                                                  active, j));
+  if (j < 0) {
+    GRID_DISPATCH(g, grid_forward_exact<D, F><<<
+                         dim3(blocks_for(2 * n),
+                              (g.n_levels + kLevelsPerThread<F> - 1) /
+                                  kLevelsPerThread<F>),
+                         kBlock, 0, s>>>(g, x, table, out, n, active));
+  }
+  GRID_DISPATCH(g, grid_forward_stochastic<D, F><<<blocks_for(n * g.n_levels),
+                                                   kBlock, 0, s>>>(
+                       g, x, table, u, axis, out, n, active, j));
 }
 
-// The number of keys of a table-gradient call (the length of `keys`).
+// The number of deposits of a table-gradient call.
 extern "C" long long grid_deposit_count(int n_dims, long long n, int active,
                                         int mode, int j) {
   const long long groups = mode == kFetched ? (1LL << j) : 1;
@@ -520,52 +1031,204 @@ extern "C" long long grid_deposit_count(int n_dims, long long n, int active,
   return groups * active * n * k;
 }
 
-// Writes the int32 keys of every deposit of one table-gradient call:
-// `mode` 0 exact, 1 the one fully sampled corner, 2 the 2^j fetched ones.
-extern "C" int grid_deposit_keys_launch(const int* ints, const float* scales,
-                                        const float* x, const float* u,
-                                        const long long* axis,
-                                        const float* grad_out, int* keys,
-                                        long long n, int active, int mode,
-                                        int j, void* stream) {
-  Grid g;
-  if (!make_grid(ints, scales, &g) || n < 1 || active < 1 ||
-      active > g.n_levels || mode < kExact || mode > kFetched ||
-      (mode != kExact && u == nullptr) ||
-      (mode == kFetched && (j < 1 || j >= g.n_dims || axis == nullptr)))
-    return cudaErrorInvalidValue;
-  const Deposits dp{n, active, mode, j, mode == kFetched ? 1 << j : 1,
-                    mode == kExact ? 1 << g.n_dims : 1};
-  auto s = static_cast<cudaStream_t>(stream);
-  GRID_DISPATCH(g, grid_deposit_keys<D, F><<<blocks_for(n * active *
-                                                        dp.groups),
-                                             kBlock, 0, s>>>(
-                       g, dp, x, u, axis, grad_out, keys));
+// The scratch of a table-gradient call (grid_deposit_count's arguments)
+// on a table of n_entries rows of F floats: out = [tiles of the sort, ints
+// of `counts` (buckets x tiles), ints of `totals`, radix passes (8-bit
+// digits of the keys' bits), floats of a (level, point)'s record, point
+// ranges (launches of the sum)].
+extern "C" void grid_deposit_scratch(int n_dims, int n_features,
+                                     long long n_entries, long long n,
+                                     int active, int mode, int j,
+                                     long long* out) {
+  const long long n_keys = grid_deposit_count(n_dims, n, active, mode, j);
+  const int chunks = deposit_chunks(n_dims, n_features, n_entries, n, mode);
+  int bits = 1;
+  while (bits < 62 && (1LL << bits) < chunks * n_entries) ++bits;
+  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
+  out[0] = tiles;
+  out[1] = tiles * kBuckets;
+  out[2] = kBuckets;
+  out[3] = (bits + kRadixBits - 1) / kRadixBits;
+  out[4] = record_floats(n_dims, n_features);
+  out[5] = chunks;
 }
 
-// Sums the deposits into `grad` (n_entries * F, zeroed by the caller; rows
-// no key names stay zero) from the keys sorted stably (`sorted`) and the
-// position of each in the deposit layout (`perm`).
-extern "C" int grid_deposit_sum_launch(const int* ints, const float* scales,
-                                       const float* x, const long long* axis,
-                                       const float* grad_out,
-                                       const int* sorted,
-                                       const long long* perm, float* grad,
-                                       long long n, int active, int mode,
-                                       int j, void* stream) {
+// The table gradient, launch by launch (the wrapper runs them in turn):
+// `mode` 0 exact, 1 the one fully sampled corner, 2 the 2^j fetched ones;
+// n_keys = grid_deposit_count(...) < 2^31, and the scratch as
+// grid_deposit_scratch says. rec holds active * n records; keys_*/vals_*
+// n_keys ints each; n_valid one int; chunk_counts one int a point range;
+// grad n_entries * F floats (the first pass zeroes it and chunk_counts).
+#define DEPOSIT_ARGS_OK(g, n, active, mode, j, axis)                        \
+  (n >= 1 && active >= 1 && active <= g.n_levels && mode >= kExact &&       \
+   mode <= kFetched &&                                                      \
+   (mode != kFetched || (j >= 1 && j < g.n_dims && axis != nullptr)))
+
+namespace {
+
+// Zeroes the gradient (n_words floats) and the point ranges' counts, then
+// pass 1: the histogram of the low digit and of the point ranges (and the
+// records), the scan, and the scatter of the rows and positions of the
+// deposits whose gradient is not zero; their number to n_valid.
+template <int D, int F>
+cudaError_t first_pass(const Grid& g, const Deposits& dp, const float* x,
+                       const float* u, const long long* axis,
+                       const float* grad_out, float* rec, int* counts,
+                       int* totals, int* keys_out, int* vals_out,
+                       int* n_valid, int* chunk_counts, int chunks,
+                       float* grad, long long n_words, long long n_keys,
+                       cudaStream_t s) {
+  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
+  const long long fill = (n_words / 4 + kBlock - 1) / kBlock;
+  zero_words<<<blocks(fill < 1 ? 1 : fill > 1024 ? 1024 : fill), kBlock, 0,
+               s>>>(reinterpret_cast<unsigned*>(grad), n_words);
+  zero_words<<<1, kBlock, 0, s>>>(reinterpret_cast<unsigned*>(chunk_counts),
+                                  chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  deposit_first_hist<D, F><<<blocks(tiles), kBlock, 0, s>>>(
+      g, dp, x, u, axis, grad_out, rec, n_keys, static_cast<int>(tiles),
+      counts, chunk_counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, static_cast<int>(tiles),
+                                         totals);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  deposit_first_scatter<D, F><<<blocks(tiles), kBlock, 0, s>>>(
+      g, dp, x, u, axis, grad_out, n_keys, static_cast<int>(tiles), counts,
+      totals, keys_out, vals_out, n_valid);
+  return cudaGetLastError();
+}
+
+// The sum, one launch per point range in turn.
+template <int D, int F>
+cudaError_t sum_ranges(const Deposits& dp, const float* rec,
+                       const int* sorted, const int* perm,
+                       const int* chunk_counts, int chunks, float* grad,
+                       long long n_keys, cudaStream_t s) {
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    deposit_sum<D, F><<<blocks((n_keys + kSumTile - 1) / kSumTile), kBlock,
+                        0, s>>>(dp, rec, sorted, perm, chunk_counts, chunk,
+                                grad);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int grid_deposit_first_pass_launch(
+    const int* ints, const float* scales, const float* x, const float* u,
+    const long long* axis, const float* grad_out, float* rec, int* counts,
+    int* totals, int* keys_out, int* vals_out, int* n_valid,
+    int* chunk_counts, float* grad, long long n_entries, long long n,
+    int active, int mode, int j, void* stream) {
   Grid g;
-  if (!make_grid(ints, scales, &g) || n < 1 || active < 1 ||
-      active > g.n_levels || mode < kExact || mode > kFetched ||
-      (mode == kFetched && (j < 1 || j >= g.n_dims || axis == nullptr)))
+  if (!make_grid(ints, scales, &g) ||
+      !DEPOSIT_ARGS_OK(g, n, active, mode, j, axis) ||
+      (mode != kExact && u == nullptr))
     return cudaErrorInvalidValue;
-  const Deposits dp{n, active, mode, j, mode == kFetched ? 1 << j : 1,
-                    mode == kExact ? 1 << g.n_dims : 1};
+  const Deposits dp = make_deposits(g, n, active, mode, j, n_entries);
   const long long n_keys = grid_deposit_count(g.n_dims, n, active, mode, j);
   auto s = static_cast<cudaStream_t>(stream);
-  GRID_DISPATCH(g, grid_deposit_sum<D, F><<<blocks_for(n_keys), kBlock, 0,
-                                              s>>>(g, dp, x, axis, grad_out,
-                                                   sorted, perm, n_keys,
-                                                   grad));
+  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
+                                    mode);
+  GRID_DISPATCH(g, return first_pass<D, F>(g, dp, x, u, axis, grad_out, rec,
+                                           counts, totals, keys_out,
+                                           vals_out, n_valid, chunk_counts,
+                                           chunks, grad, n_entries * F,
+                                           n_keys, s));
+}
+
+// Pass `pass` (1, 2, ...): the histogram of the digit (key >> 8 * pass) &
+// 255 over the first *n_valid of n_keys, the scan and the scatter.
+extern "C" int grid_radix_pass_launch(const int* keys_in, const int* vals_in,
+                                      const int* n_valid, int* counts,
+                                      int* totals, int* keys_out,
+                                      int* vals_out, long long n_keys,
+                                      int pass, void* stream) {
+  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
+  if (n_keys < 1 || n_keys >= (1LL << 31) || pass < 1 ||
+      kRadixBits * pass > 30)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int shift = kRadixBits * pass;
+  radix_hist<<<blocks(tiles), kBlock, 0, s>>>(
+      keys_in, n_valid, static_cast<int>(tiles), shift, counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, static_cast<int>(tiles),
+                                         totals);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  radix_scatter<<<blocks(tiles), kBlock, 0, s>>>(
+      keys_in, vals_in, n_valid, static_cast<int>(tiles), shift, counts,
+      totals, keys_out, vals_out);
+  return cudaGetLastError();
+}
+
+// The ordered sum into `grad` (n_entries * F, zeroed by the first pass;
+// rows no key names stay zero) from the sorted keys, their positions and the
+// records, one launch per point range.
+extern "C" int grid_deposit_sum_launch(const int* ints, const float* scales,
+                                       const float* rec, const int* sorted,
+                                       const int* perm,
+                                       const int* chunk_counts, float* grad,
+                                       long long n_entries, long long n,
+                                       int active, int mode, int j,
+                                       void* stream) {
+  Grid g;
+  if (!make_grid(ints, scales, &g) ||
+      !DEPOSIT_ARGS_OK(g, n, active, mode, j, rec))
+    return cudaErrorInvalidValue;
+  const Deposits dp = make_deposits(g, n, active, mode, j, n_entries);
+  const long long n_keys = grid_deposit_count(g.n_dims, n, active, mode, j);
+  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
+                                    mode);
+  auto s = static_cast<cudaStream_t>(stream);
+  GRID_DISPATCH(g, return sum_ranges<D, F>(dp, rec, sorted, perm,
+                                           chunk_counts, chunks, grad,
+                                           n_keys, s));
+}
+
+// Sets (bytes > 0) or clears (bytes == 0) an L2 access policy window on
+// `stream`: the `bytes` from `base` persist in the L2 as far as the card
+// sets memory aside for that, the stream's other accesses as usual. Only
+// for measuring the exact forward with its table held so (chip_smoke.py
+// phase 3b); no path of the port sets one.
+extern "C" int grid_l2_window(void* stream, void* base, long long bytes) {
+  int dev, set_aside_max, window_max;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&set_aside_max,
+                                 cudaDevAttrMaxPersistingL2CacheSize, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&window_max,
+                                 cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  if (err != cudaSuccess) return err;
+  cudaStreamAttrValue attr = {};
+  if (bytes > 0) {
+    const long long set_aside = bytes < set_aside_max ? bytes : set_aside_max;
+    const long long window = bytes < window_max ? bytes : window_max;
+    err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, set_aside);
+    if (err != cudaSuccess) return err;
+    attr.accessPolicyWindow.base_ptr = base;
+    attr.accessPolicyWindow.num_bytes = window;
+    attr.accessPolicyWindow.hitRatio =
+        set_aside >= window ? 1.0f : static_cast<float>(set_aside) / window;
+    attr.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+    attr.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  }
+  err = cudaStreamSetAttribute(static_cast<cudaStream_t>(stream),
+                               cudaStreamAttributeAccessPolicyWindow, &attr);
+  if (err == cudaSuccess && bytes == 0) {
+    err = cudaCtxResetPersistingL2Cache();
+    if (err == cudaSuccess)
+      err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+  }
+  return err;
 }
 
 // d(loss)/dx (n, D) of the exact encode over the `active` levels.

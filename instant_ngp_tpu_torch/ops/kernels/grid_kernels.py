@@ -11,13 +11,16 @@ wrappers for CUDA tensors and the plain versions for CPU tensors. A wrapper
 takes CUDA tensors only: it launches its kernel or raises, and never falls
 back. Each counts its launches (`launches`, and by variant).
 
-The table gradient launches two kernels and one sort: `grid_deposit_keys`
-writes the table row of every deposit (a key past every row for the
-deposits of a zero gradient, which add nothing), `torch.sort(...,
-stable=True)` orders them once for all levels, and `grid_deposit_sum`
-adds each row's deposits in that order (the order and arithmetic of
-`index_put_` with accumulate on CUDA, which the plain version calls). A
-call counts once.
+The table gradient launches only kernels of that file, in turn: a stable
+LSD radix sort of the deposits' table rows (8-bit digits of the keys'
+bits, an int32 position as payload; each pass a histogram, a scan of the
+tiles' counts and a ranked scatter; the first pass computes the rows,
+writes each (level, point)'s gradient row and weights level-major and
+leaves out the deposits of a zero gradient, which add nothing), then
+`deposit_sum` adds each row's deposits in that order (the order and
+arithmetic of `index_put_` with accumulate on CUDA, which the plain
+version calls), once per point range of the exact deposit. Every scratch
+size comes from the library (`grid_deposit_scratch`). A call counts once.
 """
 
 from __future__ import annotations
@@ -119,9 +122,10 @@ def _check_table(desc: GridDesc, params: torch.Tensor,
                  device: torch.device) -> None:
     _check("params", params, torch.float32,
            (desc.n_entries * desc.n_features,), device)
-    if params.data_ptr() % 16:
-        raise ValueError("params must be 16-byte aligned (one vector load "
-                         "a row)")
+    if params.data_ptr() % 32:
+        raise ValueError("params must be 32-byte aligned (a row is one "
+                         "vector load, and an even row and the next share "
+                         "one 32-byte sector)")
 
 
 def _check_draws(desc: GridDesc, draws, n: int, j: int,
@@ -183,45 +187,88 @@ encode_forward.launches = 0
 encode_forward.launches_by_variant = {}
 
 
+def _mark(marks, label: str) -> None:
+    """Records a CUDA event on the current stream after the part `label`
+    of a call, where the caller asked for `marks` (a list)."""
+    if marks is not None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((label, event))
+
+
 def table_gradient(desc: GridDesc, x: torch.Tensor, grad_out: torch.Tensor,
                    active: int, mode: int = EXACT, draws=None,
-                   j: int = 0) -> torch.Tensor:
+                   j: int = 0, marks=None) -> torch.Tensor:
     """d(loss)/d(params), flat like the table, from grad_out (N, L*F) over
     the `active` levels: `mode` EXACT (every corner weighted), ONE_CORNER
     (the fully sampled corner, weight 1) or FETCHED (the 2^j corners the
-    stochastic forward fetched, weighted). The same bits in every run."""
+    stochastic forward fetched, weighted). The same bits in every run.
+    `marks`, a list, receives (part, CUDA event) after each part of the
+    call, and ("start", event) before the first (for timing the parts)."""
     n = _check_points(desc, x)
     f = desc.n_features
     _check("grad_out", grad_out, torch.float32, (n, desc.n_levels * f),
            x.device)
+    if grad_out.data_ptr() % 16:
+        raise ValueError("grad_out must be 16-byte aligned")
     if mode not in MODE_NAMES or (mode == FETCHED
                                   and not 1 <= j < desc.n_dims):
         raise ValueError(f"table_gradient: mode {mode}, exact_axes {j}")
-    grad = torch.zeros(desc.n_entries * f, dtype=torch.float32,
-                       device=x.device)
     if n == 0 or active < 1:
-        return grad
+        return torch.zeros(desc.n_entries * f, dtype=torch.float32,
+                           device=x.device)
+    # zeroed by the first pass, like the point ranges' counts
+    grad = torch.empty(desc.n_entries * f, dtype=torch.float32,
+                       device=x.device)
     u = axis = None
     if mode != EXACT:
         u, axis, _keep = _check_draws(desc, draws, n,
                                       j if mode == FETCHED else 0, x.device)
     lib = _lib()
     ints, scales = desc.c_args
+    n_keys = lib.grid_deposit_count(desc.n_dims, n, active, mode, j)
+    if n_keys >= 1 << 31:
+        raise ValueError(f"table_gradient: {n_keys} deposits, the sort's "
+                         f"positions are int32")
+    scratch = (ctypes.c_longlong * 6)()
+    lib.grid_deposit_scratch(desc.n_dims, f, desc.n_entries, n, active, mode,
+                             j, scratch)
+    _, n_counts, n_totals, passes, record, chunks = scratch
+    # one int32 scratch: rows and positions (ping-ponged between the
+    # passes), the tiles' counts, the digits' totals, the number of valid
+    # keys and each point range's
+    n_bufs = min(passes, 2)
+    ints32 = torch.empty(2 * n_bufs * n_keys + n_counts + n_totals + 1
+                         + chunks, dtype=torch.int32, device=x.device)
+    bufs = list(ints32[:2 * n_bufs * n_keys].view(2, n_bufs, n_keys))
+    keys, perm = [b.data_ptr() for b in bufs[0]], \
+        [b.data_ptr() for b in bufs[1]]
+    counts, totals, n_valid, chunk_counts = torch.split(
+        ints32[2 * n_bufs * n_keys:], [n_counts, n_totals, 1, chunks])
+    # each (level, point)'s gradient row, weights and exact axis
+    rec = torch.empty(active * n * record, dtype=torch.float32,
+                      device=x.device)
+    rec_p, c_p, t_p, nv_p = (t.data_ptr() for t in (rec, counts, totals,
+                                                    n_valid))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the table row of every deposit, [group][level][point][corner]
-        keys = torch.empty(lib.grid_deposit_count(desc.n_dims, n, active,
-                                                  mode, j),
-                           dtype=torch.int32, device=x.device)
-        _raise("grid deposit keys", lib.grid_deposit_keys_launch(
-            ints, scales, x.data_ptr(), u, axis, grad_out.data_ptr(),
-            keys.data_ptr(), n, active, mode, j, stream))
-        sorted_keys, perm = torch.sort(keys, stable=True)
-        del keys
+        _mark(marks, "start")
+        _raise("grid deposit pass 1", lib.grid_deposit_first_pass_launch(
+            ints, scales, x.data_ptr(), u, axis, grad_out.data_ptr(), rec_p,
+            c_p, t_p, keys[0], perm[0], nv_p, chunk_counts.data_ptr(),
+            grad.data_ptr(), desc.n_entries, n, active, mode, j, stream))
+        _mark(marks, "pass 1 (rows, records, compaction)")
+        for p in range(1, passes):
+            _raise("grid radix pass", lib.grid_radix_pass_launch(
+                keys[(p - 1) % 2], perm[(p - 1) % 2], nv_p, c_p, t_p,
+                keys[p % 2], perm[p % 2], n_keys, p, stream))
+            _mark(marks, f"pass {p + 1}")
+        last = (passes - 1) % 2
         _raise("grid table_gradient", lib.grid_deposit_sum_launch(
-            ints, scales, x.data_ptr(), axis, grad_out.data_ptr(),
-            sorted_keys.data_ptr(), perm.data_ptr(), grad.data_ptr(), n,
+            ints, scales, rec_p, keys[last], perm[last],
+            chunk_counts.data_ptr(), grad.data_ptr(), desc.n_entries, n,
             active, mode, j, stream))
+        _mark(marks, "sum")
     _count(table_gradient, MODE_NAMES[mode])
     return grad
 

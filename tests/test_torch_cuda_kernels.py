@@ -814,6 +814,81 @@ def test_grid_input_gradient_matches_plain_and_repeats(device, case, n):
             assert (runs[0] - ref).abs().max().item() <= 1e-4 * scale
 
 
+def _check_grid_kernels(enc, x, g_out, device, seed):
+    """Every grid kernel on (x, g_out) against its plain version, with and
+    without max_level: the exact forward within 1e-5 and the same in two
+    runs, the stochastic forward and every deposit variant with the plain
+    bits and the same bits in two runs."""
+    from instant_ngp_tpu_torch.ops.grid_encoding import draw_corner_randoms
+
+    p = enc.params.detach()
+    n = x.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for max_level in (None, 1.5):
+        runs = [enc._encode(p, x, max_level) for _ in range(2)]
+        ref = enc._encode_plain(p, x, max_level)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+        assert (runs[0] - ref).abs().max().item() <= 1e-5
+        runs = [enc._table_gradient(x, g_out, max_level) for _ in range(2)]
+        ref = enc._table_gradient_plain(x, g_out, max_level)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], ref)
+        for j in range(enc.n_dims):
+            draws = draw_corner_randoms(gen, n, enc.n_dims, enc.n_levels, j)
+            out = enc._encode_stochastic(p, x, max_level, draws, j)
+            ref = enc._encode_stochastic_plain(p, x, max_level, draws, j)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), (j, max_level)
+            for one in ((False, True) if j else (False,)):
+                enc.stochastic_bwd = one
+                runs = [enc._table_gradient_stochastic(x, g_out, max_level,
+                                                       draws, j)
+                        for _ in range(2)]
+                ref = enc._table_gradient_stochastic_plain(
+                    x, g_out, max_level, draws, j)
+                torch.cuda.synchronize()
+                assert torch.equal(runs[0], runs[1])
+                assert torch.equal(runs[0], ref), (j, one, max_level)
+            enc.stochastic_bwd = False
+
+
+@pytest.mark.parametrize("what", ["one position", "all padding",
+                                  "axis-0 parity", "tiled negative",
+                                  "2^20 + 3"])
+def test_grid_kernels_at_the_edges_of_the_sort_and_the_sum(device, what):
+    """The cases the sorted deposit's tiles and passes make, and the
+    forward's corner pairs: 3000 points at one position with a gradient
+    (each level's rows take runs of 3000 deposits, past several tiles of
+    the sum) beside spread ones; a batch that is all padding (no deposit
+    left after the compaction); points whose lower corner is odd and even
+    along axis 0 at every level (x = (m + 1/4) / scale); a Tiled grid of
+    F = 8 at coordinates in [-1, 2) (negative ones wrap); base.json's grid
+    (22-bit rows, three radix passes) at 2^20 + 3 points."""
+    cases = {"one position": (GRID_CASES[0], 8192),
+             "all padding": (GRID_CASES[6], 4096),
+             "axis-0 parity": (GRID_CASES[1], 6000),
+             "tiled negative": (GRID_CASES[3], 5000),
+             "2^20 + 3": (GRID_CASES[0], (1 << 20) + 3)}
+    case, n = cases[what]
+    enc, x, g_out = _grid_case(case, n, device, seed=3)
+    if what == "one position":
+        x[:3000] = 0.4137
+        g_out[:3000] = torch.randn(3000, g_out.shape[1], device=device,
+                                   generator=torch.Generator(
+                                       device=device).manual_seed(5))
+    elif what == "all padding":
+        g_out.zero_()
+    elif what == "axis-0 parity":
+        m = torch.arange(n, device=device) % 64
+        for k, (scale, *_) in enumerate(enc.levels[:2]):
+            rows = slice(k * n // 2, (k + 1) * n // 2)
+            x[rows, 0] = ((m[rows] + 0.25) / scale - 0.5 / scale).float()
+    elif what == "tiled negative":
+        x.mul_(3.0).sub_(1.0)
+    _check_grid_kernels(enc, x, g_out, device, seed=n)
+
+
 def test_grid_kernels_serve_autograd_and_no_plain_call(device):
     """The encode under autograd on the card (the exact one with both
     gradients, the stochastic one with its table gradient) launches the

@@ -1,14 +1,23 @@
-"""The grid kernels' table-gradient order, modelled in plain PyTorch on the
+"""The grid kernels' table-gradient route, modelled in plain PyTorch on the
 CPU, and the dispatch of `GridEncoding` between the kernels and the plain
 versions.
 
-`csrc/grid_encoding.cu` sums the table gradient without atomics: one key
-(the table row) per deposit, laid out [group][level][point][corner], a
-stable sort of the keys, then one sequential float32 sum per run of equal
-keys of the rounded products g * weight, a partial sum per group (one
-fetched corner of the stochastic j-axis deposit) added to the row's total
-in turn. `sorted_deposit` below is that model, written with torch ops. It
-is held:
+`csrc/grid_encoding.cu` sums the table gradient without atomics. Its
+deposits are laid out [group][point][level][corner]; those of a (point,
+level) whose gradient is zero are left out (they add +-0); the table rows
+of the rest are sorted by a stable LSD radix sort of 8-bit digits with the
+int32 position as payload (each pass: a histogram per tile of the input, an
+exclusive scan of the counts digit by digit over the tiles, and a scatter
+ranked within the tile in input order); then one sequential float32 sum per
+run of equal rows of the rounded products g * weight, a partial sum per
+group (one fetched corner of the stochastic j-axis deposit) added to the
+row's total in turn, the run owned by the tile of the sum that holds its
+head and continued past that tile's end (the exact deposit of many points
+is sorted by point range first and summed a range at a time, each going
+on from the rows' partial sums: the same adds in the same order, so the
+model sums each run whole). `sorted_deposit` below is that
+route, written with torch ops (no sort call: `radix_sort` is the model of
+the passes). It is held:
 - against `ordered_deposit` as the plain version calls it on the CPU
   (`index_add_`, serial in the order of the rows): the same bits for the
   exact deposit and the one-corner deposits, whose rows get one sequential
@@ -21,7 +30,10 @@ is held:
   backward.py's tolerance);
 over the exact deposit, j = 0, j = 1 with the fetched corners and with the
 one sampled corner, and j = 2 (3D), in 2D and 3D, Hash / Dense / Tiled
-grids, 2 and 4 features a level, with and without `max_level`.
+grids, 2 and 4 features a level, with and without `max_level`; the last
+eighth of the points are a train step's padding (one position, a zero
+gradient). `radix_sort` is also held against `torch.sort(stable=True)` on
+keys with long runs of equal values.
 
 The kernels themselves need the card: tests/test_torch_cuda_kernels.py
 holds each against its plain version there."""
@@ -56,19 +68,63 @@ VARIANT_IDS = [f"{d}d-" + ("exact" if j is None else f"j{j}" if j == 0
                for d, j, one in VARIANTS]
 
 
-def sorted_deposit(enc, x, g_out, max_level, draws=None, j=None):
-    """The table gradient in the kernels' order: keys [group][level][point]
-    [corner] over the unmasked levels, a stable sort, then per run of equal
-    keys a sequential float32 sum of each group's deposits, the groups'
-    sums added to the row in turn."""
+# the kernels' radix digit and tile of a pass (csrc/grid_encoding.cu
+# kRadixBits, kSortTile); the model's tile of the sum is smaller than the
+# kernel's kSumTile (1024), so that at these sizes runs cross a tile's end
+RADIX_BITS, SORT_TILE, SUM_TILE = 8, 4096, 16
+
+
+def radix_pass(keys, perm, shift, tile=SORT_TILE):
+    """One stable LSD pass by the digit (keys >> shift) & 255: the counts
+    of each (digit, tile), scanned digit-major over the tiles, give each
+    tile's place in a digit; an item's rank within its tile and digit is
+    the count of the same digit before it in the tile."""
+    n = keys.numel()
+    n_tiles = -(-n // tile)
+    digit = ((keys >> shift) & ((1 << RADIX_BITS) - 1)).long()
+    tile_of = torch.arange(n) // tile
+    counts = torch.bincount(digit * n_tiles + tile_of,
+                            minlength=(1 << RADIX_BITS) * n_tiles)
+    start = torch.cumsum(counts, 0) - counts            # exclusive
+    seen = torch.nn.functional.one_hot(digit, 1 << RADIX_BITS).cumsum(0)
+    first = tile_of * tile                               # the tile's start
+    before_tile = torch.where(first > 0, seen[(first - 1).clamp(min=0),
+                                               digit], 0)
+    rank = seen[torch.arange(n), digit] - 1 - before_tile
+    dest = start[digit * n_tiles + tile_of] + rank
+    out_keys, out_perm = torch.empty_like(keys), torch.empty_like(perm)
+    out_keys[dest], out_perm[dest] = keys, perm
+    return out_keys, out_perm
+
+
+def radix_sort(keys, n_entries, tile=SORT_TILE):
+    """(sorted keys, positions) of int32 keys < n_entries: one pass per
+    8-bit digit of the rows' own bits, ceil(log2(n_entries)) of them."""
+    bits = max(1, (n_entries - 1).bit_length())
+    perm = torch.arange(keys.numel(), dtype=torch.int32)
+    for p in range(-(-bits // RADIX_BITS)):
+        keys, perm = radix_pass(keys, perm, RADIX_BITS * p, tile)
+    return keys, perm
+
+
+def sorted_deposit(enc, x, g_out, max_level, draws=None, j=None,
+                   stats=None):
+    """The table gradient by the kernels' route: the deposits of the
+    unmasked levels laid out [group][point][level][corner], those of a
+    zero gradient left out, the rows radix-sorted with their positions,
+    then per run of equal rows a sequential float32 sum of each group's
+    deposits, the groups' sums added to the row in turn. `stats` (a dict)
+    receives the deposits kept and the runs that cross a tile of the
+    sum."""
     f = enc.n_features_per_level
-    keys, values, groups = [], [], []
+    keys, values, groups, keep = [], [], [], []
     one = j is not None and (j == 0 or enc.stochastic_bwd)
     n_groups = 1 if j is None or one else 1 << j
+    levels = [lvl for lvl in range(enc.n_levels)
+              if not enc._masked(max_level, lvl)]
     for group in range(n_groups):
-        for lvl in range(enc.n_levels):
-            if enc._masked(max_level, lvl):
-                continue
+        rows_g, vals_g, keep_g = [], [], []
+        for lvl in levels:
             g = g_out[:, lvl * f:(lvl + 1) * f]
             if j is None:
                 rows, weight = enc._level_corners(x, lvl)         # (N, C)
@@ -76,22 +132,41 @@ def sorted_deposit(enc, x, g_out, max_level, draws=None, j=None):
             else:
                 rows, weight = enc._stochastic_corners(
                     x, lvl, draws, j, sampled_only=one)[group]
-                vals = g if weight is None else g * weight[:, None]
-            keys.append(rows.reshape(-1))
-            values.append(vals.reshape(-1, f))
-            groups.append(torch.full((rows.numel(),), group))
+                rows = rows[:, None]
+                vals = (g if weight is None else g * weight[:, None])[:, None]
+            rows_g.append(rows)
+            vals_g.append(vals)
+            keep_g.append((g != 0).any(1)[:, None].expand(rows.shape))
+        if not levels:
+            continue
+        # (N, levels, C): point-major, the levels of a point together
+        keys.append(torch.stack(rows_g, 1).reshape(-1))
+        values.append(torch.stack(vals_g, 1).reshape(-1, f))
+        keep.append(torch.stack(keep_g, 1).reshape(-1))
+        groups.append(torch.full((keys[-1].numel(),), group))
     grad = torch.zeros(enc.n_entries, f)
     if not keys:
         return grad.reshape(-1)
-    keys, values, groups = torch.cat(keys), torch.cat(values), torch.cat(
-        groups)
-    order = torch.sort(keys, stable=True).indices
-    keys, values, groups = keys[order], values[order], groups[order]
+    keep = torch.cat(keep)
+    keys = torch.cat(keys).to(torch.int32)[keep]
+    values, groups = torch.cat(values)[keep], torch.cat(groups)[keep]
+    keys, perm = radix_sort(keys, enc.n_entries)
+    values, groups = values[perm.long()], groups[perm.long()]
     head = torch.ones_like(keys, dtype=torch.bool)
     head[1:] = keys[1:] != keys[:-1]
+    heads = torch.nonzero(head)[:, 0]
+    ends = torch.cat([heads[1:], torch.tensor([len(keys)])])
+    if stats is not None:
+        stats["kept"] = len(keys)
+        stats["crossing"] = int((ends > (heads // SUM_TILE + 1)
+                                 * SUM_TILE).sum()) if len(keys) else 0
+    if not len(keys):
+        return grad.reshape(-1)
+    # every run at once, one rank at a time: the adds of a run are those of
+    # its owner's thread, in sorted order, across the tiles it spans
     segment = torch.cumsum(head.long(), 0) - 1
-    rank = torch.arange(len(keys)) - torch.nonzero(head)[:, 0][segment]
-    n_seg = int(head.sum())
+    rank = torch.arange(len(keys)) - heads[segment]
+    n_seg = len(heads)
     total = torch.zeros(n_seg, f)
     acc = torch.zeros(n_seg, f)
     current = torch.full((n_seg,), -1)
@@ -103,7 +178,7 @@ def sorted_deposit(enc, x, g_out, max_level, draws=None, j=None):
         acc[seg[flush]] = 0.0
         current[seg] = grp
         acc[seg] = acc[seg] + values[at]
-    grad[keys[head]] = total + acc
+    grad[keys[head].long()] = total + acc
     return grad.reshape(-1)
 
 
@@ -154,6 +229,8 @@ def _case(n_dims, grid_type, n_features, j, one, seed=0):
         draws = jax_corner_draws(key, N, n_dims, enc.n_levels)
         x = _points_clear_of_draws(enc, draws, rng, N, n_dims)
     cot = rng.normal(size=(N, enc.n_output_dims)).astype(np.float32)
+    x[-(N // 8):] = 0.3         # a train step's padding: no gradient
+    cot[-(N // 8):] = 0.0
     return kw, enc, table, torch.from_numpy(x), torch.from_numpy(cot), key, \
         draws
 
@@ -167,7 +244,14 @@ def test_sorted_deposit_model_against_ordered_deposit(n_dims, j, one,
                                                       max_level):
     _, enc, _, x, cot, _, draws = _case(n_dims, grid_type, n_features, j,
                                         one)
-    model = sorted_deposit(enc, x, cot, max_level, draws, j)
+    stats = {}
+    model = sorted_deposit(enc, x, cot, max_level, draws, j, stats)
+    # the padding was left out, and some runs go on past a tile's end
+    n_groups = 1 if j is None or j == 0 or one else 1 << j
+    per_point = n_groups * (1 << n_dims if j is None else 1)
+    active = enc._active_levels(max_level)
+    assert stats["kept"] == (N - N // 8) * per_point * active
+    assert stats["crossing"] > 0
     if j is None:
         plain = enc._table_gradient(x, cot, max_level)
     else:
@@ -211,6 +295,23 @@ def test_sorted_deposit_model_against_jax(n_dims, j, one, grid_type,
     model = sorted_deposit(enc, x, cot, max_level, draws, j)
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(model.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_entries", [300, 2_920_448])
+def test_radix_model_is_a_stable_sort(n_entries):
+    """The radix passes (one for 9-bit rows, three for base.json's 22-bit
+    rows) order keys with long runs of equal values as a stable sort does,
+    over several tiles."""
+    rng = np.random.default_rng(n_entries)
+    keys = rng.integers(0, n_entries, 12_000)
+    keys[1000:4000] = keys[0]                    # a run across a tile's end
+    keys[5000:5600] = n_entries - 1
+    keys[7000:] = rng.integers(0, 4, 5000)       # four long interleaved runs
+    keys = torch.from_numpy(keys).to(torch.int32)
+    got, perm = radix_sort(keys, n_entries)
+    want = torch.sort(keys, stable=True)
+    assert torch.equal(got, want.values)
+    assert torch.equal(perm.long(), want.indices)
 
 
 def test_dispatch_takes_the_plain_version_on_cpu(monkeypatch):
