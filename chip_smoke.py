@@ -47,11 +47,10 @@ Phases, each of which raises on failure (a non-zero exit):
    densegrid and densegrid_1res at GRID_SMALL points (the first on cell
    faces), with and without max_level, then base.json's at 2^20 points on
    a U(-1, 1) table, each kernel and plain version timed with CUDA events
-   beside the bytes bound and the bytes the gathers read, the exact
-   forward also with an L2 persisting window on the table, the table
-   gradient split into its parts (CUDA events and a torch.profiler table
-   by kernel) beside one index_put_ call on its deposits' rows and
-   values (the library call the kernels line reports). The gradients
+   beside the bytes bound and the bytes the gathers read, the table
+   gradient split into its kernels (a torch.profiler table) beside one
+   index_put_ call on its deposits' rows and values (the library call the
+   kernels line reports). The gradients
    must repeat bit for bit; whether each kernel gave the plain version's
    bits is printed. From phase 4 on, the density pass, the frames, both
    trainings of phase 6, the capture, Image, Volume, SDF and Geometry
@@ -245,6 +244,14 @@ by `index_put_` against `index_add_` (atomic adds), in turns in one
 process, beside the grid kernels' sorted deposit, and the error map's
 deposit alone and in default steps (`deposit_ab`); it prints no result
 line.
+
+    python3 chip_smoke.py --step-times
+
+builds the kernels and then only times NeRF train steps of base.json with
+the defaults and with the exact encode, and the table gradient's share of
+them (`step_times`); it drives only public entry points, so a copy of the
+script placed in an older checkout times that checkout's package; it
+prints no result line.
 
 The last lines are one JSON object describing the kernels (the fused
 MLP's instantiations and the paths that launch each; its general and
@@ -2149,28 +2156,6 @@ def check_grid_call(kernel, plain, name, variant, what):
     return err, same, scale
 
 
-def deposit_split(enc, x, g_out, draws, mode, reps=5):
-    """The CUDA-event milliseconds of each part of one table-gradient call
-    (`grid_kernels.table_gradient`'s marks), medians over `reps` warm
-    calls -> {part: ms}."""
-    import torch
-
-    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
-
-    call = lambda marks=None: grid_kernels.table_gradient(  # noqa: E731
-        enc.kernel_desc, x, g_out, enc.n_levels, mode,
-        draws[1] if mode != grid_kernels.EXACT else None, 0, marks=marks)
-    call()
-    parts = {}
-    for _ in range(reps):
-        marks = []
-        call(marks)
-        torch.cuda.synchronize()
-        for (_, a), (label, b) in zip(marks, marks[1:]):
-            parts.setdefault(label, []).append(a.elapsed_time(b))
-    return {label: statistics.median(v) for label, v in parts.items()}
-
-
 def kernel_times(fn, reps=3):
     """{CUDA kernel name: device ms a call} of `fn` under torch.profiler,
     means over `reps` calls."""
@@ -2185,29 +2170,6 @@ def kernel_times(fn, reps=3):
         torch.cuda.synchronize()
     _, kernels, self_us = profiler_kernels(prof)
     return {e.key[:60]: self_us(e) / 1e3 / reps for e in kernels}
-
-
-def forward_with_l2_window(enc, kernel):
-    """The exact forward's CUDA-event ms on a stream whose L2 access policy
-    window holds the table persisting (as much as the card sets aside;
-    `grid_l2_window`), the window cleared after."""
-    import torch
-
-    from instant_ngp_tpu_torch.ops.kernels._build import load_library
-
-    lib = load_library()
-    params = enc.params.detach()
-    stream = torch.cuda.Stream()
-    with torch.cuda.stream(stream):
-        err = lib.grid_l2_window(stream.cuda_stream, params.data_ptr(),
-                                 4 * params.numel())
-        if err:
-            raise RuntimeError(f"grid_l2_window: CUDA error {err}")
-        try:
-            return cuda_ms(kernel)
-        finally:
-            torch.cuda.synchronize()
-            lib.grid_l2_window(stream.cuda_stream, None, 0)
 
 
 def deposit_rows_and_values(enc, x, g_out, draws, one_corner):
@@ -2245,7 +2207,6 @@ def grid_kernels_on_card(dev, smi):
 
     from instant_ngp_tpu_torch.config import (find_network_config,
                                               load_network_config)
-    from instant_ngp_tpu_torch.ops.kernels import grid_kernels
 
     t0 = time.perf_counter()
     rows = {}
@@ -2330,19 +2291,11 @@ def grid_kernels_on_card(dev, smi):
               f"{100 * bound_ms / min(ms):.1f} % reached), "
               f"{gathered[key] / 1e6:.1f} MB gathered; bit-equal to plain: "
               f"{row['bit_equal_to_plain'][key[1]]} [{smi}]", flush=True)
-        if key == ("grid_encode_forward", "exact"):
-            row["l2_window_ms"] = forward_with_l2_window(enc, kernel)
-            print(f"grid kernel {key[0]} [{key[1]}] x {n} with an L2 "
-                  f"persisting window on the table: "
-                  f"{row['l2_window_ms']:.4f} ms (without: {min(ms):.4f}) "
-                  f"[{smi}]", flush=True)
         if key[0].startswith("grid_table_gradient"):
-            # the deposit's parts, and one index_put_ call (the plain card
-            # path's library call) on the same deposits' rows and values
+            # the deposit's parts (its kernels, by torch.profiler), and one
+            # index_put_ call (the plain card path's library call) on the
+            # same deposits' rows and values
             one = key[0] != "grid_table_gradient"
-            row["split_ms"] = deposit_split(
-                enc, x, g_out, draws,
-                grid_kernels.ONE_CORNER if one else grid_kernels.EXACT)
             row["kernel_ms"] = kernel_times(kernel)
             dep_rows, dep_values = deposit_rows_and_values(enc, x, g_out,
                                                            draws, one)
@@ -2352,10 +2305,9 @@ def grid_kernels_on_card(dev, smi):
             row["library_call"] = (f"index_put_(accumulate=True) of "
                                    f"{dep_rows.numel()} rows")
             del dep_rows, dep_values, table
-            print(f"grid kernel {key[0]} [{key[1]}] x {n}: parts "
-                  f"{ {k: round(v, 4) for k, v in row['split_ms'].items()} }"
-                  f" ms; one {row['library_call']}: "
-                  f"{row['library_ms']:.4f} ms; by kernel (torch.profiler) "
+            print(f"grid kernel {key[0]} [{key[1]}] x {n}: one "
+                  f"{row['library_call']}: {row['library_ms']:.4f} ms; "
+                  f"parts by kernel (torch.profiler, ms a call) "
                   f"{ {k: round(v, 4) for k, v in row['kernel_ms'].items()} }"
                   f" [{smi}]", flush=True)
     del enc, x, g_out, draws, calls
@@ -3709,6 +3661,53 @@ def deposit_ab(cfg, image_cfg, dev, smi):
     return results
 
 
+def step_times(cfg, dev, smi, n_warm=48, n_timed=64):
+    """--step-times: NeRF train steps of base.json at the testbed's batch
+    on the synthetic orbit scene, with the defaults (stochastic-corner
+    encode, one-corner table gradient) and with the exact encode: the host
+    clock's ms a step over `n_timed` steps after `n_warm` (`train_step`
+    alone, no density update), and the table gradient's CUDA-event ms a
+    call in those steps. Only public entry points, so that the same script
+    times an older checkout of the package (run it from there)."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+
+    ds = make_scene()
+    out = {}
+    for mode in ("default", "exact"):
+        tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
+                         seed=SEED)
+        tb.stochastic_corners = mode == "default"
+        tb.train(n_warm)
+        enc = tb.model.pos_encoding
+        spans = EventSpans()
+        patches = ("_table_gradient", "_table_gradient_stochastic")
+        for attr in patches:
+            setattr(enc, attr, spans.wrap("table gradient",
+                                          getattr(enc, attr)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            tb.train_step()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_timed
+        for attr in patches:
+            delattr(enc, attr)
+        calls = spans.calls("table gradient")
+        out[mode] = {"step_ms": step_ms, "table_gradient_ms":
+                     spans.ms("table gradient") / max(calls, 1),
+                     "table_gradient_calls": calls}
+        print(f"step times: {mode}: {step_ms:.4f} ms a step (host clock, "
+              f"{n_timed} steps after {n_warm}); table gradient "
+              f"{out[mode]['table_gradient_ms']:.4f} ms a call (CUDA "
+              f"events, {calls} calls) [{smi}]", flush=True)
+        del tb
+        torch.cuda.empty_cache()
+    print(json.dumps({"step_times": out}), flush=True)
+    return out
+
+
 # -- phase 17: data- and level-parallel NeRF ---------------------------------
 def _rank_testbed(ds, cfg, mesh):
     """A base.json testbed at full width (bf16 compute, weights from SEED)
@@ -4136,6 +4135,9 @@ def main():
                         help="after the build, only time the table "
                              "gradient's deposit by index_put_ against "
                              "index_add_ (deposit_ab) and stop")
+    parser.add_argument("--step-times", action="store_true",
+                        help="after the build, only time default and exact "
+                             "NeRF train steps (step_times) and stop")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4176,6 +4178,10 @@ def main():
                 print(f"  ptxas: {line.strip()}")
     if args.grid_only:
         grid_kernels_on_card(dev, smi)
+        return
+    if args.step_times:
+        step_times(load_network_config(find_network_config("base", "nerf")),
+                   dev, smi)
         return
     if args.deposit_ab:
         deposit_ab(load_network_config(find_network_config("base", "nerf")),

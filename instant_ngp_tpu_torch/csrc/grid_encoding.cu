@@ -49,8 +49,8 @@
 //     run of equal rows adds them in order from there; a run that goes on
 //     past the tile (a coarse level's row, which thousands of points share)
 //     is added by one thread while the block stages the rest of it tile by
-//     tile. The sorted order walks one level (and for the exact deposit one
-//     point range) at a time, so the records it gathers stay in the L2.
+//     tile. The sorted order walks one level at a time, so the records it
+//     gathers come from one level's slice.
 //     Within a row that is one sequential float32 sum per group, each
 //     product rounded before the add, and the groups' sums added in turn:
 //     the order and the arithmetic of `index_put_` with accumulate on CUDA,
@@ -89,17 +89,6 @@ static_assert(kBuckets == kBlock, "one bucket a thread");
 // the sorted deposits a block of the sum stages at a time
 constexpr int kSumTile = 1024;
 constexpr int kSumPerThread = kSumTile / kBlock;
-// The exact deposit's points are split into up to kMaxChunks ranges whose
-// records at one level take at most kChunkBytes, and sorted by (range,
-// row): the sum then gathers from one range's records of one level at a
-// time, which stay in the L2 (each is read by 2^D deposits; an SM reaches
-// about half the 50 MB fast, the L2 being two partitions). A row's
-// deposits keep their order, the ranges following one another in point
-// order, and each range's sum launch goes on from the partial sums the
-// previous one left in the rows. The other modes read a record once or
-// keep the groups' order, so they take one range.
-constexpr int kMaxChunks = 8;
-constexpr long long kChunkBytes = 12LL << 20;
 
 template <int F>
 __device__ __forceinline__ void load_row(const float* __restrict__ p,
@@ -337,8 +326,8 @@ __device__ __forceinline__ unsigned quotient(unsigned n, const FastDiv& f) {
 // layout follows grad_out, u and axis, which are point-major. K * n *
 // active * groups < 2^31, so a position is an int.
 struct Deposits {
-  int n, active, mode, j, log2_k, n_entries;
-  FastDiv by_n, by_active, by_chunk;
+  int n, active, mode, j, log2_k;
+  FastDiv by_n, by_active;
 };
 
 // The floats of a (level, point)'s record, which the first pass writes
@@ -348,34 +337,12 @@ constexpr int record_floats(int n_dims, int n_features) {
   return n_features + n_dims + 1 <= 8 ? 8 : 16;
 }
 
-// The point ranges of a call's sort and sum (see kMaxChunks).
-int deposit_chunks(int n_dims, int n_features, long long n_entries,
-                   long long n, int mode) {
-  if (mode != kExact) return 1;
-  const long long bytes = n * record_floats(n_dims, n_features) * 4;
-  long long chunks = (bytes + kChunkBytes - 1) / kChunkBytes;
-  chunks = chunks < 1 ? 1 : chunks > kMaxChunks ? kMaxChunks : chunks;
-  while (chunks > 1 && chunks * n_entries >= (1LL << 31)) --chunks;
-  return static_cast<int>(chunks);
-}
-
 Deposits make_deposits(const Grid& g, long long n, int active, int mode,
-                       int j, long long n_entries) {
-  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
-                                    mode);
+                       int j) {
   return {static_cast<int>(n), active, mode, j,
-          mode == kExact ? g.n_dims : 0, static_cast<int>(n_entries),
+          mode == kExact ? g.n_dims : 0,
           fast_div(static_cast<unsigned>(n)),
-          fast_div(static_cast<unsigned>(active)),
-          fast_div(static_cast<unsigned>((n + chunks - 1) / chunks))};
-}
-
-// A deposit's sort key: its point's range, then its table row.
-__device__ __forceinline__ int deposit_key(const Deposits& dp, long long pt,
-                                           int row) {
-  return static_cast<int>(
-             quotient(static_cast<unsigned>(pt), dp.by_chunk)) *
-             dp.n_entries + row;
+          fast_div(static_cast<unsigned>(active))};
 }
 
 __device__ __forceinline__ void decode(const Deposits& dp, unsigned e,
@@ -469,23 +436,21 @@ __global__ void __launch_bounds__(kBlock) zero_words(unsigned* __restrict__ p,
 }
 
 // The first radix pass's histogram: one block a tile of kSortTile
-// deposit positions. Computes each deposit's row, counts the low digit of
-// those whose gradient is not zero (counts[digit * n_tiles + tile]), and
-// writes each (level, point)'s record level-major (rec[level][point]), so
-// that the sum, which walks the sorted rows one level at a time, gathers
-// one level's records, which stay in the L2, with one vector load each.
+// deposit positions. Computes each deposit's row (its sort key), counts
+// the low digit of those whose gradient is not zero (counts[digit *
+// n_tiles + tile]), and writes each (level, point)'s record level-major
+// (rec[level][point]), so that the sum, which walks the sorted rows one
+// level at a time, gathers from one level's records, with one vector load
+// each.
 template <int D, int F>
 __global__ void __launch_bounds__(kBlock) deposit_first_hist(
     const Grid g, const Deposits dp, const float* __restrict__ x,
     const float* __restrict__ u, const long long* __restrict__ axis,
     const float* __restrict__ grad_out, float* __restrict__ rec,
-    long long n_keys, int n_tiles, int* __restrict__ counts,
-    int* __restrict__ chunk_counts) {
+    long long n_keys, int n_tiles, int* __restrict__ counts) {
   constexpr int R = kRecord<D, F>;
   __shared__ int s_hist[kBuckets];
-  __shared__ int s_chunks[kMaxChunks];
   s_hist[threadIdx.x] = 0;
-  if (threadIdx.x < kMaxChunks) s_chunks[threadIdx.x] = 0;
   __syncthreads();
   const long long tile = static_cast<long long>(blockIdx.x) * kSortTile;
   for (int r = 0; r < kItems; ++r) {
@@ -506,15 +471,11 @@ __global__ void __launch_bounds__(kBlock) deposit_first_hist(
                    record);
     }
     if (all_zero<F>(record)) continue;
-    const int key = deposit_key(dp, pt, row);
-    atomicAdd(&s_hist[key & (kBuckets - 1)], 1);
-    atomicAdd(&s_chunks[quotient(static_cast<unsigned>(pt), dp.by_chunk)], 1);
+    atomicAdd(&s_hist[row & (kBuckets - 1)], 1);
   }
   __syncthreads();
   counts[static_cast<long long>(threadIdx.x) * n_tiles + blockIdx.x] =
       s_hist[threadIdx.x];
-  if (threadIdx.x < kMaxChunks && s_chunks[threadIdx.x] > 0)
-    atomicAdd(&chunk_counts[threadIdx.x], s_chunks[threadIdx.x]);
 }
 
 // A later radix pass's histogram over the first *n_valid keys.
@@ -674,8 +635,7 @@ __global__ void __launch_bounds__(kBlock) deposit_first_scatter(
     float gv[F], w[D];
     load_row<F>(grad_out + (pt * g.n_levels + lvl) * F, gv);
     if (all_zero<F>(gv)) continue;
-    key[r] = deposit_key(
-        dp, pt, deposit_row<D>(g, dp, x, u, axis, group, lvl, pt, corner, w));
+    key[r] = deposit_row<D>(g, dp, x, u, axis, group, lvl, pt, corner, w);
     valid[r] = true;
   }
   rank_and_scatter(key, val, valid, 0, n_tiles, counts, totals, keys_out,
@@ -754,15 +714,12 @@ __device__ __forceinline__ void add_in_order(int group, const float* v,
   for (int k = 0; k < F; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
 }
 
-// A row's sum starts from 0, or (`carry`) from the partial sum an earlier
-// point range's launch left in the row (one group: the exact deposit).
+// A row's sum starts from 0.
 template <int F>
-__device__ __forceinline__ void start_row(const float* row, bool carry,
-                                          float* total, float* acc,
+__device__ __forceinline__ void start_row(float* total, float* acc,
                                           int& current) {
 #pragma unroll
   for (int k = 0; k < F; ++k) total[k] = acc[k] = 0.0f;
-  if (carry) load_row<F>(row, acc);
   current = -1;
 }
 
@@ -802,37 +759,32 @@ __device__ __forceinline__ void stage_values(
   }
 }
 
-// The ordered sum over the sorted keys of one point range (`chunk`; its
-// keys follow those of the ranges before it, chunk_counts holding each
-// range's count), `perm` holding each one's position in the deposit
-// layout: one block a tile of kSumTile positions. The block stages the
+// The ordered sum over the first *n_valid sorted keys (table rows), `perm`
+// holding each one's position in the deposit layout: one block a tile of
+// kSumTile positions. The block stages the
 // tile's values; the thread whose positions hold the head of a run of
 // equal keys adds the run from shared memory and writes the row once. The
 // tile's last run, where it goes on past the tile, its owner's thread 0
 // adds while the block finds where it ends (a tile of keys compared at
 // once) and stages the rest of it a tile at a time. Either way one
 // sequential float32 sum per group, the groups' sums added to the total in
-// turn; a range after the first goes on from the row's partial sum.
+// turn.
 template <int D, int F>
 __global__ void __launch_bounds__(kBlock) deposit_sum(
     const Deposits dp, const float* __restrict__ rec,
     const int* __restrict__ sorted, const int* __restrict__ perm,
-    const int* __restrict__ chunk_counts, int chunk,
-    float* __restrict__ grad) {
+    const int* __restrict__ n_valid, float* __restrict__ grad) {
   __shared__ __align__(16) float s_v[kSumTile * F];
   __shared__ int s_key[kSumTile];
   __shared__ unsigned char s_group[kSumTile];
   __shared__ int s_cross;
-  long long lo = 0;
-  for (int c = 0; c < chunk; ++c) lo += chunk_counts[c];
-  const long long hi = lo + chunk_counts[chunk];
-  const long long t0 = lo + static_cast<long long>(blockIdx.x) * kSumTile;
+  const long long hi = *n_valid;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kSumTile;
   if (t0 >= hi) return;
   const int cnt = static_cast<int>(min(static_cast<long long>(kSumTile),
                                        hi - t0));
-  const int prev = t0 > lo ? sorted[t0 - 1] : -1;
+  const int prev = t0 > 0 ? sorted[t0 - 1] : -1;
   const int next = t0 + cnt < hi ? sorted[t0 + cnt] : -1;
-  const int key_base = chunk * dp.n_entries;
   if (threadIdx.x == 0) s_cross = -1;
   for (int i = threadIdx.x; i < cnt; i += kBlock)
     s_key[i] = __ldcs(sorted + t0 + i);
@@ -851,8 +803,8 @@ __global__ void __launch_bounds__(kBlock) deposit_sum(
       s_cross = i;
       continue;
     }
-    float* out = grad + static_cast<long long>(key - key_base) * F;
-    start_row<F>(out, chunk > 0, total, acc, current);
+    float* out = grad + static_cast<long long>(key) * F;
+    start_row<F>(total, acc, current);
     for (int p = i; p < end; ++p)
       add_in_order<F>(s_group[p], s_v + p * F, current, total, acc);
     finish_row<F>(out, total, acc);
@@ -861,9 +813,9 @@ __global__ void __launch_bounds__(kBlock) deposit_sum(
   const int head = s_cross;
   if (head < 0) return;
   const int key = s_key[head];
-  float* out = grad + static_cast<long long>(key - key_base) * F;
+  float* out = grad + static_cast<long long>(key) * F;
   if (threadIdx.x == 0) {
-    start_row<F>(out, chunk > 0, total, acc, current);
+    start_row<F>(total, acc, current);
     for (int p = head; p < cnt; ++p)
       add_in_order<F>(s_group[p], s_v + p * F, current, total, acc);
   }
@@ -1034,201 +986,111 @@ extern "C" long long grid_deposit_count(int n_dims, long long n, int active,
 // The scratch of a table-gradient call (grid_deposit_count's arguments)
 // on a table of n_entries rows of F floats: out = [tiles of the sort, ints
 // of `counts` (buckets x tiles), ints of `totals`, radix passes (8-bit
-// digits of the keys' bits), floats of a (level, point)'s record, point
-// ranges (launches of the sum)].
+// digits of the rows' bits), floats of a (level, point)'s record].
 extern "C" void grid_deposit_scratch(int n_dims, int n_features,
                                      long long n_entries, long long n,
                                      int active, int mode, int j,
                                      long long* out) {
   const long long n_keys = grid_deposit_count(n_dims, n, active, mode, j);
-  const int chunks = deposit_chunks(n_dims, n_features, n_entries, n, mode);
   int bits = 1;
-  while (bits < 62 && (1LL << bits) < chunks * n_entries) ++bits;
+  while (bits < 62 && (1LL << bits) < n_entries) ++bits;
   const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
   out[0] = tiles;
   out[1] = tiles * kBuckets;
   out[2] = kBuckets;
   out[3] = (bits + kRadixBits - 1) / kRadixBits;
   out[4] = record_floats(n_dims, n_features);
-  out[5] = chunks;
 }
-
-// The table gradient, launch by launch (the wrapper runs them in turn):
-// `mode` 0 exact, 1 the one fully sampled corner, 2 the 2^j fetched ones;
-// n_keys = grid_deposit_count(...) < 2^31, and the scratch as
-// grid_deposit_scratch says. rec holds active * n records; keys_*/vals_*
-// n_keys ints each; n_valid one int; chunk_counts one int a point range;
-// grad n_entries * F floats (the first pass zeroes it and chunk_counts).
-#define DEPOSIT_ARGS_OK(g, n, active, mode, j, axis)                        \
-  (n >= 1 && active >= 1 && active <= g.n_levels && mode >= kExact &&       \
-   mode <= kFetched &&                                                      \
-   (mode != kFetched || (j >= 1 && j < g.n_dims && axis != nullptr)))
 
 namespace {
 
-// Zeroes the gradient (n_words floats) and the point ranges' counts, then
-// pass 1: the histogram of the low digit and of the point ranges (and the
-// records), the scan, and the scatter of the rows and positions of the
-// deposits whose gradient is not zero; their number to n_valid.
-template <int D, int F>
-cudaError_t first_pass(const Grid& g, const Deposits& dp, const float* x,
-                       const float* u, const long long* axis,
-                       const float* grad_out, float* rec, int* counts,
-                       int* totals, int* keys_out, int* vals_out,
-                       int* n_valid, int* chunk_counts, int chunks,
-                       float* grad, long long n_words, long long n_keys,
-                       cudaStream_t s) {
-  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
-  const long long fill = (n_words / 4 + kBlock - 1) / kBlock;
-  zero_words<<<blocks(fill < 1 ? 1 : fill > 1024 ? 1024 : fill), kBlock, 0,
-               s>>>(reinterpret_cast<unsigned*>(grad), n_words);
-  zero_words<<<1, kBlock, 0, s>>>(reinterpret_cast<unsigned*>(chunk_counts),
-                                  chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  deposit_first_hist<D, F><<<blocks(tiles), kBlock, 0, s>>>(
-      g, dp, x, u, axis, grad_out, rec, n_keys, static_cast<int>(tiles),
-      counts, chunk_counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, static_cast<int>(tiles),
-                                         totals);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  deposit_first_scatter<D, F><<<blocks(tiles), kBlock, 0, s>>>(
-      g, dp, x, u, axis, grad_out, n_keys, static_cast<int>(tiles), counts,
-      totals, keys_out, vals_out, n_valid);
-  return cudaGetLastError();
-}
+// Launches one kernel and returns its launch error.
+#define LAUNCH(...)                               \
+  do {                                            \
+    __VA_ARGS__;                                  \
+    const cudaError_t err_ = cudaGetLastError();  \
+    if (err_ != cudaSuccess) return err_;         \
+  } while (0)
 
-// The sum, one launch per point range in turn.
+// Every launch of a table gradient in turn: the output zeroed; pass 1
+// (the histogram of the rows' low digit, which also writes the records,
+// the scan, the scatter of the rows and positions of the deposits whose
+// gradient is not zero, their number to n_valid); the later passes over
+// the first *n_valid, ping-ponged between keys[0 / 1] and vals[0 / 1];
+// the ordered sum.
 template <int D, int F>
-cudaError_t sum_ranges(const Deposits& dp, const float* rec,
-                       const int* sorted, const int* perm,
-                       const int* chunk_counts, int chunks, float* grad,
-                       long long n_keys, cudaStream_t s) {
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    deposit_sum<D, F><<<blocks((n_keys + kSumTile - 1) / kSumTile), kBlock,
-                        0, s>>>(dp, rec, sorted, perm, chunk_counts, chunk,
-                                grad);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+cudaError_t table_gradient(const Grid& g, const Deposits& dp, const float* x,
+                           const float* u, const long long* axis,
+                           const float* grad_out, float* rec, int* counts,
+                           int* totals, int* const* keys, int* const* vals,
+                           int* n_valid, float* grad, long long n_words,
+                           long long n_keys, int passes, cudaStream_t s) {
+  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
+  const int nt = static_cast<int>(tiles);
+  const long long fill = (n_words / 4 + kBlock - 1) / kBlock;
+  LAUNCH(zero_words<<<blocks(fill < 1 ? 1 : fill > 1024 ? 1024 : fill),
+                      kBlock, 0, s>>>(reinterpret_cast<unsigned*>(grad),
+                                      n_words));
+  LAUNCH(deposit_first_hist<D, F><<<blocks(tiles), kBlock, 0, s>>>(
+      g, dp, x, u, axis, grad_out, rec, n_keys, nt, counts));
+  LAUNCH(radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, nt, totals));
+  LAUNCH(deposit_first_scatter<D, F><<<blocks(tiles), kBlock, 0, s>>>(
+      g, dp, x, u, axis, grad_out, n_keys, nt, counts, totals, keys[0],
+      vals[0], n_valid));
+  for (int p = 1; p < passes; ++p) {
+    const int* k_in = keys[(p - 1) % 2];
+    const int* v_in = vals[(p - 1) % 2];
+    const int shift = kRadixBits * p;
+    LAUNCH(radix_hist<<<blocks(tiles), kBlock, 0, s>>>(k_in, n_valid, nt,
+                                                         shift, counts));
+    LAUNCH(radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, nt, totals));
+    LAUNCH(radix_scatter<<<blocks(tiles), kBlock, 0, s>>>(
+        k_in, v_in, n_valid, nt, shift, counts, totals, keys[p % 2],
+        vals[p % 2]));
   }
+  const int last = (passes - 1) % 2;
+  LAUNCH(deposit_sum<D, F><<<blocks((n_keys + kSumTile - 1) / kSumTile),
+                             kBlock, 0, s>>>(dp, rec, keys[last], vals[last],
+                                             n_valid, grad));
   return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int grid_deposit_first_pass_launch(
+// The table gradient into `grad` (n_entries * F floats; rows no deposit
+// names are zero): `mode` 0 exact, 1 the one fully sampled corner, 2 the
+// 2^j fetched ones; n_keys = grid_deposit_count(...) < 2^31, and the
+// scratch as grid_deposit_scratch says: rec active * n records, counts and
+// totals, keys0 / vals0 n_keys ints each, keys1 / vals1 as many where the
+// sort takes more than one pass (else null), n_valid one int.
+extern "C" int grid_table_gradient_launch(
     const int* ints, const float* scales, const float* x, const float* u,
     const long long* axis, const float* grad_out, float* rec, int* counts,
-    int* totals, int* keys_out, int* vals_out, int* n_valid,
-    int* chunk_counts, float* grad, long long n_entries, long long n,
-    int active, int mode, int j, void* stream) {
+    int* totals, int* keys0, int* vals0, int* keys1, int* vals1,
+    int* n_valid, float* grad, long long n_entries, long long n, int active,
+    int mode, int j, void* stream) {
   Grid g;
-  if (!make_grid(ints, scales, &g) ||
-      !DEPOSIT_ARGS_OK(g, n, active, mode, j, axis) ||
-      (mode != kExact && u == nullptr))
+  if (!make_grid(ints, scales, &g) || n < 1 || active < 1 ||
+      active > g.n_levels || mode < kExact || mode > kFetched ||
+      (mode != kExact && u == nullptr) ||
+      (mode == kFetched && (j < 1 || j >= g.n_dims || axis == nullptr)))
     return cudaErrorInvalidValue;
-  const Deposits dp = make_deposits(g, n, active, mode, j, n_entries);
   const long long n_keys = grid_deposit_count(g.n_dims, n, active, mode, j);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
-                                    mode);
-  GRID_DISPATCH(g, return first_pass<D, F>(g, dp, x, u, axis, grad_out, rec,
-                                           counts, totals, keys_out,
-                                           vals_out, n_valid, chunk_counts,
-                                           chunks, grad, n_entries * F,
-                                           n_keys, s));
-}
-
-// Pass `pass` (1, 2, ...): the histogram of the digit (key >> 8 * pass) &
-// 255 over the first *n_valid of n_keys, the scan and the scatter.
-extern "C" int grid_radix_pass_launch(const int* keys_in, const int* vals_in,
-                                      const int* n_valid, int* counts,
-                                      int* totals, int* keys_out,
-                                      int* vals_out, long long n_keys,
-                                      int pass, void* stream) {
-  const long long tiles = (n_keys + kSortTile - 1) / kSortTile;
-  if (n_keys < 1 || n_keys >= (1LL << 31) || pass < 1 ||
-      kRadixBits * pass > 30)
+  long long scratch[5];
+  grid_deposit_scratch(g.n_dims, g.n_features, n_entries, n, active, mode, j,
+                       scratch);
+  const int passes = static_cast<int>(scratch[3]);
+  if (n_keys >= (1LL << 31) || kRadixBits * passes > 32 ||
+      (passes > 1 && (keys1 == nullptr || vals1 == nullptr)))
     return cudaErrorInvalidValue;
+  int* const keys[2] = {keys0, keys1};
+  int* const vals[2] = {vals0, vals1};
+  const Deposits dp = make_deposits(g, n, active, mode, j);
   auto s = static_cast<cudaStream_t>(stream);
-  const int shift = kRadixBits * pass;
-  radix_hist<<<blocks(tiles), kBlock, 0, s>>>(
-      keys_in, n_valid, static_cast<int>(tiles), shift, counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  radix_scan<<<kBuckets, kBlock, 0, s>>>(counts, static_cast<int>(tiles),
-                                         totals);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  radix_scatter<<<blocks(tiles), kBlock, 0, s>>>(
-      keys_in, vals_in, n_valid, static_cast<int>(tiles), shift, counts,
-      totals, keys_out, vals_out);
-  return cudaGetLastError();
-}
-
-// The ordered sum into `grad` (n_entries * F, zeroed by the first pass;
-// rows no key names stay zero) from the sorted keys, their positions and the
-// records, one launch per point range.
-extern "C" int grid_deposit_sum_launch(const int* ints, const float* scales,
-                                       const float* rec, const int* sorted,
-                                       const int* perm,
-                                       const int* chunk_counts, float* grad,
-                                       long long n_entries, long long n,
-                                       int active, int mode, int j,
-                                       void* stream) {
-  Grid g;
-  if (!make_grid(ints, scales, &g) ||
-      !DEPOSIT_ARGS_OK(g, n, active, mode, j, rec))
-    return cudaErrorInvalidValue;
-  const Deposits dp = make_deposits(g, n, active, mode, j, n_entries);
-  const long long n_keys = grid_deposit_count(g.n_dims, n, active, mode, j);
-  const int chunks = deposit_chunks(g.n_dims, g.n_features, n_entries, n,
-                                    mode);
-  auto s = static_cast<cudaStream_t>(stream);
-  GRID_DISPATCH(g, return sum_ranges<D, F>(dp, rec, sorted, perm,
-                                           chunk_counts, chunks, grad,
-                                           n_keys, s));
-}
-
-// Sets (bytes > 0) or clears (bytes == 0) an L2 access policy window on
-// `stream`: the `bytes` from `base` persist in the L2 as far as the card
-// sets memory aside for that, the stream's other accesses as usual. Only
-// for measuring the exact forward with its table held so (chip_smoke.py
-// phase 3b); no path of the port sets one.
-extern "C" int grid_l2_window(void* stream, void* base, long long bytes) {
-  int dev, set_aside_max, window_max;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&set_aside_max,
-                                 cudaDevAttrMaxPersistingL2CacheSize, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&window_max,
-                                 cudaDevAttrMaxAccessPolicyWindowSize, dev);
-  if (err != cudaSuccess) return err;
-  cudaStreamAttrValue attr = {};
-  if (bytes > 0) {
-    const long long set_aside = bytes < set_aside_max ? bytes : set_aside_max;
-    const long long window = bytes < window_max ? bytes : window_max;
-    err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, set_aside);
-    if (err != cudaSuccess) return err;
-    attr.accessPolicyWindow.base_ptr = base;
-    attr.accessPolicyWindow.num_bytes = window;
-    attr.accessPolicyWindow.hitRatio =
-        set_aside >= window ? 1.0f : static_cast<float>(set_aside) / window;
-    attr.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
-    attr.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
-  }
-  err = cudaStreamSetAttribute(static_cast<cudaStream_t>(stream),
-                               cudaStreamAttributeAccessPolicyWindow, &attr);
-  if (err == cudaSuccess && bytes == 0) {
-    err = cudaCtxResetPersistingL2Cache();
-    if (err == cudaSuccess)
-      err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
-  }
-  return err;
+  GRID_DISPATCH(g, return table_gradient<D, F>(
+                       g, dp, x, u, axis, grad_out, rec, counts, totals,
+                       keys, vals, n_valid, grad, n_entries * F, n_keys,
+                       passes, s));
 }
 
 // d(loss)/dx (n, D) of the exact encode over the `active` levels.

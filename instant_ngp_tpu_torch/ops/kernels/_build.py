@@ -161,34 +161,22 @@ def load_library() -> ctypes.CDLL:
     # (n_dims, n, active, mode, j)
     lib.grid_deposit_count.argtypes = [i32, i64, i32, i32, i32]
     lib.grid_deposit_count.restype = i64
-    # (n_dims, n_features, n_entries, n, active, mode, j, out[6])
+    # (n_dims, n_features, n_entries, n, active, mode, j, out[5])
     lib.grid_deposit_scratch.argtypes = [i32, i32, i64, i64, i32, i32, i32,
                                          ctypes.POINTER(ctypes.c_longlong)]
     lib.grid_deposit_scratch.restype = None
-    # (x, u, axis, grad_out, records, counts, totals, keys, perm, n_valid,
-    #  chunk counts, grad, n_entries, n, active, mode, j, stream)
-    lib.grid_deposit_first_pass_launch.argtypes = [
+    # (x, u, axis, grad_out, records, counts, totals, keys 0, perm 0,
+    #  keys 1, perm 1, n_valid, grad, n_entries, n, active, mode, j, stream)
+    lib.grid_table_gradient_launch.argtypes = [
         dims, f32s, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ptr, i64, i64, i32, i32, i32, ptr]
-    # (keys, perm, n_valid, counts, totals, keys out, perm out, n_keys,
-    #  pass, stream)
-    lib.grid_radix_pass_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, ptr]
-    # (records, sorted keys, perm, chunk counts, grad, n_entries, n, active,
-    #  mode, j, stream)
-    lib.grid_deposit_sum_launch.argtypes = [
-        dims, f32s, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
-    # (stream, base, bytes): an L2 persisting window, for measurements
-    lib.grid_l2_window.argtypes = [ptr, ptr, i64]
+        ptr, ptr, i64, i64, i32, i32, i32, ptr]
     # (x, table, grad_out, grad_x, n, active, stream)
     lib.grid_input_gradient_launch.argtypes = [
         dims, f32s, ptr, ptr, ptr, ptr, i64, i32, ptr]
     for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
                lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant,
                lib.fused_mlp_mma_input_path, lib.grid_forward_launch,
-               lib.grid_deposit_first_pass_launch,
-               lib.grid_radix_pass_launch, lib.grid_deposit_sum_launch,
-               lib.grid_input_gradient_launch,
-               lib.grid_l2_window):
+               lib.grid_table_gradient_launch,
+               lib.grid_input_gradient_launch):
         fn.restype = ctypes.c_int
     return lib

@@ -19,8 +19,8 @@ writes each (level, point)'s gradient row and weights level-major and
 leaves out the deposits of a zero gradient, which add nothing), then
 `deposit_sum` adds each row's deposits in that order (the order and
 arithmetic of `index_put_` with accumulate on CUDA, which the plain
-version calls), once per point range of the exact deposit. Every scratch
-size comes from the library (`grid_deposit_scratch`). A call counts once.
+version calls). One library call launches them all; every scratch size
+comes from the library (`grid_deposit_scratch`). A call counts once.
 """
 
 from __future__ import annotations
@@ -187,24 +187,13 @@ encode_forward.launches = 0
 encode_forward.launches_by_variant = {}
 
 
-def _mark(marks, label: str) -> None:
-    """Records a CUDA event on the current stream after the part `label`
-    of a call, where the caller asked for `marks` (a list)."""
-    if marks is not None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        marks.append((label, event))
-
-
 def table_gradient(desc: GridDesc, x: torch.Tensor, grad_out: torch.Tensor,
                    active: int, mode: int = EXACT, draws=None,
-                   j: int = 0, marks=None) -> torch.Tensor:
+                   j: int = 0) -> torch.Tensor:
     """d(loss)/d(params), flat like the table, from grad_out (N, L*F) over
     the `active` levels: `mode` EXACT (every corner weighted), ONE_CORNER
     (the fully sampled corner, weight 1) or FETCHED (the 2^j corners the
-    stochastic forward fetched, weighted). The same bits in every run.
-    `marks`, a list, receives (part, CUDA event) after each part of the
-    call, and ("start", event) before the first (for timing the parts)."""
+    stochastic forward fetched, weighted). The same bits in every run."""
     n = _check_points(desc, x)
     f = desc.n_features
     _check("grad_out", grad_out, torch.float32, (n, desc.n_levels * f),
@@ -217,9 +206,8 @@ def table_gradient(desc: GridDesc, x: torch.Tensor, grad_out: torch.Tensor,
     if n == 0 or active < 1:
         return torch.zeros(desc.n_entries * f, dtype=torch.float32,
                            device=x.device)
-    # zeroed by the first pass, like the point ranges' counts
     grad = torch.empty(desc.n_entries * f, dtype=torch.float32,
-                       device=x.device)
+                       device=x.device)        # zeroed by the kernels
     u = axis = None
     if mode != EXACT:
         u, axis, _keep = _check_draws(desc, draws, n,
@@ -230,45 +218,32 @@ def table_gradient(desc: GridDesc, x: torch.Tensor, grad_out: torch.Tensor,
     if n_keys >= 1 << 31:
         raise ValueError(f"table_gradient: {n_keys} deposits, the sort's "
                          f"positions are int32")
-    scratch = (ctypes.c_longlong * 6)()
+    scratch = (ctypes.c_longlong * 5)()
     lib.grid_deposit_scratch(desc.n_dims, f, desc.n_entries, n, active, mode,
                              j, scratch)
-    _, n_counts, n_totals, passes, record, chunks = scratch
+    _, n_counts, n_totals, passes, record = scratch
     # one int32 scratch: rows and positions (ping-ponged between the
-    # passes), the tiles' counts, the digits' totals, the number of valid
-    # keys and each point range's
+    # passes where there are two or more), the tiles' counts, the digits'
+    # totals and the number of deposits kept
     n_bufs = min(passes, 2)
-    ints32 = torch.empty(2 * n_bufs * n_keys + n_counts + n_totals + 1
-                         + chunks, dtype=torch.int32, device=x.device)
-    bufs = list(ints32[:2 * n_bufs * n_keys].view(2, n_bufs, n_keys))
-    keys, perm = [b.data_ptr() for b in bufs[0]], \
-        [b.data_ptr() for b in bufs[1]]
-    counts, totals, n_valid, chunk_counts = torch.split(
-        ints32[2 * n_bufs * n_keys:], [n_counts, n_totals, 1, chunks])
+    ints32 = torch.empty(2 * n_bufs * n_keys + n_counts + n_totals + 1,
+                         dtype=torch.int32, device=x.device)
+    bufs = ints32[:2 * n_bufs * n_keys].view(n_bufs, 2, n_keys)
+    pairs = [(b[0].data_ptr(), b[1].data_ptr()) for b in bufs]
+    k0, v0 = pairs[0]
+    k1, v1 = pairs[1] if n_bufs == 2 else (None, None)
+    counts, totals, n_valid = torch.split(ints32[2 * n_bufs * n_keys:],
+                                          [n_counts, n_totals, 1])
     # each (level, point)'s gradient row, weights and exact axis
     rec = torch.empty(active * n * record, dtype=torch.float32,
                       device=x.device)
-    rec_p, c_p, t_p, nv_p = (t.data_ptr() for t in (rec, counts, totals,
-                                                    n_valid))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _mark(marks, "start")
-        _raise("grid deposit pass 1", lib.grid_deposit_first_pass_launch(
-            ints, scales, x.data_ptr(), u, axis, grad_out.data_ptr(), rec_p,
-            c_p, t_p, keys[0], perm[0], nv_p, chunk_counts.data_ptr(),
-            grad.data_ptr(), desc.n_entries, n, active, mode, j, stream))
-        _mark(marks, "pass 1 (rows, records, compaction)")
-        for p in range(1, passes):
-            _raise("grid radix pass", lib.grid_radix_pass_launch(
-                keys[(p - 1) % 2], perm[(p - 1) % 2], nv_p, c_p, t_p,
-                keys[p % 2], perm[p % 2], n_keys, p, stream))
-            _mark(marks, f"pass {p + 1}")
-        last = (passes - 1) % 2
-        _raise("grid table_gradient", lib.grid_deposit_sum_launch(
-            ints, scales, rec_p, keys[last], perm[last],
-            chunk_counts.data_ptr(), grad.data_ptr(), desc.n_entries, n,
-            active, mode, j, stream))
-        _mark(marks, "sum")
+        err = lib.grid_table_gradient_launch(
+            ints, scales, x.data_ptr(), u, axis, grad_out.data_ptr(),
+            rec.data_ptr(), counts.data_ptr(), totals.data_ptr(), k0, v0,
+            k1, v1, n_valid.data_ptr(), grad.data_ptr(), desc.n_entries, n,
+            active, mode, j, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise("grid table_gradient", err)
     _count(table_gradient, MODE_NAMES[mode])
     return grad
 

@@ -12,10 +12,8 @@ ranked within the tile in input order); then one sequential float32 sum per
 run of equal rows of the rounded products g * weight, a partial sum per
 group (one fetched corner of the stochastic j-axis deposit) added to the
 row's total in turn, the run owned by the tile of the sum that holds its
-head and continued past that tile's end (the exact deposit of many points
-is sorted by point range first and summed a range at a time, each going
-on from the rows' partial sums: the same adds in the same order, so the
-model sums each run whole). `sorted_deposit` below is that
+head and continued past that tile's end (the same adds in the same order,
+so the model sums each run whole). `sorted_deposit` below is that
 route, written with torch ops (no sort call: `radix_sort` is the model of
 the passes). It is held:
 - against `ordered_deposit` as the plain version calls it on the CPU
@@ -97,12 +95,18 @@ def radix_pass(keys, perm, shift, tile=SORT_TILE):
     return out_keys, out_perm
 
 
+def radix_passes(n_entries):
+    """The passes of a sort of rows < n_entries: one per 8-bit digit of
+    ceil(log2(n_entries)) bits (csrc/grid_encoding.cu
+    grid_deposit_scratch)."""
+    return -(-max(1, (n_entries - 1).bit_length()) // RADIX_BITS)
+
+
 def radix_sort(keys, n_entries, tile=SORT_TILE):
     """(sorted keys, positions) of int32 keys < n_entries: one pass per
     8-bit digit of the rows' own bits, ceil(log2(n_entries)) of them."""
-    bits = max(1, (n_entries - 1).bit_length())
     perm = torch.arange(keys.numel(), dtype=torch.int32)
-    for p in range(-(-bits // RADIX_BITS)):
+    for p in range(radix_passes(n_entries)):
         keys, perm = radix_pass(keys, perm, RADIX_BITS * p, tile)
     return keys, perm
 
@@ -297,11 +301,12 @@ def test_sorted_deposit_model_against_jax(n_dims, j, one, grid_type,
     np.testing.assert_allclose(model.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_entries", [300, 2_920_448])
+@pytest.mark.parametrize("n_entries", [256, 300, 2_920_448])
 def test_radix_model_is_a_stable_sort(n_entries):
-    """The radix passes (one for 9-bit rows, three for base.json's 22-bit
-    rows) order keys with long runs of equal values as a stable sort does,
-    over several tiles."""
+    """The radix passes (one for 8-bit rows, the kernel's single pass into
+    one buffer; two for 9-bit rows; three for base.json's 22-bit rows)
+    order keys with long runs of equal values as a stable sort does, over
+    several tiles."""
     rng = np.random.default_rng(n_entries)
     keys = rng.integers(0, n_entries, 12_000)
     keys[1000:4000] = keys[0]                    # a run across a tile's end
@@ -309,6 +314,8 @@ def test_radix_model_is_a_stable_sort(n_entries):
     keys[7000:] = rng.integers(0, 4, 5000)       # four long interleaved runs
     keys = torch.from_numpy(keys).to(torch.int32)
     got, perm = radix_sort(keys, n_entries)
+    assert radix_passes(n_entries) == {256: 1, 300: 2, 2_920_448: 3}[
+        n_entries]
     want = torch.sort(keys, stable=True)
     assert torch.equal(got, want.values)
     assert torch.equal(perm.long(), want.indices)
