@@ -46,6 +46,7 @@ from ..ops.losses import create_loss
 from ..ops.optimizers import create_optimizer
 from ..ops.sampling import generate_2d_samples
 from ..ops.trainer import Trainer
+from ..utils import span
 
 
 def _linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
@@ -178,23 +179,26 @@ class ImageTestbed:
         stoch = self._stoch_now()
         loss = None
         for _ in range(n_steps):
-            uniforms = corners = None
-            if self.draws is not None:
-                uniforms, corners = self.draws(self.training_step,
-                                               batch_size)
-            positions = generate_2d_samples(
-                self.random_mode, batch_size, self.training_step, self.seed,
-                uniforms=uniforms, generator=self.generator,
-                device=self.device)
-            positions, targets = self._fetch_targets(positions)
-            encode = {}
-            if stoch:
-                encode = {"draws": corners} if corners is not None \
-                    else {"generator": self.generator}
-            self.state, loss = self.trainer.train_step(
-                self.state, positions, targets, **encode)
-            self.training_step += 1
-        self.loss_scalar = float(loss)
+            with span("image.step"):
+                with span("image.batch"):
+                    uniforms = corners = None
+                    if self.draws is not None:
+                        uniforms, corners = self.draws(self.training_step,
+                                                       batch_size)
+                    positions = generate_2d_samples(
+                        self.random_mode, batch_size, self.training_step,
+                        self.seed, uniforms=uniforms,
+                        generator=self.generator, device=self.device)
+                    positions, targets = self._fetch_targets(positions)
+                encode = {}
+                if stoch:
+                    encode = {"draws": corners} if corners is not None \
+                        else {"generator": self.generator}
+                self.state, loss = self.trainer.train_step(
+                    self.state, positions, targets, **encode)
+                self.training_step += 1
+        with span("image.sync"):
+            self.loss_scalar = float(loss)
         return self.loss_scalar
 
     # ------------------------------------------------------------------

@@ -46,6 +46,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..camera import pos_to_uv, uv_to_ray
+from ..utils import span
 from .march import advance_n_steps, calc_dt, ray_intersect_aabb
 from .model import NerfNetwork, network_to_density, network_to_rgb
 from .sampler import RayBatch, compact_samples, march_rays
@@ -248,44 +249,50 @@ class WavefrontRenderer:
             generator = None
         n_rays = origins.shape[0]
         dev = origins.device
-        packed_ts, packed_ok, n_cand, valid = self._prep(origins, dirs,
-                                                         bitfield)
+        with span("render.march"):
+            packed_ts, packed_ok, n_cand, valid = self._prep(origins, dirs,
+                                                             bitfield)
         trans = torch.ones(n_rays, device=dev)
         acc_rgb = torch.zeros(n_rays, 3, device=dev)
         acc_alpha = torch.zeros(n_rays, device=dev)
         acc_depth = torch.zeros(n_rays, device=dev)
-        span = self.aabb_max - self.aabb_min
+        extent = self.aabb_max - self.aabb_min
         n_evaluated = 0
         for start in range(0, cfg.max_samples_per_ray, self.chunk):
-            idx = torch.nonzero(valid & (trans >= cfg.min_transmittance)
-                                & (n_cand > start)).squeeze(1)
+            with span("render.select"):
+                idx = torch.nonzero(valid & (trans >= cfg.min_transmittance)
+                                    & (n_cand > start)).squeeze(1)
             if idx.numel() == 0:
                 break
-            rt = packed_ts[idx, start:start + self.chunk]        # (B, K)
-            rv = packed_ok[idx, start:start + self.chunk]
-            o_b, d_b = origins[idx], dirs[idx]
-            pos = ((o_b[:, None, :] + rt[..., None] * d_b[:, None, :])
-                   - self.aabb_min) / span
-            dirw = ((d_b + 1.0) * 0.5)[:, None, :].expand_as(pos)
-            raw = _eval_network(
-                self.model, pos.reshape(-1, 3), dirw.reshape(-1, 3),
-                extra_dims, cfg.query_budget, generator
-            ).reshape(*rt.shape, 4)
+            # the network's span takes the gather of its inputs
+            with span("render.network"):
+                rt = packed_ts[idx, start:start + self.chunk]    # (B, K)
+                rv = packed_ok[idx, start:start + self.chunk]
+                o_b, d_b = origins[idx], dirs[idx]
+                pos = ((o_b[:, None, :] + rt[..., None] * d_b[:, None, :])
+                       - self.aabb_min) / extent
+                dirw = ((d_b + 1.0) * 0.5)[:, None, :].expand_as(pos)
+                raw = _eval_network(
+                    self.model, pos.reshape(-1, 3), dirw.reshape(-1, 3),
+                    extra_dims, cfg.query_budget, generator
+                ).reshape(*rt.shape, 4)
             n_evaluated += rt.numel()
-            rgb = network_to_rgb(raw[..., :3], cfg.rgb_activation)
-            sigma = network_to_density(raw[..., 3], cfg.density_activation)
-            alpha = torch.where(rv, 1.0 - torch.exp(
-                -sigma * calc_dt(rt, cfg.cone_angle)), 0.0)
-            prefix = torch.cumprod(1.0 - alpha, dim=1)
-            t_in = trans[idx]
-            t_before = t_in[:, None] * torch.cat(
-                [torch.ones_like(prefix[:, :1]), prefix[:, :-1]], dim=1)
-            w = torch.where(rv & (t_before >= cfg.min_transmittance),
-                            alpha * t_before, 0.0)
-            trans[idx] = t_in * prefix[:, -1]
-            acc_rgb[idx] += (w[..., None] * rgb).sum(dim=1)
-            acc_alpha[idx] += w.sum(dim=1)
-            acc_depth[idx] += (w * rt).sum(dim=1)
+            with span("render.composite"):
+                rgb = network_to_rgb(raw[..., :3], cfg.rgb_activation)
+                sigma = network_to_density(raw[..., 3],
+                                           cfg.density_activation)
+                alpha = torch.where(rv, 1.0 - torch.exp(
+                    -sigma * calc_dt(rt, cfg.cone_angle)), 0.0)
+                prefix = torch.cumprod(1.0 - alpha, dim=1)
+                t_in = trans[idx]
+                t_before = t_in[:, None] * torch.cat(
+                    [torch.ones_like(prefix[:, :1]), prefix[:, :-1]], dim=1)
+                w = torch.where(rv & (t_before >= cfg.min_transmittance),
+                                alpha * t_before, 0.0)
+                trans[idx] = t_in * prefix[:, -1]
+                acc_rgb[idx] += (w[..., None] * rgb).sum(dim=1)
+                acc_alpha[idx] += w.sum(dim=1)
+                acc_depth[idx] += (w * rt).sum(dim=1)
         bg = bg_color.expand(n_rays, 3)
         rgb = acc_rgb + (1.0 - acc_alpha)[:, None] * bg
         return {

@@ -99,7 +99,7 @@ from ..ops.optimizers import create_optimizer, tree_map
 from ..ops.sampling import ld_pixel_offset
 from ..ops.trainable_buffer import TrainableBuffer, read_envmap
 from ..parallel.mesh import Mesh
-from ..utils import Ema, PhaseTimers
+from ..utils import Ema, span
 from .dataset import (NerfSceneConfig, pack_training_data,
                       scene_config_from_dataset)
 from .march import (cascaded_grid_idx_at, mip_from_pos, ray_intersect_aabb,
@@ -339,7 +339,6 @@ class NerfTestbed:
         # the scanned multi-step block is not ported: anything but 1 raises
         self.steps_per_dispatch = 1
 
-        self.timers = PhaseTimers()
         self.loss_ema = Ema(half_life_s=1.0)
         self.samples_per_s = Ema(half_life_s=2.0)
         self.rays_per_s = Ema(half_life_s=2.0)
@@ -661,7 +660,8 @@ class NerfTestbed:
             self._n_steps_since_error_update += 1
             if self._n_steps_since_error_update >= \
                     self.n_steps_between_error_map_updates:
-                self._rebuild_error_cdfs()
+                with span("nerf.error_cdfs"):
+                    self._rebuild_error_cdfs()
                 self._n_steps_since_error_update = 0
         return stats
 
@@ -766,17 +766,17 @@ class NerfTestbed:
         self._require_training()
         n_pending = 0
         for i in range(n_steps):
-            if (self.training_step < self.warmup_full_grid_preps
-                    or self.training_step % self.prep_every == 0):
-                with self.timers.time("training_prep"):
-                    self.training_prep()
-            with self.timers.time("train_step"):
+            with span("nerf.step"):
+                if (self.training_step < self.warmup_full_grid_preps
+                        or self.training_step % self.prep_every == 0):
+                    with span("nerf.prep"):
+                        self.training_prep()
                 stats = self.train_step()
-            n_pending += 1
-            if n_pending >= self.sync_every or i == n_steps - 1:
-                with self.timers.time("train_sync"):
-                    self._sync_stats(stats)
-                n_pending = 0
+                n_pending += 1
+                if n_pending >= self.sync_every or i == n_steps - 1:
+                    with span("nerf.sync"):
+                        self._sync_stats(stats)
+                    n_pending = 0
         return self.loss_scalar
 
     def _sync_stats(self, stats: Dict[str, torch.Tensor]) -> None:
@@ -830,7 +830,6 @@ class NerfTestbed:
             "loss_ema": self.loss_ema.value,
             "measured_batch_size": self.measured_batch_size,
             "rays_per_batch": self.rays_per_batch,
-            "phase_ms": self.timers.summary(),
         }
 
     @torch.no_grad()
@@ -981,81 +980,85 @@ class NerfTestbed:
         by each ray's direction; by default on while an envmap is trained or
         came with the dataset. extra_dims: the latent code of the frame; by
         default `get_rendering_extra_dims()`."""
-        mode = getattr(render_mode, "value", render_mode)
-        if isinstance(lens_mode, str):
-            lens_mode = lens_mode_id(lens_mode)
-        if focal_length is None:
-            if self.data is None:
-                raise ValueError("focal_length is required: a render-only "
-                                 "testbed has no training camera")
-            res0 = self.data.resolution
-            fl = self.data.focal_lengths[0].cpu().numpy() \
-                * np.array([width / res0[0], height / res0[1]], np.float32)
-        else:
-            fl = np.array(focal_length, np.float32)
-            if fl.ndim == 0:
-                fl = np.array([fl, fl], np.float32)
-        cam = np.array(camera_matrix, np.float32)
-        dist_map = self.distortion_map.params \
-            if use_distortion_map or self.optimize_distortion else None
+        with span("render.frame"):
+            mode = getattr(render_mode, "value", render_mode)
+            if isinstance(lens_mode, str):
+                lens_mode = lens_mode_id(lens_mode)
+            if focal_length is None:
+                if self.data is None:
+                    raise ValueError("focal_length is required: a render-only "
+                                     "testbed has no training camera")
+                res0 = self.data.resolution
+                fl = self.data.focal_lengths[0].cpu().numpy() \
+                    * np.array([width / res0[0], height / res0[1]], np.float32)
+            else:
+                fl = np.array(focal_length, np.float32)
+                if fl.ndim == 0:
+                    fl = np.array([fl, fl], np.float32)
+            cam = np.array(camera_matrix, np.float32)
+            dist_map = self.distortion_map.params \
+                if use_distortion_map or self.optimize_distortion else None
 
-        if mode == "Distortion":
-            # a screen-space picture of the lens: no marching
-            return distortion_flow_image(
-                width, height, fl, cam, device=self.device,
-                screen_center=screen_center, lens_mode=lens_mode,
-                lens_params=lens_params, distortion_map=dist_map
-            ).cpu().numpy()
-        if mode not in RENDER_TILE_MODES:
-            raise ValueError(f"render_frame has no mode {mode!r} (the Slice "
-                             f"mode is render_density_slice)")
+            if mode == "Distortion":
+                # a screen-space picture of the lens: no marching
+                return distortion_flow_image(
+                    width, height, fl, cam, device=self.device,
+                    screen_center=screen_center, lens_mode=lens_mode,
+                    lens_params=lens_params, distortion_map=dist_map
+                ).cpu().numpy()
+            if mode not in RENDER_TILE_MODES:
+                raise ValueError(f"render_frame has no mode {mode!r} (the "
+                                 f"Slice mode is render_density_slice)")
 
-        if extra_dims is None:
-            extra_dims = self.get_rendering_extra_dims()
-        else:
-            extra_dims = torch.as_tensor(extra_dims, dtype=torch.float32,
-                                         device=self.device)
-        if tile is None:
-            tile = (1 << 19) if self._uses_wavefront(mode) else (1 << 13)
-        fn = self._get_render_fn(tile, mode, min_transmittance)
-        bg_const = torch.as_tensor(background_color, dtype=torch.float32,
-                                   device=self.device)
-        if use_envmap_background is None:
-            use_envmap_background = (self.train_envmap
-                                     or self.has_dataset_envmap)
-        n_pixels = width * height
-        acc = torch.zeros(n_pixels, 4, device=self.device)
-        self.last_frame_n_samples = 0
-        corner_gen = None
-        if self.render_stochastic_corners:
-            corner_gen = torch.Generator(device=self.device).manual_seed(
-                self.seed ^ 0x7E4D)
-        aperture_gen = None
-        if aperture_size != 0.0:
-            aperture_gen = torch.Generator().manual_seed(0xAB)
-        for s in range(spp):
-            jitter = None if spp == 1 else ld_pixel_offset(s)
-            aperture_samples = None if aperture_gen is None else torch.rand(
-                n_pixels, 2, generator=aperture_gen).to(self.device)
-            origins, dirs = camera_rays_for_frame(
-                width, height, fl, cam, device=self.device,
-                screen_center=screen_center, lens_mode=lens_mode,
-                lens_params=lens_params, distortion_map=dist_map,
-                jitter=jitter, aperture_size=aperture_size, focus_z=focus_z,
-                aperture_samples=aperture_samples)
-            for i in range(0, n_pixels, tile):
-                d_tile = dirs[i:i + tile]
-                bg = bg_const
-                if use_envmap_background:
-                    # the envmap over the constant colour, premultiplied
-                    env = read_envmap(self.envmap.params, d_tile)
-                    bg = env[:, :3] + bg_const * (1.0 - env[:, 3:4])
-                out = fn(origins[i:i + tile], d_tile, bg, extra_dims,
-                         corner_gen)
-                acc[i:i + tile, :3] += out["rgb"]
-                acc[i:i + tile, 3] += out["alpha"]
-                self.last_frame_n_samples += int(out["n_samples"])
-        return (acc / spp).reshape(height, width, 4).cpu().numpy()
+            if extra_dims is None:
+                extra_dims = self.get_rendering_extra_dims()
+            else:
+                extra_dims = torch.as_tensor(extra_dims, dtype=torch.float32,
+                                             device=self.device)
+            if tile is None:
+                tile = (1 << 19) if self._uses_wavefront(mode) else (1 << 13)
+            fn = self._get_render_fn(tile, mode, min_transmittance)
+            bg_const = torch.as_tensor(background_color, dtype=torch.float32,
+                                       device=self.device)
+            if use_envmap_background is None:
+                use_envmap_background = (self.train_envmap
+                                         or self.has_dataset_envmap)
+            n_pixels = width * height
+            acc = torch.zeros(n_pixels, 4, device=self.device)
+            self.last_frame_n_samples = 0
+            corner_gen = None
+            if self.render_stochastic_corners:
+                corner_gen = torch.Generator(device=self.device).manual_seed(
+                    self.seed ^ 0x7E4D)
+            aperture_gen = None
+            if aperture_size != 0.0:
+                aperture_gen = torch.Generator().manual_seed(0xAB)
+            for s in range(spp):
+                jitter = None if spp == 1 else ld_pixel_offset(s)
+                aperture_samples = None if aperture_gen is None \
+                    else torch.rand(n_pixels, 2, generator=aperture_gen
+                                    ).to(self.device)
+                origins, dirs = camera_rays_for_frame(
+                    width, height, fl, cam, device=self.device,
+                    screen_center=screen_center, lens_mode=lens_mode,
+                    lens_params=lens_params, distortion_map=dist_map,
+                    jitter=jitter, aperture_size=aperture_size,
+                    focus_z=focus_z, aperture_samples=aperture_samples)
+                for i in range(0, n_pixels, tile):
+                    d_tile = dirs[i:i + tile]
+                    bg = bg_const
+                    if use_envmap_background:
+                        # the envmap over the constant colour, premultiplied
+                        env = read_envmap(self.envmap.params, d_tile)
+                        bg = env[:, :3] + bg_const * (1.0 - env[:, 3:4])
+                    out = fn(origins[i:i + tile], d_tile, bg, extra_dims,
+                             corner_gen)
+                    acc[i:i + tile, :3] += out["rgb"]
+                    acc[i:i + tile, 3] += out["alpha"]
+                    self.last_frame_n_samples += int(out["n_samples"])
+            with span("render.readback"):
+                return (acc / spp).reshape(height, width, 4).cpu() \
+                    .numpy()
 
     def render_training_view(self, img_idx: int, spp: int = 1,
                              width: Optional[int] = None,

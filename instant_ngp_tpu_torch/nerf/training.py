@@ -77,6 +77,7 @@ from ..ops.optimizers import Optimizer, tree_leaves, tree_map
 from ..ops.trainable_buffer import read_envmap
 from ..ops.trainer import default_l2_mask
 from ..parallel.mesh import psum_many
+from ..utils import span
 from .dataset import NerfTrainingData
 from .model import NerfNetwork, network_to_density, network_to_rgb
 from .sampler import (RayBatch, SampleBatch, TrainDraws, build_rays,
@@ -333,7 +334,7 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
         raise ValueError("stochastic_corners needs the corners' draws, or "
                          "a generator to make them from")
 
-    with torch.no_grad():
+    with torch.no_grad(), span("nerf.sample"):
         rays, motionblur_time = generate_rays(
             ray_draws, data, aabb_min, aabb_max, cfg.cone_angle,
             cfg.lens_mode, cfg.snap_to_pixel_centers, cam=cam,
@@ -398,20 +399,24 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             # each sample's latent: its ray's image's code (the backward of
             # this gather is the segment sum over an image's samples)
             extra = aux.get("extra", data.extra_dims)[sample_img]
-        raw = model.apply_components(positions, dirs_warped, extra, **encode)
-        exposure = aux.get("exposure", data.exposures)[rays.img_idx]
-        if "envmap" in aux:
-            # the envmap behind the random background
-            env = read_envmap(aux["envmap"], rays.dirs)
-            bg = env[:, :3] + bg * (1.0 - env[:, 3:4])
-        result = composite_loss(
-            raw, samples, ts, dts, rays, bg, exposure, cfg.rgb_activation,
-            cfg.density_activation, cfg.loss_type, mean_density,
-            cfg.near_distance, cfg.train_in_linear_colors,
-            cfg.disable_regularizers, depth_target,
-            cfg.depth_supervision_lambda)
-        grads = torch.autograd.grad(result.loss_for_grad,
-                                    leaves + list(aux.values()))
+        with span("nerf.forward"):
+            raw = model.apply_components(positions, dirs_warped, extra,
+                                         **encode)
+        with span("nerf.composite"):
+            exposure = aux.get("exposure", data.exposures)[rays.img_idx]
+            if "envmap" in aux:
+                # the envmap behind the random background
+                env = read_envmap(aux["envmap"], rays.dirs)
+                bg = env[:, :3] + bg * (1.0 - env[:, 3:4])
+            result = composite_loss(
+                raw, samples, ts, dts, rays, bg, exposure,
+                cfg.rgb_activation, cfg.density_activation, cfg.loss_type,
+                mean_density, cfg.near_distance, cfg.train_in_linear_colors,
+                cfg.disable_regularizers, depth_target,
+                cfg.depth_supervision_lambda)
+        with span("nerf.backward"):
+            grads = torch.autograd.grad(result.loss_for_grad,
+                                        leaves + list(aux.values()))
     with torch.no_grad():
         stats = {
             "loss": result.per_ray_loss.sum() / cfg.n_rays,
@@ -439,8 +444,10 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             stats = dict(zip(stats, fused))
     aux_grads = dict(zip(aux, grads[len(leaves):]))
     grads = iter(grads[:len(leaves)])
-    optimizer.step(opt_state, params, tree_map(lambda _: next(grads), params),
-                   l2_mask=default_l2_mask(params))
+    with span("nerf.optimizer"):
+        optimizer.step(opt_state, params,
+                       tree_map(lambda _: next(grads), params),
+                       l2_mask=default_l2_mask(params))
 
     with torch.no_grad():
         stats["fused"] = fused

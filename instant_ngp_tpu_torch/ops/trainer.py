@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..parallel.mesh import pmean, psum_many
+from ..utils import span
 from .optimizers import Optimizer, tree_leaves, tree_map
 
 
@@ -114,13 +115,17 @@ class Trainer:
         reading it waits for the device). `draws` or `generator`: the
         stochastic-corner encode of a grid encoding."""
         with torch.enable_grad():
-            pred = self.model(inputs, draws=draws, generator=generator)
-            loss = self.loss_fn(pred, targets) * self.loss_scale
-            grads = self._grads(loss, state["params"])
+            with span("trainer.forward"):
+                pred = self.model(inputs, draws=draws, generator=generator)
+                loss = self.loss_fn(pred, targets) * self.loss_scale
+            with span("trainer.backward"):
+                grads = self._grads(loss, state["params"])
         loss = loss.detach() / self.loss_scale
         if self._group is not None:
             loss = pmean(loss, self._group)
-        return self._step(state, grads), loss
+        with span("trainer.optimizer"):
+            state = self._step(state, grads)
+        return state, loss
 
     def train_step_custom_gradient(
             self, state: Dict[str, Any], inputs: torch.Tensor,

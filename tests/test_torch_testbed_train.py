@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_training import (N_RAYS, TRAIN_CFG, _numpy_tree,  # noqa: E402
@@ -26,6 +27,7 @@ from test_torch_training import (N_RAYS, TRAIN_CFG, _numpy_tree,  # noqa: E402
 from instant_ngp_tpu_torch.convert import params_from_jax
 from instant_ngp_tpu_torch.nerf.dataset import scene_config
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+from instant_ngp_tpu_torch.utils import clear_spans, span_ms
 
 torch.set_num_threads(2)
 
@@ -202,8 +204,14 @@ def test_train_adapts_rays_and_aborts_on_zero_samples():
     assert 256 <= tb.rays_per_batch <= 1 << 14
     perf = tb.performance_stats()
     assert perf["measured_batch_size"] == tb.measured_batch_size > 0
-    assert {"training_prep", "train_step", "train_sync"} <= set(
-        perf["phase_ms"])
+    # the loop's phases are spans, recorded only under a profiler
+    assert "phase_ms" not in perf
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tb.train(1)
+    for name in ("nerf.prep", "nerf.step", "nerf.sync"):
+        assert len(span_ms(name)) == 1, name
+    clear_spans()
     # an empty occupancy grid generates no samples: the loop aborts
     tb.warmup_full_grid_preps = 0
     tb.training_step = 1
