@@ -57,6 +57,14 @@ Phases, each of which raises on failure (a non-zero exit):
    paths each count their grid launches from 0 and must have launched
    one, each grid kernel must have run on one of them, and no plain grid
    method may run on a CUDA tensor in the whole run;
+   3c. the wavefront renderer's march-and-pack kernel (csrc/nerf_march.cu)
+   against its plain version at the render benchmark's tile (2^19 rays,
+   n_march 1024, 512 kept, the shell's bitfield): the same bits over the
+   columns the rounds read, both timed with CUDA events beside the bytes
+   bound and the issue bound (the candidates visited and the fewest SASS
+   instructions of the kernel's loop, `sass_loop_paths`). From phase 4
+   on, the frames, both trainings of phase 6 and the capture count its
+   launches from 0 and must have launched it;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -236,6 +244,11 @@ CURVE_SLACK_DB from the record, above or below.
     python3 chip_smoke.py --grid-only
 
 builds the kernels and then only runs phase 3b; it prints no result line.
+
+    python3 chip_smoke.py --march-only
+
+builds the kernels and then only runs phase 3c (`march_kernel_on_card`);
+it prints no result line.
 
     python3 chip_smoke.py --deposit-ab
 
@@ -441,6 +454,8 @@ GRID_CONFIGS = (("image_base", "image", "base"),
 # the paths whose grid launches phase 4 on count, each from 0
 GRID_PATHS = ("density pass", "render", "train default", "train exact",
               "capture", "image", "volume", "sdf", "geometry")
+# the paths whose frames go through the wavefront renderer
+MARCH_PATHS = ("render", "train default", "train exact", "capture")
 # phase 15, Geometry mode: frames of the scene, the card against the CPU
 GEOMETRY_SIZE, GEOMETRY_SMALL = 400, 48
 SCREENSHOT = (1920, 1080)
@@ -2033,25 +2048,34 @@ def check_kernel(out, ref, what):
     return max_abs, mean_abs
 
 
-class GridPaths:
-    """The grid kernels' launches on each path of the run, counted from 0
-    over it (`grid_kernels.launch_counts` before and after)."""
+class KernelPaths:
+    """The grid kernels' and the march kernel's launches on each path of
+    the run, counted from 0 over it (`grid_kernels.launch_counts` and
+    `march_and_pack.launches` before and after)."""
 
     def __init__(self):
         self.by_path = {}
 
-    def run(self, path, fn, *args, **kwargs):
+    @staticmethod
+    def counts():
         from instant_ngp_tpu_torch.ops.kernels import grid_kernels
+        from instant_ngp_tpu_torch.ops.kernels.march_kernels import \
+            march_and_pack
 
-        before = grid_kernels.launch_counts()
+        return {**grid_kernels.launch_counts(),
+                "march_and_pack": march_and_pack.launches}
+
+    def run(self, path, fn, *args, **kwargs):
+        before = self.counts()
         try:
             return fn(*args, **kwargs)
         finally:
             counts = self.by_path.setdefault(path, {})
-            for key, n in grid_kernels.launch_counts().items():
+            for key, n in self.counts().items():
                 if n != before.get(key, 0):
                     counts[key] = counts.get(key, 0) + n - before.get(key, 0)
-            print(f"grid kernel launches, {path}: {counts}", flush=True)
+            print(f"grid and march kernel launches, {path}: {counts}",
+                  flush=True)
 
     def total(self, *keys):
         return sum(c.get(k, 0) for c in self.by_path.values() for k in keys)
@@ -2319,6 +2343,243 @@ def grid_kernels_on_card(dev, smi):
     return rows
 
 
+def march_visits(wr, origins, dirs, bitfield, step=1 << 14):
+    """-> ((R,) int64: the candidates the march kernel visits on each ray:
+    on a ray that meets the box, up to and including the first past the
+    box's far face, its cap-th emission or the last; 0 on a ray that
+    misses it, the visits to candidates inside the box), counted on the
+    plain planes."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.render import _march_start
+    from instant_ngp_tpu_torch.nerf.sampler import RayBatch, march_rays
+
+    cfg, lo, hi = wr.cfg, wr.aabb_min, wr.aabb_max
+    k = torch.arange(cfg.n_march, device=origins.device)
+    parts, n_inside = [], 0
+    for i in range(0, origins.shape[0], step):
+        o, d = origins[i:i + step], dirs[i:i + step]
+        t_start, valid = _march_start(o, d, lo, hi, cfg.cone_angle)
+        ts, _, emit = march_rays(RayBatch(o, d, t_start, valid), bitfield,
+                                 lo, hi, cfg.cone_angle, cfg.max_mip,
+                                 cfg.n_march, cfg.n_march)
+        pos = o[:, None, :] + ts[..., None] * d[:, None, :]
+        d = d[:, None, :]
+        past = (((d <= 0) & (pos < lo)) | ((d >= 0) & (pos > hi))).any(-1)
+        at_cap = emit & (torch.cumsum(emit, dim=1)
+                         == cfg.max_samples_per_ray)
+        last = torch.where(past | at_cap, k, cfg.n_march - 1).amin(dim=1)
+        parts.append(torch.where(valid, last + 1, 0))
+        inside = ((pos >= lo) & (pos <= hi)).all(-1) & (k <= last[:, None])
+        n_inside += int(inside[valid].sum())
+    return torch.cat(parts), n_inside
+
+
+def sass_loop_paths(lib_path, kernel="march_and_pack"):
+    """The longest loop of `kernel` in the built library's SASS (cuobjdump
+    -sass), from its head to its backward branch -> ({"static": its
+    instructions, "through_load": the fewest an iteration that reaches the
+    loop's one global load (LDG) executes, "shortest": the fewest an
+    iteration or its exit from the loop executes}, the loop's SASS), or
+    (None, why not). A call's out-of-line body is not counted: the paths
+    are lower bounds of what a visit issues."""
+    import re
+    import shutil
+    from collections import deque
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None, "no cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", out)[1:]
+             if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        return None, f"{len(funcs)} SASS functions named {kernel}"
+    # a branch names its target by a label (`(.L_x_3)) or by an address
+    instrs, at = [], {}
+    for line in funcs[0].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            at[label.group(1)] = len(instrs)
+            continue
+        instr = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if instr:
+            at[int(instr.group(1), 16)] = len(instrs)
+            instrs.append(instr.group(2))
+
+    def target(text):
+        branch = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
+        if branch is None:
+            return None
+        t = branch.group(1)
+        return at.get(t if t.startswith(".") else int(t, 16), -1)
+
+    loops = [(i - target(x) + 1, target(x), i) for i, x in enumerate(instrs)
+             if target(x) is not None and 0 <= target(x) <= i]
+    if not loops:
+        return None, f"no backward branch in {kernel}'s SASS"
+    n, head, tail = max(loops)
+    body = instrs[head:tail + 1]
+    loads = [i for i, x in enumerate(body)
+             if re.match(r"(@!?U?P\w+\s+)?LDG\b", x)]
+    if len(loads) != 1:
+        return None, f"{len(loads)} global loads in {kernel}'s loop"
+
+    # the loop's control flow: an index past the body is an exit, and the
+    # back branch's edge to the head ends the iteration (index n)
+    def succ(i):
+        if i == n - 1:
+            return [n] + ([i + 1] if body[i].startswith("@") else [])
+        if re.match(r"(@!?U?P\w+\s+)?(EXIT|RET)\b", body[i]):
+            return [n + 1]
+        t = target(body[i])
+        if t is None:
+            return [i + 1]
+        t = t - head if head <= t <= tail else n + 1
+        return [t] + ([i + 1] if body[i].startswith("@") else [])
+
+    def fewest(src):
+        dist, todo = {src: 1}, deque([src])
+        while todo:
+            i = todo.popleft()
+            for j in succ(i):
+                if j not in dist:
+                    dist[j] = dist[i] + (j < n)
+                    if j < n:
+                        todo.append(j)
+        return dist
+
+    from_head, from_load = fewest(0), fewest(loads[0])
+    paths = {"static": n,
+             "through_load": from_head[loads[0]] + from_load[n] - 1,
+             "shortest": min(d for j, d in from_head.items() if j >= n)}
+    return paths, "\n".join(body)
+
+
+def march_kernel_on_card(dev, smi, size=800, focal=880.0, tile=1 << 19):
+    """Phase 3c (and --march-only): the wavefront renderer's march-and-pack
+    kernel against its plain version at the render benchmark's tile (the
+    first 2^19 rays of an 800x800 frame from its orbit, focal 1.1 x 800,
+    n_march 1024, 512 kept, the shell's bitfield, cone 0): the same bits
+    over the columns the rounds read, device times in turns (kernel, plain,
+    kernel), the bytes bound and the instruction-issue bound of the
+    candidates visited -> its row of the result line."""
+    import torch
+
+    from instant_ngp_tpu_torch.nerf.occupancy import shell_bitfield
+    from instant_ngp_tpu_torch.nerf.render import (RenderConfig,
+                                                   WavefrontRenderer,
+                                                   camera_rays_for_frame)
+    from instant_ngp_tpu_torch.ops.kernels import _build
+    from instant_ngp_tpu_torch.ops.kernels.march_kernels import \
+        march_and_pack
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = RenderConfig(n_march=1024, max_samples_per_ray=512,
+                       cone_angle=0.0, max_mip=0, rgb_activation="Logistic",
+                       density_activation="Exponential")
+    lo = torch.zeros(3, device=dev)
+    wr = WavefrontRenderer(None, cfg, lo, lo + 1.0)
+    origins, dirs = camera_rays_for_frame(
+        size, size, [focal, focal], orbit_camera(0.3, 0.4), device=dev)
+    origins = origins[:tile].contiguous()
+    dirs = dirs[:tile].contiguous()
+    bitfield = shell_bitfield(dev)
+
+    def kernel():
+        return wr._march_and_pack(origins, dirs, bitfield)
+
+    def plain():
+        return wr._march_and_pack_plain(origins, dirs, bitfield)
+
+    before = march_and_pack.launches
+    ts, ok, n_cand, valid = kernel()
+    p_ts, p_ok, p_n, p_valid = plain()
+    if march_and_pack.launches != before + 1:
+        raise SystemExit("march: the kernel was not launched")
+    rounds = (p_n + wr.chunk - 1) // wr.chunk * wr.chunk
+    read = torch.arange(wr._c_pad, device=dev)[None, :] < rounds[:, None]
+    same = (torch.equal(valid, p_valid) and torch.equal(n_cand, p_n)
+            and torch.equal(ok[read], p_ok[read])
+            and torch.equal(ts[read].view(torch.int32),
+                            p_ts[read].view(torch.int32)))
+    if not same:
+        raise SystemExit(f"march: the kernel's rows differ from the plain "
+                         f"rows: n_cand {int((n_cand != p_n).sum())} rays, "
+                         f"ts {int((ts != p_ts)[read].sum())} columns")
+    del ts, ok, n_cand, valid, p_ts, p_ok, read
+    ms = [cuda_ms(kernel)]
+    plain_ms = cuda_ms(plain, reps=3, inner=1)
+    ms.append(cuda_ms(kernel))
+    # rays read once; each row written to its last round, with n_cand and
+    # valid
+    moved = tile * 24 + 5 * int(rounds.sum()) + 9 * tile
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    # issue: each candidate visited runs an iteration of the kernel's loop,
+    # at least the fewest SASS instructions of one that reads the bitfield
+    # if the candidate lies inside the box, else of any iteration; one warp
+    # instruction a clock on each of an SM's four schedulers, 32 lanes
+    # each. Lanes whose ray has stopped idle until their warp's last ray
+    # stops (the warp steps)
+    per_ray, inside = march_visits(wr, origins, dirs, bitfield)
+    visits = int(per_ray.sum())
+    warp_visits = int(per_ray.view(-1, 32).amax(dim=1).sum())
+    paths, loop_sass = sass_loop_paths(_build.build())
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lane_issue_per_s = n_sm * 4 * 32 * sm_mhz * 1e6
+    instructions = None if paths is None else (
+        inside * paths["through_load"]
+        + (visits - inside) * paths["shortest"])
+    ops_ms = (None if paths is None
+              else 1e3 * instructions / lane_issue_per_s)
+    bound_ms, bound_by = ((bytes_ms, "bytes") if ops_ms is None
+                          or ops_ms < bytes_ms else (ops_ms, "operations"))
+    samples = int(p_n.sum())
+    row = {"rays": tile, "samples": samples, "visits": visits,
+           "warp_visits": warp_visits,
+           "lane_share": visits / (32 * warp_visits),
+           "inside_visits": inside, "loop_sass_instructions": paths,
+           "instructions": instructions,
+           "lane_issue_per_s": lane_issue_per_s,
+           "ms": min(ms), "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+           "ops_bound_ms": ops_ms, "bytes_moved": moved,
+           "share_of_bound": bound_ms / min(ms),
+           "share_of_bytes_bound": bytes_ms / min(ms),
+           "share_of_ops_bound": None if ops_ms is None else ops_ms / min(ms),
+           "visits_per_ns": visits / (min(ms) * 1e6),
+           "bit_equal_to_plain": same}
+    if paths is None:
+        print(f"march kernel: no instruction count ({loop_sass})")
+    else:
+        lines = loop_sass.splitlines()
+        print(f"march kernel: its loop's SASS ({lines[0]!r} .. "
+              f"{lines[-1]!r}): {paths}; {inside} of the visits inside the "
+              f"box, {instructions} instructions at least; {n_sm} SMs at "
+              f"{sm_mhz:.0f} MHz issue {lane_issue_per_s:.4g} lane "
+              f"instructions a second")
+    ops = "not counted" if ops_ms is None else (
+        f"{ops_ms:.4f} ms, {100 * ops_ms / min(ms):.1f} % reached")
+    print(f"march kernel x {tile} rays (n_march 1024, 512 kept, shell, "
+          f"cone 0): kernel {min(ms):.4f} ms ({ms}), plain {plain_ms:.3f} "
+          f"ms; bounds: bytes {bytes_ms:.4f} ms ({moved / 1e6:.1f} MB; "
+          f"{100 * bytes_ms / min(ms):.2f} % reached), issue {ops}; "
+          f"{samples} samples, {visits} candidates visited "
+          f"({row['visits_per_ns']:.3f} a ns; {warp_visits} warp steps, "
+          f"{100 * row['lane_share']:.1f} % of their lanes busy); "
+          f"bit-equal to plain: {same} "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]", flush=True)
+    print(f"march peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB (the plain planes included)", flush=True)
+    return row
+
+
 def profile_frame(tb, cam, smi, out_path):
     """One warm frame with CUDA-event spans around each layer (device time
     between the events, no extra syncs), one under torch.profiler, and a
@@ -2336,10 +2597,10 @@ def profile_frame(tb, cam, smi, out_path):
               ("density MLP kernel", model.density_net),
               ("SH direction encode", model.dir_encoding),
               ("RGB MLP kernel", model.rgb_net)]
-    prep = WavefrontRenderer._prep
+    prep = WavefrontRenderer._march_and_pack
     for name, mod in layers:
         mod.forward = timed(name, mod.forward)
-    WavefrontRenderer._prep = timed("march + pack", prep)
+    WavefrontRenderer._march_and_pack = timed("march + pack", prep)
     try:
         frame_start = torch.cuda.Event(enable_timing=True)
         frame_end = torch.cuda.Event(enable_timing=True)
@@ -2350,7 +2611,7 @@ def profile_frame(tb, cam, smi, out_path):
     finally:
         for _, mod in layers:
             del mod.forward
-        WavefrontRenderer._prep = prep
+        WavefrontRenderer._march_and_pack = prep
     frame_ms = frame_start.elapsed_time(frame_end)
     print(f"profile: warm frame {frame_ms:.1f} ms on the device's clock "
           f"[{smi}]")
@@ -4131,6 +4392,10 @@ def main():
     parser.add_argument("--grid-only", action="store_true",
                         help="after the build, only run phase 3b (the grid "
                              "kernels) and stop")
+    parser.add_argument("--march-only", action="store_true",
+                        help="after the build, only check and time the "
+                             "march-and-pack kernel (march_kernel_on_card) "
+                             "and stop")
     parser.add_argument("--deposit-ab", action="store_true",
                         help="after the build, only time the table "
                              "gradient's deposit by index_put_ against "
@@ -4178,6 +4443,9 @@ def main():
                 print(f"  ptxas: {line.strip()}")
     if args.grid_only:
         grid_kernels_on_card(dev, smi)
+        return
+    if args.march_only:
+        march_kernel_on_card(dev, smi)
         return
     if args.step_times:
         step_times(load_network_config(find_network_config("base", "nerf")),
@@ -4385,19 +4653,22 @@ def main():
 
     # phase 3b: the grid encode's kernels against their plain versions
     grid_rows = grid_kernels_on_card(dev, smi)
+    # phase 3c: the march-and-pack kernel against its plain version
+    march_row = march_kernel_on_card(dev, smi)
+    torch.cuda.empty_cache()
 
     # phase 4: the main path, through the testbed's entry points; from here
     # on no plain grid method may run on a CUDA tensor, and every path
-    # counts its grid launches from 0
+    # counts its grid and march launches from 0
     GridEncoding.plain_calls_on_cuda = 0
-    grid_paths = GridPaths()
+    kernel_paths = KernelPaths()
     cam = orbit_camera(angle=0.3, elevation=0.4)
     fused_mlp_forward.launches = 0
     fused_mlp_forward.launches_by_variant.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    grid_paths.run("density pass", tb.update_density_grid_full)
+    kernel_paths.run("density pass", tb.update_density_grid_full)
     torch.cuda.synchronize()
     density_s = time.perf_counter() - t0
     launches_density = fused_mlp_forward.launches
@@ -4407,7 +4678,7 @@ def main():
     for _ in range(2):   # a cold frame, then a warm one
         by_variant_before = dict(fused_mlp_forward.launches_by_variant)
         t0 = time.perf_counter()
-        frame = grid_paths.run("render", tb.render_frame, WIDTH, HEIGHT,
+        frame = kernel_paths.run("render", tb.render_frame, WIDTH, HEIGHT,
                                cam, focal_length=FOCAL)
         torch.cuda.synchronize()
         frames.append((time.perf_counter() - t0, tb.last_frame_n_samples))
@@ -4476,10 +4747,10 @@ def main():
     print(f"scene: {ds.n_images} views of {ds.images[0].shape[1]}x"
           f"{ds.images[0].shape[0]} raytraced in "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
-    train_tb, by_variant_train, by_variant_phase6 = grid_paths.run(
+    train_tb, by_variant_train, by_variant_phase6 = kernel_paths.run(
         "train default", train_on_card, ds, cfg, dev, smi, fused_mlp_forward,
         "default")
-    exact_tb, _, _ = grid_paths.run("train exact", train_on_card, ds, cfg,
+    exact_tb, _, _ = kernel_paths.run("train exact", train_on_card, ds, cfg,
                                     dev, smi, fused_mlp_forward, "exact")
     t_new = time.perf_counter()
     repeat = repeatable_training(ds, cfg, dev, smi)
@@ -4504,7 +4775,7 @@ def main():
 
     # phase 9: a capture from disk; its RGB net has latent dims and takes
     # the general kernel, its density net the mma kernel as before
-    by_variant_capture, mode_times = grid_paths.run(
+    by_variant_capture, mode_times = kernel_paths.run(
         "capture", capture_from_disk, cfg, dev, smi, fused_mlp_forward,
         {"density": shapes["density"]["variant"],
          "rgb_latent": shapes["rgb_latent"]["variant"]}, args.profile)
@@ -4517,7 +4788,7 @@ def main():
     # phase 10: Image mode at configs/image/base.json's width; its net is
     # 32-64-64-3 like the NeRF RGB net and takes the same instantiation
     image_cfg = load_network_config(find_network_config("base", "image"))
-    by_variant_image, image_path = grid_paths.run(
+    by_variant_image, image_path = kernel_paths.run(
         "image", image_mode, image_cfg, dev, smi, fused_mlp_forward,
         shapes["rgb"]["variant"], args.profile)
     launches_image = sum(by_variant_image.values())
@@ -4547,7 +4818,7 @@ def main():
     # phase 13: Volume mode at configs/volume/base.json's width; its net
     # takes the mma kernel's ReLU/ReLU instantiation
     volume_cfg = load_network_config(find_network_config("base", "volume"))
-    by_variant_volume, volume_path = grid_paths.run(
+    by_variant_volume, volume_path = kernel_paths.run(
         "volume", volume_mode, volume_cfg, dev, smi, fused_mlp_forward,
         shapes["volume"]["variant"], args.profile)
     launches_volume = sum(by_variant_volume.values())
@@ -4558,7 +4829,7 @@ def main():
     # widths; both nets take the 32x64x8 ReLU/None instantiation
     sdf_cfgs = {name: load_network_config(find_network_config(name, "sdf"))
                 for name in ("base", "takikawa")}
-    by_variant_sdf, sdf_path = grid_paths.run(
+    by_variant_sdf, sdf_path = kernel_paths.run(
         "sdf", sdf_mode, sdf_cfgs, dev, smi, fused_mlp_forward,
         shapes["sdf"]["variant"], args.profile)
     launches_sdf = sum(by_variant_sdf.values())
@@ -4577,7 +4848,7 @@ def main():
     t_new = time.perf_counter()
     work = tempfile.mkdtemp(prefix="geometry_")
     try:
-        by_variant_geometry, geometry_path = grid_paths.run(
+        by_variant_geometry, geometry_path = kernel_paths.run(
             "geometry", geometry_mode, work, train_tb, dev, smi,
             fused_mlp_forward, tuple(main_variants.values()))
         launches_geometry = sum(by_variant_geometry.values())
@@ -4619,18 +4890,24 @@ def main():
                 "grid_input_gradient": 329,
                 "grid_encode_forward[stochastic]": 817,
                 "grid_table_gradient[stochastic]": 817}
-    print(f"grid kernel launches by path: {grid_paths.by_path}; plain grid "
+    print(f"grid kernel launches by path: {kernel_paths.by_path}; plain grid "
           f"calls on CUDA tensors: {GridEncoding.plain_calls_on_cuda}",
           flush=True)
     if GridEncoding.plain_calls_on_cuda != 0:
         raise RuntimeError(f"{GridEncoding.plain_calls_on_cuda} plain grid "
                            f"calls on CUDA tensors on the main paths")
+    every_grid_key = [k for keys in grid_keys.values() for k in keys]
     for path in GRID_PATHS:
-        if not sum(grid_paths.by_path.get(path, {}).values()):
+        if not sum(kernel_paths.by_path.get(path, {}).get(k, 0)
+                   for k in every_grid_key):
             raise RuntimeError(f"the {path} path launched no grid kernel")
     for name, keys in grid_keys.items():
-        if grid_paths.total(*keys) == 0:
+        if kernel_paths.total(*keys) == 0:
             raise RuntimeError(f"{name} was launched on no main path")
+    # the frames of the wavefront renderer march on the kernel
+    for path in MARCH_PATHS:
+        if not kernel_paths.by_path.get(path, {}).get("march_and_pack"):
+            raise RuntimeError(f"the {path} path launched no march kernel")
     grid_entries = [{
         "name": name,
         "route": "cuda",
@@ -4638,9 +4915,9 @@ def main():
         "replaces": f"instant_ngp_tpu/ops/grid_encoding.py:{replaces[name]}",
         # on GRID_PATHS, each counted from 0 (a table-gradient launch is
         # its radix sort's passes and its sum, one wrapper call)
-        "launches": grid_paths.total(*keys),
+        "launches": kernel_paths.total(*keys),
         "launches_by_path": {path: sum(c.get(k, 0) for k in keys)
-                             for path, c in grid_paths.by_path.items()},
+                             for path, c in kernel_paths.by_path.items()},
         **{k: grid_rows[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         # no PyTorch call computes a grid encode; the deposits' rows and
@@ -4650,6 +4927,23 @@ def main():
             "ref_max_abs", "variant", "points", "bytes_moved",
             "bytes_gathered", "share_of_bound", "bit_equal_to_plain")},
     } for name, keys in grid_keys.items()]
+    march_entry = {
+        "name": "march_and_pack",
+        "route": "cuda",
+        "source": "instant_ngp_tpu_torch/csrc/nerf_march.cu",
+        # no TPU kernel: the JAX package marches with plain XLA
+        "replaces": None,
+        "counterpart": "instant_ngp_tpu/nerf/sampler.py:213 (plain XLA)",
+        # every path, each counted from 0: a launch marches a frame's
+        # tile of rays
+        "launches": kernel_paths.total("march_and_pack"),
+        "launches_by_path": {
+            path: c["march_and_pack"]
+            for path, c in kernel_paths.by_path.items()
+            if c.get("march_and_pack")},
+        # no one PyTorch call marches a ray
+        "library_ms": None,
+        **march_row}
 
     kernels = [{
         "name": "fused_mlp_forward",
@@ -4764,7 +5058,7 @@ def main():
         "chain_ms": wide["nerf_frequency_density"]["chain_ms"],
         "shapes": wide,
         "wide_path": wide_path,
-    }] + grid_entries
+    }] + grid_entries + [march_entry]
     print(json.dumps({"kernels": kernels}))
     print(smi)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

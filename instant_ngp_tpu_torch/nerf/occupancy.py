@@ -162,6 +162,29 @@ def update_bitfield(density_grid: torch.Tensor, max_cascade: int
         # the 8 children of a cell are Morton-contiguous
         level[centre] |= levels[-1].view(-1, 8).any(dim=-1)
         levels.append(level)
-    bits = torch.cat(levels).view(-1, 8).to(torch.uint8)
+    return pack_bitfield(torch.cat(levels))
+
+
+def pack_bitfield(occupied: torch.Tensor) -> torch.Tensor:
+    """(n,) bool occupancy in Morton order, n a multiple of 8 -> (n / 8,)
+    uint8 bitfield, cell i at bit i % 8 of byte i // 8."""
+    bits = occupied.view(-1, 8).to(torch.uint8)
     shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
     return (bits << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+def shell_bitfield(device, radius: float = 0.22, cells: float = 2.0
+                   ) -> torch.Tensor:
+    """The bitfield of a spherical shell: in cascade 0, the cells whose
+    centre lies within `cells` cell widths of the sphere of `radius` about
+    the unit box's centre; the other cascades empty. It is the occupancy
+    of the render benchmark's orbit scene, an unterminated shell."""
+    c = torch.arange(NERF_GRIDSIZE, device=device)
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    centre = (torch.stack([x, y, z], -1).float() + 0.5) / NERF_GRIDSIZE
+    near = (torch.linalg.norm(centre - 0.5, dim=-1) - radius).abs() \
+        <= cells / NERF_GRIDSIZE
+    occupied = torch.zeros(NERF_CASCADES * NERF_GRID_N_CELLS,
+                           dtype=torch.bool, device=device)
+    occupied[morton3d(x, y, z).reshape(-1)] = near.reshape(-1)
+    return pack_bitfield(occupied)

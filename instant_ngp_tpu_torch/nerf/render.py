@@ -19,14 +19,17 @@ encode and the density MLP), Positions (the warped position), EncodingVis
 (the first three encoding features) and Cost (march samples per ray / 128).
 
 `WavefrontRenderer` does it the way a GPU does it naturally: the
-candidates of every ray are packed once with a prefix sum, then each round
-takes the next `chunk` candidates of the rays still alive (an on-device
-alive set from `torch.nonzero`), evaluates the network on them and
-composites with `index` updates. A ray whose transmittance fell below the
-threshold or whose candidates ran out is never evaluated again. Memory is
-bounded by marching `march_chunk` rays at a time and evaluating at most
-`query_budget` samples per network call. It serves Shade, Depth and AO,
-which are weighted sums of what it accumulates.
+candidates of every ray are packed once into a row of their own, then each
+round takes the next `chunk` candidates of the rays still alive (an
+on-device alive set from `torch.nonzero`), evaluates the network on them
+and composites with `index` updates. A ray whose transmittance fell below
+the threshold or whose candidates ran out is never evaluated again. On the
+card one kernel (`ops/kernels/march_kernels.py`) walks each ray's
+candidates and writes its packed row; on the CPU the plain version marches
+`march_chunk` rays at a time on the (rays, n_march) plane and packs it with
+a prefix sum. A network call evaluates at most `query_budget` samples. It
+serves Shade, Depth and AO, which are weighted sums of what it
+accumulates.
 
 With `RenderConfig.stochastic_corners` and a generator, the position
 encoding runs its stochastic-corner estimator (the configuration's exact
@@ -46,6 +49,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..camera import pos_to_uv, uv_to_ray
+from ..ops.kernels import march_kernels
 from ..utils import span
 from .march import advance_n_steps, calc_dt, ray_intersect_aabb
 from .model import NerfNetwork, network_to_density, network_to_rgb
@@ -186,7 +190,8 @@ def render_tile(model: NerfNetwork, cfg: RenderConfig,
 
 
 class WavefrontRenderer:
-    #: rays marched together: bounds the (rays, n_march) march planes
+    #: rays the plain version marches together: bounds its (rays, n_march)
+    #: march planes
     march_chunk = 1 << 15
 
     def __init__(self, model: NerfNetwork, cfg: RenderConfig,
@@ -205,7 +210,30 @@ class WavefrontRenderer:
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
         """-> (packed ts (R, C), packed ok (R, C), n_cand (R,), valid (R,)):
-        row r holds ray r's emitted candidates in time order."""
+        row r holds ray r's emitted candidates in time order. The rounds
+        read a row up to n_cand rounded up to whole rounds of `chunk`,
+        which holds zeros past n_cand. CUDA tensors go to the kernel, which
+        leaves the columns past that unwritten, CPU tensors to the plain
+        version."""
+        cfg = self.cfg
+        if origins.device.type == "cuda":
+            return march_kernels.march_and_pack(
+                origins.contiguous(), dirs.contiguous(), bitfield,
+                self.aabb_min, self.aabb_max, cfg.cone_angle, cfg.max_mip,
+                cfg.n_march, cfg.max_samples_per_ray, self._c_pad, self.chunk)
+        return self._march_and_pack_plain(origins, dirs, bitfield)
+
+    def _march_and_pack_plain(self, origins, dirs, bitfield):
+        """The plain version of `_march_and_pack`, every column written:
+        `march_chunk` rays at a time on the (rays, n_march) candidate
+        plane."""
+        parts = [self._march_chunk_plain(origins[i:i + self.march_chunk],
+                                         dirs[i:i + self.march_chunk],
+                                         bitfield)
+                 for i in range(0, origins.shape[0], self.march_chunk)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def _march_chunk_plain(self, origins, dirs, bitfield):
         cfg = self.cfg
         t_start, valid = _march_start(origins, dirs, self.aabb_min,
                                       self.aabb_max, cfg.cone_angle)
@@ -227,12 +255,6 @@ class WavefrontRenderer:
         return (packed_ts[:, :self._c_pad], packed_ok[:, :self._c_pad],
                 n_cand, valid)
 
-    def _prep(self, origins, dirs, bitfield):
-        parts = [self._march_and_pack(origins[i:i + self.march_chunk],
-                                      dirs[i:i + self.march_chunk], bitfield)
-                 for i in range(0, origins.shape[0], self.march_chunk)]
-        return tuple(torch.cat(p) for p in zip(*parts))
-
     def render(self, origins: torch.Tensor, dirs: torch.Tensor,
                bitfield: torch.Tensor, bg_color: torch.Tensor,
                generator: Optional[torch.Generator] = None,
@@ -250,8 +272,8 @@ class WavefrontRenderer:
         n_rays = origins.shape[0]
         dev = origins.device
         with span("render.march"):
-            packed_ts, packed_ok, n_cand, valid = self._prep(origins, dirs,
-                                                             bitfield)
+            packed_ts, packed_ok, n_cand, valid = self._march_and_pack(
+                origins, dirs, bitfield)
         trans = torch.ones(n_rays, device=dev)
         acc_rgb = torch.zeros(n_rays, 3, device=dev)
         acc_alpha = torch.zeros(n_rays, device=dev)

@@ -173,10 +173,15 @@ def load_library() -> ctypes.CDLL:
     # (x, table, grad_out, grad_x, n, active, stream)
     lib.grid_input_gradient_launch.argtypes = [
         dims, f32s, ptr, ptr, ptr, ptr, i64, i32, ptr]
+    # the wavefront march (csrc/nerf_march.cu): (origins, dirs, bitfield,
+    #  aabb_min, aabb_max, consts, cone, max_mip, n_march, max_samples,
+    #  n_cols, chunk, n_rays, ts, ok, n_cand, valid, stream)
+    lib.nerf_march_pack_launch.argtypes = [ptr] * 5 + [f32s] + [i32] * 6 + [
+        i64] + [ptr] * 5
     for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
                lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant,
                lib.fused_mlp_mma_input_path, lib.grid_forward_launch,
                lib.grid_table_gradient_launch,
-               lib.grid_input_gradient_launch):
+               lib.grid_input_gradient_launch, lib.nerf_march_pack_launch):
         fn.restype = ctypes.c_int
     return lib
