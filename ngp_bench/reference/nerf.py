@@ -9,7 +9,9 @@ frozen copy of the arithmetic of the port's plain modules (`camera.py`,
 `nerf/visibility.py`, `nerf/training.py`, `nerf/render.py`), operation for
 operation, so that the same inputs on the same device give the same
 rays, cells and samples; it imports nothing of the program. The networks
-run in float32 (`nets.py`), or in the control's precision.
+run in float32 (`nets.py`), or in the control's precision; the position
+and direction encodings are the configuration's, built by their `otype`
+(`encodings/`).
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import Dict, List, NamedTuple
 
 import torch
 
-from .grid import Grid
-from .nets import FP32, Adam, Precision, huber, layer_dims, mlp, sh4, xavier
+from . import encodings
+from .nets import FP32, Adam, Precision, huber, layer_dims, mlp, xavier
 
 GRIDSIZE = 128
 CASCADES = 8
@@ -335,39 +337,86 @@ def march(origins, dirs, t_start, valid, bitfield, lo, hi, n_march,
 
 
 # ------------------------------------------------------------- the network
-class NerfParams:
-    """The trained leaves, in the program's order: the position table,
-    the density net's matrices, the RGB net's matrices."""
+# the program's direction encoding where the configuration names none
+DIR_ENCODING = {"otype": "SphericalHarmonics", "degree": 4}
 
-    def __init__(self, table, density, rgb):
-        self.table, self.density, self.rgb = table, list(density), list(rgb)
+
+class NerfModel:
+    """A NeRF configuration's encodings (built by `otype`, `encodings/`)
+    and the widths of its nets: the density net from the position
+    features to `n_output_dims` (16) outputs, the RGB net from those and
+    the direction features to 3."""
+
+    def __init__(self, cfg: dict):
+        # a grid takes its scales from HashGrid.build's defaults: the
+        # unit box that NerfTrainer marches
+        self.pos = encodings.build(3, cfg["encoding"])
+        self.dir = encodings.build(3, cfg.get("dir_encoding", DIR_ENCODING))
+        if self.dir.n_leaves:
+            raise NotImplementedError("the program's direction encodings "
+                                      "carry no parameters")
+        n_dens = int(cfg["network"].get("n_output_dims", 16))
+        self.density_dims = layer_dims(self.pos.n_output, n_dens,
+                                       cfg["network"])
+        self.rgb_dims = layer_dims(n_dens + self.dir.n_output, 3,
+                                   cfg.get("rgb_network", cfg["network"]))
+        self.until = cfg["encoding"].get("stochastic_corners_until")
+
+    def stochastic_at(self, step: int) -> bool:
+        """Whether train step `step` (and the density update before it)
+        encodes with the stochastic-corner estimator: where the position
+        encoding has one, before `stochastic_corners_until`."""
+        return self.pos.stochastic and (self.until is None
+                                        or step < self.until)
+
+    def params(self, leaves: List[torch.Tensor]) -> "NerfParams":
+        """The flat leaves, in the program's order, as NerfParams."""
+        n_pos, n_dens = self.pos.n_leaves, len(self.density_dims)
+        return NerfParams(self, leaves[:n_pos],
+                          leaves[n_pos:n_pos + n_dens],
+                          leaves[n_pos + n_dens:])
+
+
+class NerfParams:
+    """The trained leaves, in the program's order: the position encoding's
+    (a table, or none), the density net's matrices, the RGB net's."""
+
+    def __init__(self, model: NerfModel, pos, density, rgb):
+        self.model = model
+        self.pos, self.density, self.rgb = list(pos), list(density), \
+            list(rgb)
 
     def leaves(self) -> List[torch.Tensor]:
-        return [self.table] + self.density + self.rgb
+        return self.pos + self.density + self.rgb
 
-    @staticmethod
-    def l2_mask(n_density: int, n_rgb: int) -> List[bool]:
-        return [False] + [True] * (n_density + n_rgb)
+    def l2_mask(self) -> List[bool]:
+        """L2 on the nets' matrices, never on an encoding's leaves."""
+        return [False] * len(self.pos) + [True] * (len(self.density)
+                                                   + len(self.rgb))
+
+    def program_layout(self) -> Dict[str, object]:
+        """The leaves in the program's parameter layout."""
+        return {"pos_encoding": self.pos[0] if self.pos else None,
+                "density_net": self.density, "dir_encoding": None,
+                "rgb_net": self.rgb}
 
 
-def nerf_init(grid: Grid, cfg: dict, gen: torch.Generator,
+def nerf_init(model: NerfModel, gen: torch.Generator,
               table_range: float = 1e-4) -> NerfParams:
-    """Seeded weights on the generator's device: the table U(-r, r)
-    (instant-ngp's 1e-4, or a trained scale), the nets Xavier-uniform."""
-    table = (torch.rand(grid.n_entries * grid.n_features, generator=gen,
-                        device=gen.device) * 2.0 - 1.0) * table_range
-    dens = [xavier(i, o, gen) for i, o in
-            layer_dims(grid.n_output, 16, cfg["network"])]
-    rgb = [xavier(i, o, gen) for i, o in
-           layer_dims(32, 3, cfg.get("rgb_network", cfg["network"]))]
-    return NerfParams(table, dens, rgb)
+    """Seeded weights on the generator's device: the position encoding's
+    leaves (a table U(-r, r): instant-ngp's 1e-4, or a trained scale),
+    then the nets Xavier-uniform."""
+    pos = model.pos.init(gen, table_range)
+    dens = [xavier(i, o, gen) for i, o in model.density_dims]
+    rgb = [xavier(i, o, gen) for i, o in model.rgb_dims]
+    return NerfParams(model, pos, dens, rgb)
 
 
 def nerf_forward(p: NerfParams, feats, dirs_warped, prec: Precision = FP32):
-    """Position features (N, L*F), warped directions (N, 3) -> raw
-    (N, 4) = (r, g, b, density)."""
+    """Position features (N, pos.n_output), warped directions (N, 3) ->
+    raw (N, 4) = (r, g, b, density)."""
     dens = mlp(p.density, feats, prec)
-    rgb_in = torch.cat([dens, sh4(dirs_warped * 2.0 - 1.0)], dim=-1)
+    rgb_in = torch.cat([dens, p.model.dir.encode([], dirs_warped)], dim=-1)
     return torch.cat([mlp(p.rgb, rgb_in, prec), dens[:, :1]], dim=-1)
 
 
@@ -386,7 +435,9 @@ def _srgb_to_linear(x):
 class NerfTrainer:
     """The program's first train steps, replayed: the same generator
     sequence (density-update jitter and corners, the step's rays and
-    corners), the same rays, cells and samples, a float32 network.
+    corners), the same rays, cells and samples, a float32 network. The
+    encode is the configuration's (`NerfModel.stochastic_at`): the
+    stochastic-corner estimator's corners are drawn only where it runs.
 
     `drop_half` plants the fault "half the batch left out, the mean taken
     over the rest": the second half of the ray lanes carries no loss."""
@@ -400,13 +451,11 @@ class NerfTrainer:
         dev = data.pixels.device
         self.data, self.cfg, self.p, self.prec = data, cfg, params, prec
         self.drop_half = drop_half
-        self.grid = Grid(3, cfg["encoding"], 2048.0, 1.0)
+        self.model = params.model
         self.lo = torch.zeros(3, device=dev)
         self.hi = torch.ones(3, device=dev)
         self.gen = torch.Generator(device=dev).manual_seed(seed)
-        self.opt = Adam(cfg["optimizer"], params.leaves(),
-                        NerfParams.l2_mask(len(params.density),
-                                           len(params.rgb)))
+        self.opt = Adam(cfg["optimizer"], params.leaves(), params.l2_mask())
         self.n_march = derive_n_march(data, self.lo, self.hi)
         self.density_grid = torch.zeros(N_CELLS, device=dev)
         self.visible = None
@@ -414,14 +463,13 @@ class NerfTrainer:
         self.step_index = 0
 
     def ema_params(self) -> NerfParams:
-        e = self.opt.ema
-        nd = len(self.p.density)
-        return NerfParams(e[0], e[1:1 + nd], e[1 + nd:])
+        return self.model.params(self.opt.ema)
 
     @torch.no_grad()
     def density_update(self, decay: float = 0.95, chunk: int = 1 << 19):
         """A full sweep (the first steps): a jittered point in every cell,
-        one sampled corner a level, the EMA network."""
+        the EMA network (one sampled corner a level where the encode is
+        stochastic)."""
         if self.step_index == 0:
             self.visible = visible_cells(self.data)
             self.density_grid = torch.where(
@@ -433,13 +481,15 @@ class NerfTrainer:
                             generator=self.gen)
         net = self.ema_params()
         dens = torch.empty(N_CELLS, device=self.lo.device)
-        g = self.grid
+        enc = self.model.pos
+        stochastic = self.model.stochastic_at(self.step_index)
         for i in range(0, N_CELLS, chunk):
             pos = cell_positions(idx[i:i + chunk], jitter[i:i + chunk])
-            n = pos.shape[0]
-            u = torch.rand(3, n, g.n_levels, generator=self.gen,
-                           device=self.lo.device)
-            feats = g.encode_stochastic(net.table, pos, u, None, 0)
+            if stochastic:
+                feats = enc.encode_stochastic(
+                    net.pos, pos, enc.draws(self.gen, pos.shape[0], 0), 0)
+            else:
+                feats = enc.encode(net.pos, pos)
             raw = mlp(net.density, feats, self.prec)[:, 0]
             dens[i:i + chunk] = torch.exp(raw)
         tmp = torch.zeros_like(self.density_grid).scatter_reduce_(
@@ -452,7 +502,8 @@ class NerfTrainer:
     def step(self) -> Dict[str, object]:
         """One train step -> {"loss", "grads" (the optimizer's, L2 in),
         "samples"}; the parameters and moments are updated in place."""
-        data, dev, g = self.data, self.lo.device, self.grid
+        data, dev, enc = self.data, self.lo.device, self.model.pos
+        stochastic = self.model.stochastic_at(self.step_index)
         n_rays = self.rays_per_batch
         k = self.target_batch // n_rays * 4
         k = min(max(1 << int(math.ceil(math.log2(max(k, 8)))), 8), 1024)
@@ -497,15 +548,17 @@ class NerfTrainer:
                          - self.lo) / (self.hi - self.lo)
             dirs_w = (d_r + 1.0) * 0.5
             bg = _srgb_to_linear(bg)
-        u = uniform(3, cap, g.n_levels)
-        axis = torch.randint(0, 3, (cap, g.n_levels), generator=self.gen,
-                             device=dev)
+        if stochastic:
+            draws = enc.draws(self.gen, cap, enc.exact_axes)
         leaves = self.p.leaves()
         for leaf in leaves:
             leaf.requires_grad_(True)
         with torch.enable_grad():
-            feats = g.encode_stochastic(self.p.table, positions, u, axis,
-                                        g.exact_axes)
+            if stochastic:
+                feats = enc.encode_stochastic(self.p.pos, positions, draws,
+                                              enc.exact_axes)
+            else:
+                feats = enc.encode_exact(self.p.pos, positions)
             raw = nerf_forward(self.p, feats, dirs_w, self.prec)
             loss, per_ray = self._composite(raw, cand_slot, cand_src, ts,
                                             rgba, valid, bg, cap)
@@ -568,7 +621,7 @@ class NerfTrainer:
 
 # -------------------------------------------------------------- rendering
 @torch.no_grad()
-def render_frame(p: NerfParams, grid: Grid, bitfield, width: int,
+def render_frame(p: NerfParams, bitfield, width: int,
                  height: int, focal: float, cam: torch.Tensor,
                  n_march: int = 1024, max_samples: int = 512,
                  min_transmittance: float = 1e-2, chunk: int = 1 << 14,
@@ -600,7 +653,7 @@ def render_frame(p: NerfParams, grid: Grid, bitfield, width: int,
             continue
         t = ts[r_idx, c_idx]
         pos = o[r_idx] + t[:, None] * dr[r_idx]
-        raw = nerf_forward(p, grid.encode(p.table, pos),
+        raw = nerf_forward(p, p.model.pos.encode(p.pos, pos),
                            (dr[r_idx] + 1.0) * 0.5, prec)
         plane = torch.zeros(*emit.shape, 4, device=dev)
         plane[r_idx, c_idx] = raw

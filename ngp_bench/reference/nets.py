@@ -1,6 +1,6 @@
 """Plain networks and optimizer of the reference: bias-free ReLU MLPs,
-spherical harmonics of degree 4, the Adam > ExponentialDecay > Ema chain
-of instant-ngp's configs, and the Huber and L2 losses.
+the Adam > ExponentialDecay > Ema chain of instant-ngp's configs, and the
+Huber and L2 losses (the encodings are in `encodings/`).
 
 Float32 by default. `Precision(dtype)` rounds every MLP operand (the
 input, each weight, each hidden activation) and the gradient flowing back
@@ -37,6 +37,9 @@ class Precision:
 
 
 FP32 = Precision()
+# the controls' precision: float8 (e4m3), the one below the bfloat16 the
+# configurations state
+FP8 = Precision(torch.float8_e4m3fn)
 
 
 def mlp(weights: List[torch.Tensor], x: torch.Tensor,
@@ -63,32 +66,6 @@ def layer_dims(n_in: int, n_out: int, cfg: dict):
         return [(n_in, n_out)]
     return [(n_in, width)] + [(width, width)] * (hidden - 1) \
         + [(width, n_out)]
-
-
-def sh4(d: torch.Tensor) -> torch.Tensor:
-    """Real SH basis of degree 4 of unit directions (N, 3) -> (N, 16), in
-    the port's operation order."""
-    x, y, z = d[:, 0], d[:, 1], d[:, 2]
-    x2, y2, z2 = x * x, y * y, z * z
-    xy, yz, xz = x * y, y * z, x * z
-    return torch.stack([
-        torch.full_like(x, 0.28209479177387814),
-        -0.48860251190291987 * y,
-        0.48860251190291987 * z,
-        -0.48860251190291987 * x,
-        1.0925484305920792 * xy,
-        -1.0925484305920792 * yz,
-        0.94617469575755997 * z2 - 0.31539156525251999,
-        -1.0925484305920792 * xz,
-        0.54627421529603959 * x2 - 0.54627421529603959 * y2,
-        0.59004358992664352 * y * (-3.0 * x2 + y2),
-        2.8906114426405538 * x * y * z,
-        0.45704579946446572 * y * (1.0 - 5.0 * z2),
-        0.3731763325901154 * z * (5.0 * z2 - 3.0),
-        0.45704579946446572 * x * (1.0 - 5.0 * z2),
-        1.4453057213202769 * z * (x2 - y2),
-        0.59004358992664352 * x * (-x2 + 3.0 * y2),
-    ], dim=-1)
 
 
 def huber(target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:

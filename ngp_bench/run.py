@@ -4,7 +4,8 @@
         --trace <0|1>
 
 The cell names a configuration (`configs/<name>.json`) and a traffic mix
-(`traffic/<mix>.json`) in BENCHMARK.json; the mix names the driver. The
+(`traffic/<mix>.json`) in BENCHMARK.json; the mix names the driver
+(`harness/drivers/<driver>.py`). The
 last line of standard output is the result, one JSON object; the numbers
 that decide `correct` close standard error. `--trace 0` reports the cell's
 end-to-end metrics, `--trace 1` its per-layer metrics, each read by
@@ -72,14 +73,31 @@ def load_json(path):
         return json.load(f)
 
 
-def load_reader(name):
-    """metrics/<name>.py's `read`."""
-    path = os.path.join(BENCH_DIR, "metrics", name + ".py")
+def load_file(kind, subdir, name):
+    """The module `ngp_bench/<subdir>/<name>.py`, loaded by its path; a
+    missing file stops the run with a message that names it."""
+    rel = os.path.join(subdir, name + ".py")
+    path = os.path.join(BENCH_DIR, rel)
+    if not os.path.isfile(path):
+        raise SystemExit(f"no {kind} named {name!r}: ngp_bench/{rel} is "
+                         f"missing")
     spec = importlib.util.spec_from_file_location(
-        "ngp_bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"ngp_bench_{kind}_" + name.replace(".", "_").replace("-", "_"),
+        path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(name):
+    """metrics/<name>.py's `read`."""
+    return load_file("metric", "metrics", name).read
+
+
+def load_driver(name):
+    """harness/drivers/<name>.py: `run(ctx) -> Outcome` and `controls(ctx)
+    -> {name: numbers}`."""
+    return load_file("driver", os.path.join("harness", "drivers"), name)
 
 
 def applies(metric, workload):
@@ -124,9 +142,8 @@ def run(ctx):
     """Drive the cell -> the result object."""
     from ngp_bench.harness import cells
 
-    driver = cells.DRIVERS[ctx.traffic["driver"]]
-    outcome = driver(ctx)
-    line = result_line(ctx, outcome, cells._device_info(ctx.device))
+    outcome = load_driver(ctx.traffic["driver"]).run(ctx)
+    line = result_line(ctx, outcome, cells.device_info(ctx.device))
     print(f"ngp_bench: {ctx.workload} seed {ctx.seed}: set-up "
           f"{outcome.e2e.get('setup_s', 0.0):.2f} s, window "
           f"{outcome.window_s:.2f} s, {outcome.attempted} units, "

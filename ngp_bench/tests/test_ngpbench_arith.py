@@ -47,10 +47,19 @@ def test_grid_bytes_count_distinct_rows():
 
 
 def test_flops_of_the_configurations():
-    from ngp_bench.reference.nets import layer_dims
+    import json
+    import os
 
-    dens = layer_dims(32, 16, {"n_neurons": 64, "n_hidden_layers": 1})
-    rgb = layer_dims(32, 3, {"n_neurons": 64, "n_hidden_layers": 2})
+    from conftest import ROOT
+
+    from ngp_bench.reference.nerf import NerfModel
+
+    with open(os.path.join(ROOT, "ngp_bench/configs/nerf-base.json")) as f:
+        model = NerfModel(json.load(f)["network_config"])
+    # 8 x 4 grid features; 16 density outputs and 16 SH coefficients
+    assert model.density_dims == [(32, 64), (64, 16)]
+    assert model.rgb_dims == [(32, 64), (64, 64), (64, 3)]
+    dens, rgb = model.density_dims, model.rgb_dims
     assert roofline.mlp_flops(dens) + roofline.mlp_flops(rgb) == 18816
     assert roofline.mlp_flops(rgb) == 12672
     # 3 x 2^18 x 18,816 = 14.8 GFLOP a NeRF step

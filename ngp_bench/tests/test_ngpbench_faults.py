@@ -112,3 +112,32 @@ def test_fault_makes_the_run_incorrect(tiny_run, monkeypatch, cell, fault):
     fault(monkeypatch)
     line = tiny_run(cell)
     assert line["correct"] is False, line["checks"]
+
+
+def test_a_testbed_off_the_replayed_encode_stops_the_run(tiny_run,
+                                                         monkeypatch):
+    """The NeRF reference replays the stochastic encode where the
+    configuration runs it; a testbed whose steps encode otherwise is no
+    sound run."""
+    from instant_ngp_tpu_torch.nerf import testbed_nerf
+
+    monkeypatch.setattr(testbed_nerf.NerfTestbed, "_stoch_now",
+                        lambda self: False)
+    with pytest.raises(RuntimeError, match="stochastic encode"):
+        tiny_run("nerf-base-train")
+
+
+@pytest.mark.parametrize("cell", ["nerf-base-train", "image-base-train"])
+def test_a_grid_without_its_entry_points_stops_a_traced_run(tiny_run,
+                                                            monkeypatch,
+                                                            cell):
+    """Where the reference encodes with a grid, a program encoding that
+    lacks one of the grid entry points the recorder wraps (here: one the
+    program never had, as after a rename) stops the traced run instead of
+    leaving `grid_roofline.train` without a reading."""
+    from ngp_bench.harness import cells
+
+    monkeypatch.setitem(cells._GRID_ENTRIES, "_renamed_entry",
+                        ("forward", 1, False))
+    with pytest.raises(RuntimeError, match="lacks _renamed_entry"):
+        tiny_run(cell, trace=1)

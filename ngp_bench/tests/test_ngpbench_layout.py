@@ -1,5 +1,5 @@
 """BENCHMARK.json against the contract, and every cell, configuration,
-mix, limit and metric found by its name."""
+mix, driver, limit and metric found by its name."""
 
 import ast
 import json
@@ -66,9 +66,15 @@ def test_end_to_end_bounds(bench):
         assert m["source"] in ("host_clock", "device_trace")
 
 
-@pytest.mark.parametrize("cell", ["nerf-base-train", "image-base-train",
-                                  "nerf-base-render"])
+def _workloads():
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        return [w["name"] for w in json.load(f)["workloads"]]
+
+
+@pytest.mark.parametrize("cell", _workloads())
 def test_cell_files_found_by_name(bench, cell):
+    from ngp_bench import run
+
     w = next(w for w in bench["workloads"] if w["name"] == cell)
     assert w["chips"] == 1
     config = next(c for c in bench["configs"] if c["name"] == w["config"])
@@ -77,9 +83,8 @@ def test_cell_files_found_by_name(bench, cell):
         assert "network_config" in json.load(f)
     with open(os.path.join(BENCH_DIR, "traffic",
                            w["traffic"] + ".json")) as f:
-        from ngp_bench.harness.cells import DRIVERS
-
-        assert json.load(f)["driver"] in DRIVERS
+        driver = run.load_driver(json.load(f)["driver"])
+    assert callable(driver.run) and callable(driver.controls)
     with open(os.path.join(BENCH_DIR, "limits", cell + ".json")) as f:
         assert json.load(f)
     e2e = [m["name"] for m in bench["end_to_end"]
@@ -140,12 +145,25 @@ def test_no_module_imports_jax_or_the_jax_package(forbidden):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    ref = os.path.join(BENCH_DIR, "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            tops = set(_imports(os.path.join(ref, name)))
-            assert not tops & {"instant_ngp_tpu_torch", "instant_ngp_tpu",
-                               "jax"}, name
+    for dirpath, _, files in os.walk(os.path.join(BENCH_DIR, "reference")):
+        for name in files:
+            if name.endswith(".py"):
+                tops = set(_imports(os.path.join(dirpath, name)))
+                assert not tops & {"instant_ngp_tpu_torch", "instant_ngp_tpu",
+                                   "jax"}, name
+
+
+def test_an_unknown_driver_or_encoding_names_its_missing_file():
+    from ngp_bench import run
+    from ngp_bench.reference import encodings
+
+    with pytest.raises(SystemExit, match="ngp_bench/harness/drivers/"
+                                         "no_such_driver.py is missing"):
+        run.load_driver("no_such_driver")
+    with pytest.raises(NotImplementedError,
+                       match="ngp_bench/reference/encodings/NoSuchEncoding"
+                             ".py is missing"):
+        encodings.build(3, {"otype": "NoSuchEncoding"})
 
 
 def test_whole_name_comparison():

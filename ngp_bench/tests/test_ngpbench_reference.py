@@ -70,6 +70,35 @@ def test_stochastic_encode_and_one_corner_gradient(j):
     torch.testing.assert_close(got_grad, want_grad, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("cfg", [
+    {"otype": "Composite", "nested": [
+        {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 4},
+        {"otype": "Identity"}]},
+    {"otype": "SphericalHarmonics", "degree": 4},
+    {"otype": "Identity", "scale": 2.0, "offset": -0.5},
+    CFG,
+])
+def test_encodings_by_otype(cfg):
+    from instant_ngp_tpu_torch.ops.encodings import create_encoding
+    from instant_ngp_tpu_torch.ops.factory import derive_grid_config
+
+    from ngp_bench.reference import encodings
+
+    ref = encodings.build(3, cfg, desired_resolution=256.0)
+    port = create_encoding(3, derive_grid_config(cfg, 3, 256.0))
+    gen = torch.Generator().manual_seed(7)
+    leaves = ref.init(gen, 0.5)
+    assert len(leaves) == ref.n_leaves == len(list(port.parameters()))
+    with torch.no_grad():
+        for dst, src in zip(port.parameters(), leaves):
+            dst.copy_(src)
+        x = torch.rand(200, 3, generator=gen)
+        want = port(x)
+    assert ref.n_output == port.n_output_dims
+    torch.testing.assert_close(ref.encode(leaves, x), want, rtol=0,
+                               atol=1e-6)
+
+
 def _limits(cell):
     with open(os.path.join(ROOT, "ngp_bench", "limits", cell + ".json")) as f:
         return json.load(f)
