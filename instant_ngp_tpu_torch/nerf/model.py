@@ -25,6 +25,7 @@ and density updates; no gradient reaches the positions then).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -34,6 +35,7 @@ from torch import nn
 from ..ops.encodings import create_encoding
 from ..ops.factory import derive_grid_config
 from ..ops.mlp import MLP, activation_derivative, apply_activation
+from ..utils import span
 
 
 class NerfNetwork(nn.Module):
@@ -93,29 +95,35 @@ class NerfNetwork(nn.Module):
                 "dir_encoding": None,
                 "rgb_net": list(self.rgb_net.weights)}
 
+    def encode_position(self, pos: torch.Tensor,
+                        max_level: Optional[float] = None,
+                        encode_draws=None, encode_generator=None,
+                        exact_axes: Optional[int] = None) -> torch.Tensor:
+        """Warped positions (N, 3) -> the position encoding's features. An
+        encoding that is not a grid takes no level cap or corner draws."""
+        if self._table() is None:
+            return self.pos_encoding(pos)
+        if encode_draws is None and encode_generator is None:
+            return self.pos_encoding(pos, max_level=max_level)
+        return self.pos_encoding(pos, max_level=max_level,
+                                 draws=encode_draws,
+                                 generator=encode_generator,
+                                 exact_axes=exact_axes)
+
     def density_forward(self, pos: torch.Tensor,
                         max_level: Optional[float] = None,
                         encode_draws=None, encode_generator=None,
                         exact_axes: Optional[int] = None,
                         pos_feats: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-        """Warped positions (N, 3) -> raw density-net outputs (N, 16). An
-        encoding that is not a grid takes no level cap or corner draws.
+        """Warped positions (N, 3) -> raw density-net outputs (N, 16).
         `pos_feats` (N, L*F), where given, are the position encoding's
         features, computed elsewhere (the level-sharded grid of
         parallel/tp.py)."""
-        if pos_feats is not None:
-            feats = pos_feats
-        elif self._table() is None:
-            feats = self.pos_encoding(pos)
-        elif encode_draws is None and encode_generator is None:
-            feats = self.pos_encoding(pos, max_level=max_level)
-        else:
-            feats = self.pos_encoding(pos, max_level=max_level,
-                                      draws=encode_draws,
-                                      generator=encode_generator,
-                                      exact_axes=exact_axes)
-        return self.density_net(feats)
+        if pos_feats is None:
+            pos_feats = self.encode_position(pos, max_level, encode_draws,
+                                             encode_generator, exact_axes)
+        return self.density_net(pos_feats)
 
     def density(self, pos: torch.Tensor,
                 max_level: Optional[float] = None, **encode
@@ -128,22 +136,39 @@ class NerfNetwork(nn.Module):
                          max_level: Optional[float] = None,
                          encode_draws=None, encode_generator=None,
                          exact_axes: Optional[int] = None,
-                         pos_feats: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         pos_feats: Optional[torch.Tensor] = None,
+                         spans: bool = False) -> torch.Tensor:
         """Full forward: warped positions and directions (N, 3), extra
-        latents (N, n_extra) -> raw (N, 4) = [r, g, b, density]."""
-        density_out = self.density_forward(pos, max_level, encode_draws,
-                                           encode_generator, exact_axes,
-                                           pos_feats)
-        dir_in = dirs
-        if self.n_extra_dims:
-            if extra is None:
-                raise ValueError("model expects extra dims")
-            dir_in = torch.cat([dirs, extra], dim=-1)
-        rgb_in = torch.cat([density_out, self.dir_encoding(dir_in).float()],
-                           dim=-1)
-        rgb = self.rgb_net(rgb_in)
-        return torch.cat([rgb, density_out[:, :1]], dim=-1)
+        latents (N, n_extra) -> raw (N, 4) = [r, g, b, density]. With
+        `spans` (the train step) the encodes record as the span
+        `nerf.encode` and the nets as `nerf.nets`, twice each: position
+        then density net, direction then RGB net."""
+        named = span if spans else _unnamed
+        with named("nerf.encode"):
+            if pos_feats is None:
+                pos_feats = self.encode_position(pos, max_level, encode_draws,
+                                                 encode_generator, exact_axes)
+        with named("nerf.nets"):
+            density_out = self.density_net(pos_feats)
+        # a frame's network rounds take millions of rows: each feature
+        # plane goes as soon as its net has read it
+        del pos_feats
+        with named("nerf.encode"):
+            dir_in = dirs
+            if self.n_extra_dims:
+                if extra is None:
+                    raise ValueError("model expects extra dims")
+                dir_in = torch.cat([dirs, extra], dim=-1)
+            dir_feats = self.dir_encoding(dir_in).float()
+        with named("nerf.nets"):
+            rgb_in = torch.cat([density_out, dir_feats], dim=-1)
+            del dir_feats
+            rgb = self.rgb_net(rgb_in)
+            return torch.cat([rgb, density_out[:, :1]], dim=-1)
+
+
+def _unnamed(name: str):
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass

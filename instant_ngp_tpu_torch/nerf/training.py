@@ -401,7 +401,7 @@ def nerf_train_step(model: NerfNetwork, optimizer: Optimizer,
             extra = aux.get("extra", data.extra_dims)[sample_img]
         with span("nerf.forward"):
             raw = model.apply_components(positions, dirs_warped, extra,
-                                         **encode)
+                                         spans=True, **encode)
         with span("nerf.composite"):
             exposure = aux.get("exposure", data.exposures)[rays.img_idx]
             if "envmap" in aux:

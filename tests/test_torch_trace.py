@@ -6,7 +6,7 @@ Under `torch.profiler` (CPU) the NeRF loop, its train step, the Image loop
 with the trainer and the wavefront frame open their spans, nested through
 the profiler's `cpu_parent`, and none of them is a user annotation (the
 profiler would mirror one onto the device's timeline, where the
-benchmark counts kernels). The six readers are fed made-up readings."""
+benchmark counts kernels). The eight readers are fed made-up readings."""
 
 import os
 import sys
@@ -101,6 +101,27 @@ def test_the_nerf_loop_records_its_spans_nested():
     assert_no_user_annotation(events)
 
 
+def test_the_train_steps_encodes_and_nets_record_inside_its_forward():
+    """`nerf.encode` and `nerf.nets` open in train steps only, twice a step
+    (position encode and density net, direction encode and RGB net): a
+    density update and a frame's rounds (both through the inference
+    network) record neither."""
+    tb = make_port_tb(torch.float32)
+    _, events = traced(lambda: tb.train(2))
+    for name in ("nerf.encode", "nerf.nets"):
+        assert len(events[name]) == 4, name
+        assert len(utils.span_ms(name)) == 4, name
+        for e in events[name]:
+            assert enclosing(e, "nerf.forward") is not None, name
+    assert_no_user_annotation(events)
+    utils.clear_spans()
+    _, events = traced(lambda: (tb.training_prep(), tb.render_frame(
+        16, 12, tb.effective_xform(0))))
+    assert "render.network" in events
+    for name in ("nerf.encode", "nerf.nets"):
+        assert name not in events and utils.span_ms(name) == [], name
+
+
 def test_an_image_chunk_records_its_spans_and_the_trainers():
     tb = ImageTestbed(image(), IMAGE_CFG, device="cpu")
     _, events = traced(lambda: tb.train(2, 64))
@@ -140,13 +161,16 @@ RECORD = {"nerf.sample": [3.0, 5.0], "nerf.forward": [1.0, 1.0],
           "nerf.composite": [0.5, 0.5], "nerf.backward": [2.0, 2.0],
           "trainer.forward": [0.25], "trainer.backward": [0.75],
           "render.march": [40.0, 60.0], "render.network": [7.0, 8.0, 9.0],
-          "render.composite": [1.5, 2.5]}
+          "render.composite": [1.5, 2.5], "nerf.encode": [0.5, 0.25],
+          "nerf.nets": [0.5, 0.75]}
 HOST = [("nerf.step", 0.0, 4000.0), ("nerf.sample", 100.0, 900.0),
         ("nerf.step", 5000.0, 11000.0), ("image.step", 0.0, 500.0),
         ("aten::add", 0.0, 20000.0)]
 READERS = {
     "march_ms.train": (8.0 / 2),
     "forward_backward_ms.train": (7.0 + 1.0) / 2,
+    "encode_ms.train": 0.75 / 2,
+    "network_ms.train": 1.25 / 2,
     "march_ms.render": 100.0 / 2,
     "network_ms.render": 24.0 / 2,
     "composite_ms.render": 4.0 / 2,
