@@ -65,6 +65,13 @@ Phases, each of which raises on failure (a non-zero exit):
    instructions of the kernel's loop, `sass_loop_paths`). From phase 4
    on, the frames, both trainings of phase 6 and the capture count its
    launches from 0 and must have launched it;
+   3d. the network round's RGB-net input rows (csrc/nerf_network_round.cu)
+   against the plain round's at the render benchmark's network call
+   (2^22 rows, 32 samples a ray): the same bits, both timed with CUDA
+   events beside the bytes bound. From phase 4 on, a frame launches it
+   once per network call (as often as the density net's instantiation),
+   no train step or density update launches it, and the capture (latent
+   dims) never does;
 4. the main path: a NerfTestbed at configs/nerf/base.json's full width
    (HashGrid L=8, F=4, 2^19 entries per level; 64-wide MLPs; bf16
    compute; weights from a seed, the hash table at a trained scale)
@@ -248,6 +255,11 @@ builds the kernels and then only runs phase 3b; it prints no result line.
     python3 chip_smoke.py --march-only
 
 builds the kernels and then only runs phase 3c (`march_kernel_on_card`);
+it prints no result line.
+
+    python3 chip_smoke.py --round-only
+
+builds the kernels and then only runs phase 3d (`round_rows_on_card`);
 it prints no result line.
 
     python3 chip_smoke.py --deposit-ab
@@ -979,6 +991,7 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
     import torch
 
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
+    from instant_ngp_tpu_torch.ops.kernels.round_kernels import rgb_net_rows
 
     tb = NerfTestbed(ds, cfg, device=dev, compute_dtype=torch.bfloat16,
                      seed=SEED)
@@ -1023,6 +1036,7 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
 
     fused_mlp_forward.launches = 0
     fused_mlp_forward.launches_by_variant.clear()
+    rows_before = rgb_net_rows.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1046,6 +1060,7 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches_train = fused_mlp_forward.launches
     by_variant = dict(fused_mlp_forward.launches_by_variant)
+    rows_train = rgb_net_rows.launches - rows_before
     del tb.training_prep, tb.train_step
     n_timed = TRAIN_STEPS - TRAIN_WARMUP
     bits_last = occupied_bits(tb)
@@ -1109,6 +1124,9 @@ def train_on_card(ds, cfg, dev, smi, fused_mlp_forward, mode):
             or launches_train != counts["prep"]:
         raise RuntimeError("the kernel must be launched by the density "
                            "updates and never by a train step")
+    if rows_train != 0:
+        raise RuntimeError(f"the train steps and density updates launched "
+                           f"the RGB rows kernel {rows_train} times")
     if not bits_last < bits_first:
         raise RuntimeError("the occupancy grid did not thin out")
     if tb.host_syncs != {"camera_updates": 0, "error_cdfs": 1}:
@@ -2049,9 +2067,10 @@ def check_kernel(out, ref, what):
 
 
 class KernelPaths:
-    """The grid kernels' and the march kernel's launches on each path of
-    the run, counted from 0 over it (`grid_kernels.launch_counts` and
-    `march_and_pack.launches` before and after)."""
+    """The grid kernels', the march kernel's and the RGB rows kernel's
+    launches on each path of the run, counted from 0 over it
+    (`grid_kernels.launch_counts`, `march_and_pack.launches` and
+    `rgb_net_rows.launches` before and after)."""
 
     def __init__(self):
         self.by_path = {}
@@ -2061,9 +2080,12 @@ class KernelPaths:
         from instant_ngp_tpu_torch.ops.kernels import grid_kernels
         from instant_ngp_tpu_torch.ops.kernels.march_kernels import \
             march_and_pack
+        from instant_ngp_tpu_torch.ops.kernels.round_kernels import \
+            rgb_net_rows
 
         return {**grid_kernels.launch_counts(),
-                "march_and_pack": march_and_pack.launches}
+                "march_and_pack": march_and_pack.launches,
+                "rgb_net_rows": rgb_net_rows.launches}
 
     def run(self, path, fn, *args, **kwargs):
         before = self.counts()
@@ -2074,8 +2096,8 @@ class KernelPaths:
             for key, n in self.counts().items():
                 if n != before.get(key, 0):
                     counts[key] = counts.get(key, 0) + n - before.get(key, 0)
-            print(f"grid and march kernel launches, {path}: {counts}",
-                  flush=True)
+            print(f"grid, march and RGB rows kernel launches, {path}: "
+                  f"{counts}", flush=True)
 
     def total(self, *keys):
         return sum(c.get(k, 0) for c in self.by_path.values() for k in keys)
@@ -2580,6 +2602,71 @@ def march_kernel_on_card(dev, smi, size=800, focal=880.0, tile=1 << 19):
     return row
 
 
+def round_rows_on_card(dev, smi, n_rays=1 << 17, k=32):
+    """Phase 3d (and --round-only): the network round's RGB-net input rows
+    against the plain round's at the render benchmark's network call
+    (2^22 rows: the query budget; 32 samples a ray; density outputs of
+    N(0, 1), unit directions with the axes and zero components first):
+    the same bits, rows and raw density column, at that size and at
+    ragged row counts and offsets; device times in turns (kernel, plain,
+    kernel) beside the bytes bound -> its row of the result line."""
+    import torch
+
+    from instant_ngp_tpu_torch.ops.kernels.round_kernels import (
+        rgb_net_rows, rgb_net_rows_plain)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    dirs = torch.randn(n_rays, 3, generator=gen, device=dev)
+    dirs[:6] = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0],
+                             [-0.0, -1, 0], [0, 0, 1], [0, -0.0, -1]],
+                            dtype=torch.float32, device=dev)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    n = n_rays * k
+    density = torch.randn(n, 16, generator=gen, device=dev)
+    raw = torch.empty(n, device=dev)
+
+    def kernel():
+        return rgb_net_rows(density, dirs, k, raw_density=raw)
+
+    def plain():
+        return rgb_net_rows_plain(density, dirs, k)
+
+    before = rgb_net_rows.launches
+    out = kernel()
+    if rgb_net_rows.launches != before + 1:
+        raise SystemExit("round: the kernel was not launched")
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    ok = same(out, plain()) and same(raw, density[:, 0].contiguous())
+    del out
+    for m, row0 in ((1, 0), (31, 5), (33, 100), (100003, 17), (999, n - 999)):
+        ok &= same(rgb_net_rows(density[:m], dirs, k, row0),
+                   rgb_net_rows_plain(density[:m], dirs, k, row0))
+    if not ok:
+        raise SystemExit("round: the kernel's rows differ from the plain "
+                         "rows")
+    ms = [cuda_ms(kernel)]
+    plain_ms = cuda_ms(plain, reps=3, inner=2)
+    ms.append(cuda_ms(kernel))
+    # the density outputs read once, rows and raw density written once,
+    # each ray's direction read once
+    moved = n * (64 + 128 + 4) + n_rays * 12
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    row = {"rows": n, "samples_per_ray": k, "ms": min(ms),
+           "plain_ms": plain_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+           "bytes_moved": moved, "share_of_bound": bytes_ms / min(ms),
+           "bit_equal_to_plain": ok}
+    print(f"round rows kernel x {n} rows ({k} a ray): kernel {min(ms):.4f} "
+          f"ms ({ms}), plain {plain_ms:.3f} ms; bound {bytes_ms:.4f} ms "
+          f"({moved / 1e6:.1f} MB; {100 * bytes_ms / min(ms):.1f} % "
+          f"reached); bit-equal to plain: {ok} "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]", flush=True)
+    return row
+
+
 def profile_frame(tb, cam, smi, out_path):
     """One warm frame with CUDA-event spans around each layer (device time
     between the events, no extra syncs), one under torch.profiler, and a
@@ -2588,6 +2675,7 @@ def profile_frame(tb, cam, smi, out_path):
     from torch.profiler import ProfilerActivity, profile
 
     from instant_ngp_tpu_torch.nerf.render import WavefrontRenderer
+    from instant_ngp_tpu_torch.ops.kernels import round_kernels
 
     events = EventSpans()
     timed, spans = events.wrap, events.spans
@@ -2595,12 +2683,14 @@ def profile_frame(tb, cam, smi, out_path):
     model = tb.model
     layers = [("hash-grid encode", model.pos_encoding),
               ("density MLP kernel", model.density_net),
-              ("SH direction encode", model.dir_encoding),
+              ("SH direction encode (plain round)", model.dir_encoding),
               ("RGB MLP kernel", model.rgb_net)]
     prep = WavefrontRenderer._march_and_pack
+    rows = round_kernels.rgb_net_rows
     for name, mod in layers:
         mod.forward = timed(name, mod.forward)
     WavefrontRenderer._march_and_pack = timed("march + pack", prep)
+    round_kernels.rgb_net_rows = timed("RGB rows kernel", rows)
     try:
         frame_start = torch.cuda.Event(enable_timing=True)
         frame_end = torch.cuda.Event(enable_timing=True)
@@ -2612,6 +2702,7 @@ def profile_frame(tb, cam, smi, out_path):
         for _, mod in layers:
             del mod.forward
         WavefrontRenderer._march_and_pack = prep
+        round_kernels.rgb_net_rows = rows
     frame_ms = frame_start.elapsed_time(frame_end)
     print(f"profile: warm frame {frame_ms:.1f} ms on the device's clock "
           f"[{smi}]")
@@ -4396,6 +4487,10 @@ def main():
                         help="after the build, only check and time the "
                              "march-and-pack kernel (march_kernel_on_card) "
                              "and stop")
+    parser.add_argument("--round-only", action="store_true",
+                        help="after the build, only check and time the "
+                             "network round's RGB rows kernel "
+                             "(round_rows_on_card) and stop")
     parser.add_argument("--deposit-ab", action="store_true",
                         help="after the build, only time the table "
                              "gradient's deposit by index_put_ against "
@@ -4446,6 +4541,9 @@ def main():
         return
     if args.march_only:
         march_kernel_on_card(dev, smi)
+        return
+    if args.round_only:
+        round_rows_on_card(dev, smi)
         return
     if args.step_times:
         step_times(load_network_config(find_network_config("base", "nerf")),
@@ -4656,6 +4754,9 @@ def main():
     # phase 3c: the march-and-pack kernel against its plain version
     march_row = march_kernel_on_card(dev, smi)
     torch.cuda.empty_cache()
+    # phase 3d: the network round's RGB rows kernel against the plain round
+    round_row = round_rows_on_card(dev, smi)
+    torch.cuda.empty_cache()
 
     # phase 4: the main path, through the testbed's entry points; from here
     # on no plain grid method may run on a CUDA tensor, and every path
@@ -4714,6 +4815,14 @@ def main():
         raise RuntimeError("the frame is not finite or has the wrong shape")
     if frames[-1][1] <= 0 or frame[..., 3].max() <= 0.0:
         raise RuntimeError("the frame evaluated no samples")
+    # each network call of a round writes its RGB rows by one launch: as
+    # many as the density net's
+    density_calls = shapes["density"]["launches_per_frame"]
+    rows_launches = kernel_paths.by_path["render"].get("rgb_net_rows", 0)
+    if rows_launches != 2 * density_calls:
+        raise RuntimeError(f"the render path launched the RGB rows kernel "
+                           f"{rows_launches} times in two frames, not once "
+                           f"per network call ({density_calls} a frame)")
 
     # phase 5: the same testbed on the CPU, through the plain versions
     cpu_tb = NerfTestbed(scene, cfg, device="cpu",
@@ -4780,6 +4889,9 @@ def main():
         {"density": shapes["density"]["variant"],
          "rgb_latent": shapes["rgb_latent"]["variant"]}, args.profile)
     launches_capture = sum(by_variant_capture.values())
+    if kernel_paths.by_path["capture"].get("rgb_net_rows", 0):
+        raise RuntimeError("the capture's RGB net has latent dims: its "
+                           "rounds must not launch the RGB rows kernel")
     for name in ("density", "rgb_latent"):
         shapes[name]["launches_on_the_capture_path"] = \
             by_variant_capture[shapes[name]["variant"]]
@@ -4944,6 +5056,24 @@ def main():
         # no one PyTorch call marches a ray
         "library_ms": None,
         **march_row}
+    round_entry = {
+        "name": "rgb_net_rows",
+        "route": "cuda",
+        "source": "instant_ngp_tpu_torch/csrc/nerf_network_round.cu",
+        # no TPU kernel: the JAX package builds the RGB net's input with
+        # plain XLA
+        "replaces": None,
+        "counterpart": "instant_ngp_tpu/nerf/model.py:111 (plain XLA)",
+        # every path, each counted from 0: a launch writes one network
+        # call's rows of a wavefront round
+        "launches": kernel_paths.total("rgb_net_rows"),
+        "launches_by_path": {
+            path: c["rgb_net_rows"]
+            for path, c in kernel_paths.by_path.items()
+            if c.get("rgb_net_rows")},
+        # no one PyTorch call writes these rows
+        "library_ms": None,
+        **round_row}
 
     kernels = [{
         "name": "fused_mlp_forward",
@@ -5058,7 +5188,7 @@ def main():
         "chain_ms": wide["nerf_frequency_density"]["chain_ms"],
         "shapes": wide,
         "wide_path": wide_path,
-    }] + grid_entries + [march_entry]
+    }] + grid_entries + [march_entry, round_entry]
     print(json.dumps({"kernels": kernels}))
     print(smi)   # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ..ops.encodings import create_encoding
+from ..ops.encodings import (CompositeEncoding, SphericalHarmonicsEncoding,
+                             create_encoding)
 from ..ops.factory import derive_grid_config
 from ..ops.mlp import MLP, activation_derivative, apply_activation
 from ..utils import span
@@ -130,6 +131,24 @@ class NerfNetwork(nn.Module):
                 ) -> torch.Tensor:
         """Raw (pre-activation) density (N,)."""
         return self.density_forward(pos, max_level, **encode)[:, 0]
+
+    def rgb_input_is_density_and_sh4(self) -> bool:
+        """Whether the RGB net reads the 16 density outputs beside
+        spherical harmonics of degree 4 of the three direction dims and
+        nothing else (a bare SH encoding, or a Composite of it and
+        encodings of no dims: no latent dims), in bf16: the rows that
+        ops/kernels/round_kernels.py::rgb_net_rows writes for the
+        inference kernel."""
+        enc = self.dir_encoding
+        parts = list(enc.nested) if isinstance(enc, CompositeEncoding) \
+            else [enc]
+        feats = [e for e in parts if e.n_output_dims]
+        return (self.n_extra_dims == 0 and self.n_density_out == 16
+                and len(feats) == 1
+                and isinstance(feats[0], SphericalHarmonicsEncoding)
+                and feats[0].degree == 4
+                and sum(e.n_dims for e in parts) == 3
+                and self.rgb_net.compute_dtype == torch.bfloat16)
 
     def apply_components(self, pos: torch.Tensor, dirs: torch.Tensor,
                          extra: Optional[torch.Tensor] = None,

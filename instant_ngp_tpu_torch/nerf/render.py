@@ -27,9 +27,14 @@ the threshold or whose candidates ran out is never evaluated again. On the
 card one kernel (`ops/kernels/march_kernels.py`) walks each ray's
 candidates and writes its packed row; on the CPU the plain version marches
 `march_chunk` rays at a time on the (rays, n_march) plane and packs it with
-a prefix sum. A network call evaluates at most `query_budget` samples. It
-serves Shade, Depth and AO, which are weighted sums of what it
-accumulates.
+a prefix sum. A network call evaluates at most `query_budget` samples.
+Where the RGB net reads the density outputs beside SH degree 4 alone, a
+round on the card runs `_eval_network_rows`: a second kernel
+(`ops/kernels/round_kernels.py`) writes the RGB net's input rows from the
+density outputs and each ray's direction, and the nets write into the
+round's outputs, to the bits of the plain round (`_eval_network`, which
+every other network, the CPU and autograd take). It serves Shade, Depth
+and AO, which are weighted sums of what it accumulates.
 
 With `RenderConfig.stochastic_corners` and a generator, the position
 encoding runs its stochastic-corner estimator (the configuration's exact
@@ -49,7 +54,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..camera import pos_to_uv, uv_to_ray
-from ..ops.kernels import march_kernels
+from ..ops.kernels import march_kernels, round_kernels
 from ..utils import span
 from .march import advance_n_steps, calc_dt, ray_intersect_aabb
 from .model import NerfNetwork, network_to_density, network_to_rgb
@@ -94,6 +99,44 @@ def _eval_network(model: NerfNetwork, pos: torch.Tensor, dirs: torch.Tensor,
         outs.append(model.apply_components(p, dirs[i:i + step], extra,
                                            encode_generator=generator))
     return torch.cat(outs)
+
+
+def _round_takes_rows_kernel(model: NerfNetwork, pos: torch.Tensor
+                             ) -> bool:
+    """Whether a wavefront round's network goes through
+    `_eval_network_rows`: CUDA tensors, no autograd, and an RGB net that
+    reads the density outputs beside SH degree 4 alone."""
+    return (pos.device.type == "cuda" and not torch.is_grad_enabled()
+            and model.rgb_input_is_density_and_sh4())
+
+
+def _eval_network_rows(model: NerfNetwork, pos: torch.Tensor,
+                       ray_dirs: torch.Tensor, samples_per_ray: int,
+                       step: int, generator: Optional[torch.Generator]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_eval_network` of a wavefront round on the card, to its bits:
+    positions (B * K, 3) of B rays' K samples each, the rays' unit
+    directions (B, 3) -> (raw rgb (B * K, 3), raw density (B * K,)). Per
+    call of at most `step` samples: the position encode and the density
+    net, then one kernel writes the RGB net's input rows [density outputs
+    | SH degree 4 of the ray's direction] and the raw density column, and
+    the RGB net writes its block of the round's rgb. No direction is
+    expanded to the samples and nothing is concatenated."""
+    n = pos.shape[0]
+    rgb = pos.new_empty(n, 3)
+    density = pos.new_empty(n)
+    for i in range(0, n, step):
+        density_out = model.density_forward(pos[i:i + step],
+                                            encode_generator=generator)
+        # a frame's calls take millions of rows: each plane lives only
+        # while it is read
+        rows = round_kernels.rgb_net_rows(
+            density_out, ray_dirs, samples_per_ray, i,
+            raw_density=density[i:i + step])
+        del density_out
+        model.rgb_net(rows, out=rgb[i:i + step])
+        del rows
+    return rgb, density
 
 
 def render_tile(model: NerfNetwork, cfg: RenderConfig,
@@ -293,15 +336,23 @@ class WavefrontRenderer:
                 o_b, d_b = origins[idx], dirs[idx]
                 pos = ((o_b[:, None, :] + rt[..., None] * d_b[:, None, :])
                        - self.aabb_min) / extent
-                dirw = ((d_b + 1.0) * 0.5)[:, None, :].expand_as(pos)
-                raw = _eval_network(
-                    self.model, pos.reshape(-1, 3), dirw.reshape(-1, 3),
-                    extra_dims, cfg.query_budget, generator
-                ).reshape(*rt.shape, 4)
+                if _round_takes_rows_kernel(self.model, pos):
+                    raw_rgb, raw_density = _eval_network_rows(
+                        self.model, pos.view(-1, 3), d_b, rt.shape[1],
+                        cfg.query_budget, generator)
+                    raw_rgb = raw_rgb.view(*rt.shape, 3)
+                    raw_density = raw_density.view(rt.shape)
+                else:
+                    dirw = ((d_b + 1.0) * 0.5)[:, None, :].expand_as(pos)
+                    raw = _eval_network(
+                        self.model, pos.reshape(-1, 3), dirw.reshape(-1, 3),
+                        extra_dims, cfg.query_budget, generator
+                    ).reshape(*rt.shape, 4)
+                    raw_rgb, raw_density = raw[..., :3], raw[..., 3]
             n_evaluated += rt.numel()
             with span("render.composite"):
-                rgb = network_to_rgb(raw[..., :3], cfg.rgb_activation)
-                sigma = network_to_density(raw[..., 3],
+                rgb = network_to_rgb(raw_rgb, cfg.rgb_activation)
+                sigma = network_to_density(raw_density,
                                            cfg.density_activation)
                 alpha = torch.where(rv, 1.0 - torch.exp(
                     -sigma * calc_dt(rt, cfg.cone_angle)), 0.0)

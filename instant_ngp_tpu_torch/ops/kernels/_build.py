@@ -178,10 +178,15 @@ def load_library() -> ctypes.CDLL:
     #  n_cols, chunk, n_rays, ts, ok, n_cand, valid, stream)
     lib.nerf_march_pack_launch.argtypes = [ptr] * 5 + [f32s] + [i32] * 6 + [
         i64] + [ptr] * 5
+    # the RGB net's input rows (csrc/nerf_network_round.cu): (density, dirs,
+    #  n_rows, n_rays, k, row0, out, raw_density, stream)
+    lib.nerf_rgb_net_rows_launch.argtypes = [ptr, ptr, i64, i64, i32, i64,
+                                             ptr, ptr, ptr]
     for fn in (lib.fused_mlp_mma_launch, lib.fused_mlp_wgmma_launch,
                lib.fused_mlp_wgmma_plan, lib.fused_mlp_mma_has_variant,
                lib.fused_mlp_mma_input_path, lib.grid_forward_launch,
                lib.grid_table_gradient_launch,
-               lib.grid_input_gradient_launch, lib.nerf_march_pack_launch):
+               lib.grid_input_gradient_launch, lib.nerf_march_pack_launch,
+               lib.nerf_rgb_net_rows_launch):
         fn.restype = ctypes.c_int
     return lib

@@ -413,8 +413,11 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
                       activation: str = "ReLU",
                       output_activation: str = "None",
                       variant: Optional[str] = None,
-                      stages: Optional[int] = None) -> torch.Tensor:
-    """x (N, D_in) float32 or bf16 -> (N, D_out) float32.
+                      stages: Optional[int] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (N, D_in) float32 or bf16 -> (N, D_out) float32, written into
+    `out` where given (contiguous float32 (N, D_out) on x's device, such as
+    a block of rows of a larger output) and returned.
 
     `variant` and `stages` are for measurements: `variant=GENERAL` or
     `STREAMED` sends a shape through the general or the streamed path (the
@@ -423,9 +426,21 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     up to MMA_STAGES that fits)."""
     variant, stages = _plan(weights.dims, activation, output_activation,
                             variant, stages)
+    if out is not None:
+        n_out = (int(x.shape[0]), weights.dims[-1])
+        if (out.device != x.device or out.dtype != torch.float32
+                or tuple(out.shape) != n_out or not out.is_contiguous()):
+            raise ValueError(f"fused_mlp_forward: out {out.dtype} "
+                             f"{tuple(out.shape)} on {out.device}, expected "
+                             f"contiguous float32 {n_out} on {x.device}")
+        if n_out[1] % 2 == 0 and out.data_ptr() % 8:
+            raise ValueError("fused_mlp_forward: out must be 8-byte aligned "
+                             "(the kernels store an even-width row's "
+                             "columns in pairs)")
     if x.device.type == "cpu":
-        return fused_mlp_forward_plain(x, weights.layers, activation,
-                                       output_activation)
+        y = fused_mlp_forward_plain(x, weights.layers, activation,
+                                    output_activation)
+        return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_forward: no kernel for {x.device}")
     if x.dim() != 2 or x.shape[1] != weights.dims[0]:
@@ -441,8 +456,9 @@ def fused_mlp_forward(x: torch.Tensor, weights: FusedMLPWeights,
     if x.shape[0] >= 1 << 31:
         raise ValueError("fused_mlp_forward: more than 2^31 rows")
     n = int(x.shape[0])
-    out = torch.empty(n, weights.dims[-1], dtype=torch.float32,
-                      device=x.device)
+    if out is None:
+        out = torch.empty(n, weights.dims[-1], dtype=torch.float32,
+                          device=x.device)
     if n == 0:
         return out
     from ._build import load_library

@@ -141,16 +141,22 @@ class MLP(nn.Module):
                 h = apply_activation(self.activation, h).to(bf16).float()
         return apply_activation(self.output_activation, h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, n_input_dims) -> (N, n_output_dims) float32."""
+    def forward(self, x: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (N, n_input_dims) -> (N, n_output_dims) float32. `out`, on the
+        inference path alone: the buffer `fused_mlp_forward` writes."""
         if self.compute_dtype == torch.bfloat16:
             if torch.is_grad_enabled() and (
                     x.requires_grad
                     or any(w.requires_grad for w in self.weights)):
+                if out is not None:
+                    raise ValueError("MLP: out is the inference path's")
                 return self._forward_differentiable(x)
             return mlp_kernels.fused_mlp_forward(
                 x.contiguous(), self.kernel_weights(), self.activation,
-                self.output_activation)
+                self.output_activation, out=out)
+        if out is not None:
+            raise ValueError("MLP: out is the inference path's")
         h = x.float()
         for i, w in enumerate(self.weights):
             h = h @ w
