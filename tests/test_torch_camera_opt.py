@@ -13,8 +13,7 @@ are in tests/test_torch_training.py and tests/test_torch_testbed_train.py):
   on the host, so rtol 1e-6), the snapshot's camera block both ways;
 - the density update's one-corner encode with the JAX update's own draws:
   grid to rtol 1e-3 / atol 1e-7, as the 8-step loop test holds it.
-The tiny dataset and configuration are those of
-tests/test_torch_training.py."""
+The tiny dataset and configuration are tests/torch_parity.py's."""
 
 import os
 import sys
@@ -26,16 +25,15 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_training import (_numpy_tree, feed_jax_draws,  # noqa: E402
-                                 make_jax_tb, make_port_tb)
+from torch_parity import (TRAIN_CFG, _numpy_tree,  # noqa: E402
+                          feed_jax_draws, make_dataset, make_jax_tb,
+                          make_port_tb, port_dataset)
 
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.ops import host_adam as jhost
 from instant_ngp_tpu_torch.convert import params_from_jax
 from instant_ngp_tpu_torch.data.snapshot import load_snapshot
 from instant_ngp_tpu_torch.ops import host_adam as host
-
-torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -107,8 +105,6 @@ def test_defaults_are_the_jax_testbeds(pair):
             type(getattr(jtb, name)).__name__
     assert tb._cam_dict() is None and jtb._cam_dict() is None
     # the schedule: from the encoding's config, and by the step
-    from test_torch_training import TRAIN_CFG, port_dataset
-    from test_nerf_training import make_dataset
     from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
     cfg = dict(TRAIN_CFG, encoding=dict(TRAIN_CFG["encoding"],
                                         stochastic_corners_until=7))

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu_torch.__main__ import main, parse_args
 from instant_ngp_tpu_torch.data.exr import write_exr
 
-torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IMAGE_CFG = {

@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.config import \
     load_network_config as jax_load_network_config
 from instant_ngp_tpu.ops.encodings import create_encoding as jax_create
 from instant_ngp_tpu_torch.config import load_network_config
 from instant_ngp_tpu_torch.ops.encodings import create_encoding
-
-torch.set_num_threads(2)
 
 
 def _dirs(rng, n, extra=0):

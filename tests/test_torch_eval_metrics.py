@@ -3,7 +3,8 @@ metric of `compute_error_img` value for value (FLIP to 1e-5: numpy and
 scipy on both sides), the ground truth over black, `eval_nerf_views` and
 `eval_test_transforms` on a test split written to disk (PNG or EXR), and
 `eval_psnr` of an HDR dataset, on the tiny testbeds of
-tests/test_torch_nerf_extras.py (scores to rtol 1e-3)."""
+tests/test_torch_nerf_extras.py (tests/torch_parity.py's `make_pair`;
+scores to rtol 1e-3)."""
 
 import os
 import sys
@@ -14,11 +15,9 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_nerf_extras import N_RAYS, make_pair  # noqa: E402
-from test_torch_render_modes import (MODES_CFG, lens_dataset,  # noqa: E402
-                                     port_lens_dataset, set_knobs,
-                                     sync_port)
-from test_torch_training import feed_jax_draws  # noqa: E402
+from torch_parity import (MODES_CFG, feed_jax_draws,  # noqa: E402
+                          lens_dataset, make_pair, port_lens_dataset,
+                          set_knobs, sync_port)
 
 from instant_ngp_tpu import eval as jeval
 from instant_ngp_tpu import metrics as jmetrics
@@ -26,8 +25,6 @@ from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed as JaxTestbed
 from instant_ngp_tpu_torch import eval as port_eval
 from instant_ngp_tpu_torch import metrics
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
-
-torch.set_num_threads(2)
 
 
 # -- eval.py and metrics.py --------------------------------------------------
@@ -137,7 +134,7 @@ def test_eval_test_transforms_and_hdr_psnr_match_jax(trained_pair, tmp_path,
         == "Exponential"
     assert thdr.data.pixels.dtype == torch.float16
     for t in (jhdr, thdr):
-        set_knobs(t, N_RAYS)
+        set_knobs(t)
     sync_port(thdr, jhdr)
     feed_jax_draws(thdr)
     np.testing.assert_allclose(thdr.train(1), jhdr.train(1), rtol=2e-3)

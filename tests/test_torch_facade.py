@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import jax_corner_draws
+
 from instant_ngp_tpu import camera_path as jax_camera_path
 from instant_ngp_tpu import config as jax_config
 from instant_ngp_tpu import foveation as jax_foveation
@@ -31,8 +33,6 @@ from instant_ngp_tpu_torch import render_buffer
 from instant_ngp_tpu_torch.common import TestbedMode, TonemapCurve
 from instant_ngp_tpu_torch.data.exr import write_exr
 from instant_ngp_tpu_torch.testbed import Testbed, mode_from_scene
-
-torch.set_num_threads(2)
 
 IMAGE_CFG = {
     "loss": {"otype": "L2"},
@@ -228,17 +228,6 @@ def _image_pair(files):
     """The JAX facade and the port's on the same image and config, the
     port's testbed holding the JAX testbed's weights and taking its
     draws."""
-    from instant_ngp_tpu_torch.ops.grid_encoding import CornerDraws
-
-    def jax_corner_draws(key, n, n_dims, n_levels):
-        keys = jax.random.split(key, n_dims + 1)
-        u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                      for k in range(n_dims)])
-        axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                             n_dims))
-        return CornerDraws(torch.from_numpy(u.copy()),
-                           torch.from_numpy(axis.copy()).long())
-
     jtb, tb = JaxTestbed(seed=7), Testbed(seed=7, device="cpu")
     for t in (jtb, tb):
         t.reload_network_from_json(IMAGE_CFG)

@@ -26,7 +26,8 @@ import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
-import torch
+
+import torch_parity  # noqa: F401 (its import sets the thread count)
 
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.data.snapshot import save_snapshot as jax_save_snapshot
@@ -38,7 +39,6 @@ from instant_ngp_tpu_torch.data.msgpack_codec import packb, unpackb
 from instant_ngp_tpu_torch.data.snapshot import load_snapshot
 from instant_ngp_tpu_torch.geometry import GeometryBvh, GeometryTestbed
 
-torch.set_num_threads(2)
 
 NERF_CFG = {
     "encoding": {"otype": "HashGrid", "n_levels": 2,

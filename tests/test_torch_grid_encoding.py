@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.ops.factory import derive_grid_config as jax_derive
 from instant_ngp_tpu.ops.grid_encoding import GridEncoding as JaxGrid
 from instant_ngp_tpu_torch.config import (find_network_config,
@@ -20,7 +22,6 @@ from instant_ngp_tpu_torch.ops.factory import derive_grid_config
 from instant_ngp_tpu_torch.ops.grid_encoding import (GridEncoding,
                                                     convert_layout)
 
-torch.set_num_threads(2)
 
 KW = dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=10,
           base_resolution=4, per_level_scale=2.0)

@@ -46,12 +46,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import jax_corner_draws
+
 from instant_ngp_tpu.ops.grid_encoding import GridEncoding as JaxGrid
-from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
-                                                     GridEncoding,
+from instant_ngp_tpu_torch.ops.grid_encoding import (GridEncoding,
                                                      draw_corner_randoms)
 
-torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(n_levels=4, log2_hashmap_size=9, base_resolution=4,
@@ -184,18 +184,6 @@ def sorted_deposit(enc, x, g_out, max_level, draws=None, j=None,
         acc[seg] = acc[seg] + values[at]
     grad[keys[head].long()] = total + acc
     return grad.reshape(-1)
-
-
-def jax_corner_draws(key, n, n_dims, n_levels) -> CornerDraws:
-    """What the JAX package's stochastic encode draws from `key` for n
-    points (as in tests/test_torch_grid_stochastic.py)."""
-    keys = jax.random.split(key, n_dims + 1)
-    u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                  for k in range(n_dims)])
-    axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                         n_dims))
-    return CornerDraws(torch.from_numpy(u.copy()),
-                       torch.from_numpy(axis.copy()).long())
 
 
 def _points_clear_of_draws(enc, draws, rng, n, n_dims, margin=1e-5):

@@ -20,33 +20,26 @@ level is redrawn until none has (`_points_clear_of_draws`).
 The estimator's own statistics are checked with the port's generator: the
 mean of 4096 draws lies within 4 standard errors of the exact encode."""
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_parity import jax_corner_draws  # noqa: E402
+
 from instant_ngp_tpu.ops.grid_encoding import GridEncoding as JaxGrid
 from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
                                                      GridEncoding,
                                                      draw_corner_randoms)
 
-torch.set_num_threads(2)
-
 KW = dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=10,
           base_resolution=4, per_level_scale=2.0)
 N = 400
-
-
-def jax_corner_draws(key, n, n_dims, n_levels) -> CornerDraws:
-    """What `_build_stochastic_call` draws from `key` for n points."""
-    keys = jax.random.split(key, n_dims + 1)
-    u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                  for k in range(n_dims)])
-    axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                         n_dims))
-    return CornerDraws(torch.from_numpy(u.copy()),
-                       torch.from_numpy(axis.copy()).long())
 
 
 def _weights(enc, x):

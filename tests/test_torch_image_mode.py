@@ -2,7 +2,8 @@
 small procedural image (32 x 24, linear RGB with values past 1 and at 0)
 and a small network of configs/image/base.json's form (HashGrid 2D, L=4,
 F=2, 2^10 entries a level, 32-wide MLP), loaded with the JAX testbed's
-seeded weights.
+seeded weights (the image and the configuration: tests/torch_parity.py's
+`image` and `IMAGE_CFG`).
 
 JAX's random numbers (threefry) are not torch's: the port's testbed takes
 the reference's own draws through its `draws` hook, the uniform positions
@@ -29,52 +30,19 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import IMAGE_CFG, image, jax_corner_draws
+
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.image import ImageTestbed as JaxImageTestbed
 from instant_ngp_tpu.ops.grid_encoding import GridEncoding as JaxGrid
 from instant_ngp_tpu_torch.data.snapshot import load_snapshot
 from instant_ngp_tpu_torch.image.testbed_image import ImageTestbed
-from instant_ngp_tpu_torch.ops.grid_encoding import (CornerDraws,
-                                                     GridEncoding)
+from instant_ngp_tpu_torch.ops.grid_encoding import GridEncoding
 
-torch.set_num_threads(2)
-
-CFG = {
-    "loss": {"otype": "L2"},
-    "optimizer": {"otype": "ExponentialDecay", "decay_start": 20000,
-                  "decay_interval": 10000, "decay_base": 0.33, "nested": {
-                      "otype": "Adam", "learning_rate": 1e-2, "beta1": 0.9,
-                      "beta2": 0.99, "epsilon": 1e-15, "l2_reg": 1e-6}},
-    "encoding": {"otype": "HashGrid", "n_levels": 4,
-                 "n_features_per_level": 2, "log2_hashmap_size": 10,
-                 "base_resolution": 8, "stochastic_corners_until": 2},
-    "network": {"otype": "FullyFusedMLP", "activation": "ReLU",
-                "output_activation": "None", "n_neurons": 32,
-                "n_hidden_layers": 2},
-}
 BATCH = 256
 
 
-def image(h=24, w=32):
-    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
-    r = 0.5 + 0.6 * np.sin(x / 4.0)
-    g = 0.5 + 0.5 * np.cos(y / 3.0)
-    b = ((x // 8 + y // 8) % 2).astype(np.float32) * 1.3
-    return np.clip(np.stack([r, g, b], -1), 0.0, None).astype(np.float32)
-
-
-def jax_corner_draws(key, n, n_dims, n_levels) -> CornerDraws:
-    """What the JAX stochastic encode draws from `key` for n points."""
-    keys = jax.random.split(key, n_dims + 1)
-    u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                  for k in range(n_dims)])
-    axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                         n_dims))
-    return CornerDraws(torch.from_numpy(u.copy()),
-                       torch.from_numpy(axis.copy()).long())
-
-
-def pair(compute="bf16", cfg=CFG, img=None):
+def pair(compute="bf16", cfg=IMAGE_CFG, img=None):
     """(JAX testbed, port testbed with its weights and its draws)."""
     img = image() if img is None else img
     jtb = JaxImageTestbed(img, cfg, compute_dtype=jnp.float32
@@ -125,7 +93,7 @@ def test_2d_grid_with_hashed_levels_matches_jax():
     image at a small table: the upper levels are hashed. Exact encode and
     its table gradient, and the stochastic one (one sampled corner a
     level, no exact axis) from the reference's corner draws."""
-    cfg = dict(CFG["encoding"], n_levels=16, base_resolution=16,
+    cfg = dict(IMAGE_CFG["encoding"], n_levels=16, base_resolution=16,
                per_level_scale=float(np.exp(np.log(128 / 16) / 15)))
     kw = dict(n_dims=2, n_levels=16, n_features_per_level=2,
               log2_hashmap_size=10, base_resolution=16,
@@ -190,11 +158,11 @@ def test_train_never_crosses_the_switch_in_one_chunk():
 
 def test_the_default_device_is_the_card():
     if torch.cuda.is_available():
-        tb = ImageTestbed(image(), CFG)
+        tb = ImageTestbed(image(), IMAGE_CFG)
         assert tb.device.type == "cuda" and tb.image.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
-            ImageTestbed(image(), CFG)
+            ImageTestbed(image(), IMAGE_CFG)
 
 
 # -- rendering and snapshots --------------------------------------------------

@@ -28,8 +28,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import make_dataset  # noqa: E402
-from test_torch_sampler import port_dataset  # noqa: E402
+from torch_parity import _t, make_dataset, port_dataset  # noqa: E402
 
 from instant_ngp_tpu import camera as jcamera
 from instant_ngp_tpu.nerf import dataset as jdataset
@@ -43,8 +42,6 @@ from instant_ngp_tpu_torch.nerf.dataset import (pack_training_data,
                                                 scene_config_from_dataset)
 from instant_ngp_tpu_torch.nerf.visibility import compute_visible_cells
 from instant_ngp_tpu_torch.ops import trainable_buffer as buffer
-
-torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 NEWTON_ATOL = 1e-5
@@ -61,10 +58,6 @@ LENS_PARAMS = {
 RES = (64, 48)
 FOCAL = np.array([50.0, 52.0], np.float32)
 CENTER = (0.52, 0.47)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
 
 
 def _camera(rng):

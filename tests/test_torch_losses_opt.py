@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.common import LossType as JaxLossType
 from instant_ngp_tpu.ops import losses as jlosses
 from instant_ngp_tpu.ops.optimizers import Optimizer as JaxOptimizer
@@ -20,7 +22,6 @@ from instant_ngp_tpu_torch.ops.losses import LossType, loss_type_from_string
 from instant_ngp_tpu_torch.ops.optimizers import Optimizer, tree_map
 from instant_ngp_tpu_torch.ops.trainer import default_l2_mask
 
-torch.set_num_threads(2)
 
 OPT_CFG = {"otype": "Ema", "decay": 0.95, "nested": {
     "otype": "ExponentialDecay", "decay_start": 8, "decay_interval": 4,

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.nerf import march as jm
 from instant_ngp_tpu.nerf import occupancy as jocc
 from instant_ngp_tpu.nerf.sampler import RayBatch as JaxRayBatch
@@ -21,8 +23,6 @@ from instant_ngp_tpu.nerf.sampler import march_rays as jax_march_rays
 from instant_ngp_tpu_torch.nerf import march as tm
 from instant_ngp_tpu_torch.nerf import occupancy as tocc
 from instant_ngp_tpu_torch.nerf.sampler import RayBatch, march_rays
-
-torch.set_num_threads(2)
 
 
 def T(a):

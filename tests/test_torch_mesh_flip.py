@@ -30,8 +30,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import CFG, make_dataset  # noqa: E402
-from test_torch_sampler import port_dataset  # noqa: E402
+from torch_parity import CFG, make_dataset, port_dataset  # noqa: E402
 
 from instant_ngp_tpu.geom import marching as jmarching
 from instant_ngp_tpu.geom.marching_cubes import \
@@ -46,8 +45,6 @@ from instant_ngp_tpu_torch.geom.marching_cubes import (N_TRIS, TRI_TABLE,
 from instant_ngp_tpu_torch.metrics import compute_error, compute_error_img
 from instant_ngp_tpu_torch.metrics_flip import compute_flip
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
-
-torch.set_num_threads(2)
 
 RES = 24
 

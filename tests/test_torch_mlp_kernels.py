@@ -15,14 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.ops.mlp import MLP as JaxMLP
 from instant_ngp_tpu.ops.pallas.mlp_kernels import \
     fused_mlp_forward as jax_fused_mlp_forward
 from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
     fused_mlp_forward, fused_mlp_forward_plain, pack_weights)
 from instant_ngp_tpu_torch.ops.mlp import MLP
-
-torch.set_num_threads(2)
 
 
 def _weights(rng, dims):

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu_torch.config import load_network_config
 from instant_ngp_tpu_torch.nerf.dataset import scene_config
 from instant_ngp_tpu_torch.nerf.model import NerfNetwork
@@ -28,7 +30,6 @@ from instant_ngp_tpu_torch.ops.kernels.mlp_kernels import (
     kernel_variant, mma_input_path, mma_layer_shapes, mma_shape,
     mma_smem_bytes, pack_weights, wgmma_hidden_width)
 
-torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -1,6 +1,6 @@
 """The per-scene training switches of the port's `NerfTestbed` against the
-JAX package's, on the tiny dataset of tests/test_torch_render_modes.py
-(4 views of 32x32 through an OpenCV lens, an L=4 hash grid with F=4,
+JAX package's, on the tiny dataset of tests/torch_parity.py's
+`lens_dataset` (4 views of 32x32 through an OpenCV lens, an L=4 hash grid with F=4,
 32-wide MLPs, float32 compute): per-image latent codes
 (`optimize_extra_dims`), the environment map (`train_envmap`), the
 distortion map (`optimize_distortion`) and depth supervision
@@ -28,10 +28,11 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_render_modes import (LENS, MODES_CFG, _numpy_tree,  # noqa: E402
-                                     lens_dataset, port_lens_dataset,
-                                     set_knobs, sync_port)
-from test_torch_training import _assert_step_close, feed_jax_draws  # noqa: E402
+from test_gradient_parity import identity_samples, make_case  # noqa: E402
+from torch_parity import (LENS, MODES_CFG, SWITCH_CASES,  # noqa: E402
+                          _assert_step_close, _numpy_tree, _port_case, _t,
+                          feed_jax_draws, jax_step, lens_dataset, make_pair,
+                          port_lens_dataset, sync_port)
 
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.nerf import training as jtraining
@@ -44,73 +45,13 @@ from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops.losses import LossType
 from instant_ngp_tpu_torch.ops.trainable_buffer import TrainableBuffer
 
-torch.set_num_threads(2)
-
-N_RAYS = 512
 GRAD_REL = 2e-3
-CASES = {
-    # name: (lens, latent dims, depth images, dataset envmap, switches)
-    "extra_dims": ("Perspective", 2, False, False, {}),
-    "envmap": ("Perspective", 0, False, False, {"train_envmap": True}),
-    "distortion": ("OpenCV", 0, False, False, {"optimize_distortion": True}),
-    "depth": ("Perspective", 0, True, False,
-              {"depth_supervision_lambda": 0.5}),
-    "all": ("OpenCV", 2, True, True,
-            {"train_envmap": True, "optimize_distortion": True,
-             "depth_supervision_lambda": 0.5}),
-}
 GRADIENTS = {"extra_dims": ("extra_dims_gradient",),
              "envmap": ("envmap_gradient",),
              "distortion": ("distortion_gradient",),
              "depth": (),
              "all": ("extra_dims_gradient", "envmap_gradient",
                      "distortion_gradient")}
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def make_pair(case, prep_every=16):
-    """(JAX testbed, port testbed) of one case, untrained, switches set."""
-    lens, n_extra, depths, with_env, switches = CASES[case]
-    env = None
-    if with_env:
-        env = np.random.default_rng(2).uniform(0, 0.5, (6, 12, 4)).astype(
-            np.float32)
-    jds = lens_dataset(lens, n_extra, depths, env)
-    jtb = JaxTestbed(jds, MODES_CFG, compute_dtype=jnp.float32)
-    tb = NerfTestbed(port_lens_dataset(jds), MODES_CFG, device="cpu",
-                     compute_dtype=torch.float32)
-    lam = switches.get("depth_supervision_lambda", 0.0)
-    for t in (jtb, tb):
-        set_knobs(t, N_RAYS)
-        t.prep_every = prep_every
-        for name, value in switches.items():
-            setattr(t, name, value)
-    if lam:
-        # the JAX testbed has the weight in its step's configuration only
-        make_cfg = jtb._train_cfg
-        jtb._train_cfg = lambda *a: make_cfg(*a)._replace(
-            depth_supervision_lambda=lam)
-    return jtb, tb
-
-
-def jax_step(jtb):
-    """One step of the JAX testbed's jitted train function, as its eager
-    loop calls it -> the step's stats."""
-    key = jax.random.fold_in(jax.random.PRNGKey(jtb.seed), jtb.training_step)
-    jtb._maybe_init_error_map()
-    fn = jtb._get_train_fn(N_RAYS, jtb._bucket_k(N_RAYS), True)
-    jtb.state, jstats = fn(
-        jtb.state, jtb.data, jtb.bitfield, jtb.mean_density, key,
-        jtb._cam_dict(), jtb._error_cdfs, jtb._error_map,
-        jtb.envmap.params if jtb.train_envmap else None,
-        jtb.distortion_map.params if jtb.optimize_distortion else None)
-    jtb.training_step += 1
-    if "error_map" in jstats:
-        jtb._error_map = jstats["error_map"]
-    return jstats
 
 
 def _assert_close_to_top(ours, ref, what, rel=GRAD_REL):
@@ -121,7 +62,7 @@ def _assert_close_to_top(ours, ref, what, rel=GRAD_REL):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(SWITCH_CASES))
 def test_train_step_with_each_switch_matches_jax(case):
     jtb, tb = make_pair(case)
     jtb.train(3)                    # moments, an EMA, a grid, moved buffers
@@ -132,7 +73,7 @@ def test_train_step_with_each_switch_matches_jax(case):
     tb._error_map = _t(jtb._error_map)
     tb._n_steps_since_error_update = jtb._n_steps_since_error_update
     assert tb.optimize_extra_dims == jtb.optimize_extra_dims \
-        == (CASES[case][1] > 0)
+        == (SWITCH_CASES[case][1] > 0)
     buffers = {"extra_dims_gradient": (tb._extra_dims_buf,
                                        jtb._extra_dims_buf),
                "envmap_gradient": (tb.envmap, jtb.envmap),
@@ -181,9 +122,6 @@ def test_train_step_with_each_switch_matches_jax(case):
 def test_depth_term_of_composite_loss_matches_jax():
     """The depth term alone, on the composite's own test case: L1 between
     the composited depth and the target where the target is > 0."""
-    from test_gradient_parity import identity_samples, make_case
-    from test_torch_training import _port_case
-
     case = make_case(n_rays=6, k=8, seed=2)
     raw, mask, _, t_padded, jrays, bg, exposure, dts, rgba = case
     depth = np.array([0.0, 0.5, 1.5, 0.0, 3.0, 0.2], np.float32)

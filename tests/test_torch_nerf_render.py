@@ -23,7 +23,8 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import CFG, make_dataset  # noqa: E402
+from torch_parity import (CFG, DTYPES, _numpy_tree,  # noqa: E402
+                          make_dataset)
 
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.data.snapshot import save_snapshot as jax_save_snapshot
@@ -40,8 +41,6 @@ from instant_ngp_tpu_torch.nerf.render import WavefrontRenderer
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops.sampling import ld_pixel_offset
 
-torch.set_num_threads(2)
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_CFG = dict(
     CFG,
@@ -51,9 +50,6 @@ SLICE_CFG = dict(
         {"otype": "Identity"}]})
 RENDER_KW = dict(focal_length=40.0, min_transmittance=1e-4,
                  background_color=(0.1, 0.2, 0.3))
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
-
 
 @pytest.fixture(scope="module")
 def jax_tb():
@@ -66,10 +62,6 @@ def jax_tb():
     tb.steps_per_dispatch = 1
     tb.train(6)
     return tb
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def _port_testbed(jax_tb, dtype, params=None, grid=None):

@@ -39,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from __graft_entry__ import _NERF_CFG, _tiny_dataset  # noqa: E402
 from test_torch_parallel_ranks import (N_RANKS, NERF_CFG,  # noqa: E402
                                        features_job, tp_step_job)
-from test_torch_sampler import jax_train_draws, port_dataset  # noqa: E402
+from torch_parity import jax_train_draws, port_dataset  # noqa: E402
 
 from instant_ngp_tpu.ops.grid_encoding import GridEncoding as JaxGrid
 from instant_ngp_tpu.parallel.tp import LevelShardedGrid as JaxSharded

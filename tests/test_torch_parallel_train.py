@@ -37,11 +37,10 @@ sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from __graft_entry__ import _tiny_dataset  # noqa: E402
-from test_nerf_training import CFG  # noqa: E402
 from test_torch_parallel_ranks import (N_RANKS, density_job,  # noqa: E402
                                        dp_step_job)
-from test_torch_sampler import (jax_cell_draws, jax_cell_jitter,  # noqa: E402
-                                jax_train_draws, port_dataset)
+from torch_parity import (CFG, jax_cell_draws, jax_cell_jitter,  # noqa: E402
+                          jax_train_draws, port_dataset)
 
 from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu.parallel import replicate

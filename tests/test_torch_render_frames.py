@@ -4,8 +4,8 @@ and latent codes in every mode, the rendering latent code, a training
 view through its own lens, the aperture, the Distortion picture, the
 density slice and grid, the PNG slice atlas, and the mesh tools on a
 network with latent dims; on the tiny NeRF of
-tests/test_torch_render_modes.py (its `pair` fixture, a module of its
-own here), with the tolerances stated there."""
+tests/test_torch_render_modes.py (tests/torch_parity.py's `pair` fixture,
+a module of its own here), with the tolerances stated there."""
 
 import os
 import sys
@@ -17,14 +17,13 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import make_dataset  # noqa: E402
-from test_torch_render_modes import FRAME_TOL, LENS, N_EXTRA, _t  # noqa: E402
-from test_torch_render_modes import pair  # noqa: E402,F401 (a fixture)
+from torch_parity import (LENS, N_EXTRA, _t, make_dataset,  # noqa: E402
+                          pair)  # noqa: F401 (a fixture)
 
 from instant_ngp_tpu.nerf import render as jrender
 from instant_ngp_tpu_torch.nerf import render
 
-torch.set_num_threads(2)
+FRAME_TOL = dict(rtol=5e-4, atol=5e-4)
 
 
 # -- the testbed's frames -------------------------------------------------------

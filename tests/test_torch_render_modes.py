@@ -6,7 +6,8 @@ table of U(-1, 1), the density net's output scaled): the synthetic scene of
 tests/test_nerf_training.py seen through an OpenCV lens, with 2 latent dims
 per image (so the RGB net is 16 + 16 + 2 wide), an L=4 hash grid with F=4
 and 32-wide MLPs, at float32 compute. Its state goes into a port testbed
-(`sync_port`), and both render the same rays.
+(`sync_port`), and both render the same rays; the pair is
+tests/torch_parity.py's fixture `pair`.
 
 Tolerances:
 - depth-major compaction: slots, sources and counts are integers and must
@@ -29,134 +30,21 @@ Tolerances:
 import os
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import CFG, make_dataset  # noqa: E402
-from test_torch_sampler import port_dataset, random_bitfield  # noqa: E402
+from torch_parity import (N_EXTRA, _t, pair,  # noqa: E402,F401 (a fixture)
+                          random_bitfield)
 
 from instant_ngp_tpu.nerf import render as jrender
 from instant_ngp_tpu.nerf import sampler as jsampler
-from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed as JaxTestbed
-from instant_ngp_tpu_torch.convert import (buffer_state_from_jax,
-                                           opt_state_from_jax,
-                                           params_from_jax)
 from instant_ngp_tpu_torch.nerf import render, sampler
 from instant_ngp_tpu_torch.nerf.render import RENDER_TILE_MODES
-from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 
-torch.set_num_threads(2)
-
-N_EXTRA = 2
-LENS = np.array([0.06, -0.015, 0.002, -0.003, 0, 0, 0], np.float32)
-MODES_CFG = dict(
-    CFG,
-    encoding=dict(CFG["encoding"], n_features_per_level=4,
-                  stochastic_exact_axes=1, stochastic_bwd=True),
-    dir_encoding={"otype": "Composite", "nested": [
-        {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 4},
-        {"otype": "Identity"}]})
 TILE_TOL = dict(rtol=1e-4, atol=1e-4)
-FRAME_TOL = dict(rtol=5e-4, atol=5e-4)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def lens_dataset(lens="OpenCV", n_extra=N_EXTRA, depths=False, envmap=None):
-    """The tiny dataset with a lens, latent dims, depth images and an
-    environment map (as the JAX package's container)."""
-    jds = make_dataset()
-    for i, m in enumerate(jds.metadata):
-        m.lens.mode = lens
-        if lens != "Perspective":
-            m.lens.params = LENS * (1.0 + 0.1 * i)
-        m.principal_point = np.array([0.5 + 0.01 * i, 0.49], np.float32)
-    jds.n_extra_learnable_dims = n_extra
-    if depths:
-        # the sphere of the images at its distance, nothing elsewhere
-        jds.depths = [np.where(im[..., 3] > 0, 0.8 - 0.2 * (i % 2), 0.0)
-                      .astype(np.float32) for i, im in enumerate(jds.images)]
-    jds.envmap = envmap
-    return jds
-
-
-def port_lens_dataset(jds):
-    pds = port_dataset(jds)
-    pds.n_extra_learnable_dims = jds.n_extra_learnable_dims
-    pds.envmap = jds.envmap
-    return pds
-
-
-def set_knobs(tb, n_rays=512):
-    tb.target_batch_size = 1 << 12
-    tb.rays_per_batch = n_rays
-    tb.adapt_ray_batch = False
-    tb.n_march = 96
-    tb.max_samples_per_ray = 32
-    tb.density_samples_override = 1 << 12
-    tb.steps_per_dispatch = 1
-
-
-def sync_port(tb, jtb):
-    """The JAX testbed's whole training state into the port's: network,
-    optimizer, occupancy, step counts and the three trainable buffers."""
-    state = _numpy_tree(jtb.state)
-    tb.load_state(params_from_jax(state["params"]),
-                  opt_state_from_jax(state["opt"]))
-    tb.set_density_grid(np.asarray(jtb.density_grid))
-    tb.training_step = jtb.training_step
-    tb.density_grid_ema_step = jtb.density_grid_ema_step
-    for ours, theirs in ((tb._extra_dims_buf, jtb._extra_dims_buf),
-                         (tb.envmap, jtb.envmap),
-                         (tb.distortion_map, jtb.distortion_map)):
-        if theirs is not None:
-            ours.load_state(buffer_state_from_jax(_numpy_tree(theirs.state)))
-    return tb
-
-
-@pytest.fixture(scope="module")
-def pair():
-    """(JAX testbed with a steep density field, port testbed of the same
-    state)."""
-    jds = lens_dataset()
-    jtb = JaxTestbed(jds, MODES_CFG, compute_dtype=jnp.float32)
-    set_knobs(jtb)
-    jtb.max_samples_per_ray = 64
-    # a table at a trained scale: densities that occlude, gradients that
-    # have a direction
-    rng = np.random.default_rng(1)
-    state = _numpy_tree(jtb.state)
-    table = state["params"]["pos_encoding"]
-    table = table + rng.uniform(-1.0, 1.0, table.shape).astype(np.float32)
-    out_layer = state["params"]["density_net"][-1].copy()
-    out_layer[:, 0] *= 40.0          # raw densities of 4 +- 4
-    for tree in (state["params"], state["opt"]["ema"]):
-        tree["pos_encoding"] = table
-        tree["density_net"] = list(tree["density_net"][:-1]) + [out_layer]
-    jtb.state = jax.tree_util.tree_map(jnp.asarray, state)
-    # the occupancy of that field: one full sweep with the exact encode
-    jtb.stochastic_corners = False
-    jtb.density_samples_override = None
-    jtb.training_step = 1
-    jtb.training_prep()
-    jtb.density_samples_override = 1 << 12
-    jtb.training_step = 256
-    tb = NerfTestbed(port_lens_dataset(jds), MODES_CFG, device="cpu",
-                     compute_dtype=torch.float32)
-    set_knobs(tb)
-    tb.max_samples_per_ray = 64
-    sync_port(tb, jtb)
-    return jtb, tb
 
 
 # -- depth-major compaction ----------------------------------------------------

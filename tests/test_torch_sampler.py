@@ -18,7 +18,9 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import make_dataset  # noqa: E402
+from torch_parity import (_t, jax_cell_draws, jax_cell_jitter,  # noqa: E402
+                          jax_train_draws, make_dataset, port_dataset,
+                          random_bitfield)
 
 from instant_ngp_tpu.nerf import dataset as jdataset
 from instant_ngp_tpu.nerf import occupancy as jocc
@@ -26,65 +28,14 @@ from instant_ngp_tpu.nerf import sampler as jsampler
 from instant_ngp_tpu.nerf.visibility import \
     compute_visible_cells as jax_visible_cells
 from instant_ngp_tpu_torch.common import NERF_GRID_N_CELLS
-from instant_ngp_tpu_torch.data.nerf_loader import (FrameMetadata, Lens,
-                                                    NerfDataset)
 from instant_ngp_tpu_torch.nerf import occupancy as occ
 from instant_ngp_tpu_torch.nerf import sampler
 from instant_ngp_tpu_torch.nerf.dataset import (pack_training_data,
                                                 read_rgba,
                                                 scene_config_from_dataset)
-from instant_ngp_tpu_torch.nerf.occupancy import CellDraws
-from instant_ngp_tpu_torch.nerf.sampler import TrainDraws
 from instant_ngp_tpu_torch.nerf.visibility import compute_visible_cells
 
-torch.set_num_threads(2)
-
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
-
-
-# -- shared with tests/test_torch_training.py ---------------------------
-def port_dataset(jds) -> NerfDataset:
-    """The port's dataset container with a JAX-package dataset's arrays."""
-    metas = [FrameMetadata(m.resolution, m.focal_length, m.principal_point,
-                           m.rolling_shutter, Lens(m.lens.mode,
-                                                   m.lens.params))
-             for m in jds.metadata]
-    return NerfDataset(paths=list(jds.paths), images=jds.images,
-                       depths=jds.depths, rays=jds.rays, metadata=metas,
-                       xforms_start=jds.xforms_start,
-                       xforms_end=jds.xforms_end, aabb_scale=jds.aabb_scale)
-
-
-def _t(a, dtype=None):
-    return torch.from_numpy(np.array(a)).to(dtype) if dtype \
-        else torch.from_numpy(np.array(a))
-
-
-def jax_train_draws(key, n_rays: int, n_images: int,
-                    with_cdf: bool = False) -> TrainDraws:
-    """The numbers nerf_train_step(key) draws for its rays, by its own key
-    splits; `with_cdf`: those of sample_rays' error-CDF branch."""
-    k_rays, k_bg, _ = jax.random.split(key, 3)
-    k_pick, k_t = jax.random.split(k_rays)
-    k_img, k_uv, k_mb, k_mix = jax.random.split(k_pick, 4)
-    common = dict(
-        motionblur_time=_t(jax.random.uniform(k_mb, (n_rays,))),
-        start_jitter=_t(jax.random.uniform(k_t, (n_rays,))),
-        bg_color=_t(jax.random.uniform(k_bg, (n_rays, 3))))
-    if with_cdf:
-        return TrainDraws(
-            img_idx=None, uv=None,
-            u_img=_t(jax.random.uniform(k_img, (n_rays,))),
-            use_cdf=_t(jax.random.uniform(k_mix, (n_rays,)) >= 0.5),
-            u2=_t(jax.random.uniform(k_uv, (n_rays, 2))),
-            u_mix=_t(jax.random.uniform(jax.random.fold_in(k_mix, 1),
-                                        (n_rays, 2))),
-            jitter=_t(jax.random.uniform(jax.random.fold_in(k_uv, 1),
-                                         (n_rays, 2))), **common)
-    return TrainDraws(
-        img_idx=_t(jax.random.randint(k_img, (n_rays,), 0, n_images),
-                   torch.long),
-        uv=_t(jax.random.uniform(k_uv, (n_rays, 2))), **common)
 
 
 def jax_error_cdfs(error_map: np.ndarray, res):
@@ -101,36 +52,6 @@ def jax_error_cdfs(error_map: np.ndarray, res):
     JaxTestbed._rebuild_error_cdfs(holder)
     return holder._error_cdfs, {k: _t(v)
                                 for k, v in holder._error_cdfs.items()}
-
-
-def jax_cell_draws(key, n_uniform: int, n_nonuniform: int, n_cascades: int
-                   ) -> CellDraws:
-    """The numbers occupancy.sample_cells(key, ...) draws."""
-    out = []
-    for k, n, salt in zip(jax.random.split(key), (n_uniform, n_nonuniform),
-                          (0, 2)):
-        keys = jax.random.fold_in(k, salt)
-        out.append(_t(jax.random.randint(keys, (10, n), 0,
-                                         NERF_GRID_N_CELLS), torch.long))
-        out.append(_t(jax.random.randint(jax.random.fold_in(keys, 1), (n,),
-                                         0, n_cascades), torch.long))
-    return CellDraws(*out)
-
-
-def jax_cell_jitter(key, n: int) -> torch.Tensor:
-    """The (n, 3) jitter occupancy.cell_positions(idx, key) draws."""
-    return _t(np.stack([np.asarray(jax.random.uniform(k, (n,), jnp.float32))
-                        for k in jax.random.split(key, 3)], -1))
-
-
-def random_bitfield(seed=0, fill=0.3):
-    """A bitfield (numpy uint8) from a random density grid, by the JAX
-    package's own update_bitfield."""
-    rng = np.random.default_rng(seed)
-    grid = np.where(rng.uniform(size=NERF_GRID_N_CELLS) < fill,
-                    rng.uniform(0.02, 1.0, NERF_GRID_N_CELLS),
-                    0.0).astype(np.float32)
-    return grid, np.asarray(jocc.update_bitfield(jnp.asarray(grid), 0))
 
 
 # ------------------------------------------------------------------------

@@ -50,6 +50,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import jax_corner_draws
+
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.geom.triangle_bvh import TriangleBvh as JaxBvh
 from instant_ngp_tpu.geom.triangle_bvh import load_obj as jax_load_obj
@@ -67,13 +69,11 @@ from instant_ngp_tpu_torch.geom.marching_cubes import marching_cubes
 from instant_ngp_tpu_torch.geom.triangle_bvh import (
     TriangleBvh, load_obj, normalize_mesh_to_unit_cube)
 from instant_ngp_tpu_torch.geom.triangle_octree import TriangleOctree
-from instant_ngp_tpu_torch.ops.grid_encoding import CornerDraws
 from instant_ngp_tpu_torch.ops.takikawa import TakikawaEncoding
 from instant_ngp_tpu_torch.sdf import SdfTestbed
 from instant_ngp_tpu_torch.sdf.brdf import BRDFParams, evaluate_shading
 from instant_ngp_tpu_torch.sdf.bricks import SdfBricks
 
-torch.set_num_threads(2)
 
 CFG = {
     "loss": {"otype": "MAPE"},
@@ -113,16 +113,6 @@ def mesh_path(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("mesh") / "bumpy.obj")
     save_mesh(path, verts, faces)
     return path
-
-
-def jax_corner_draws(key, n, n_dims, n_levels) -> CornerDraws:
-    keys = jax.random.split(key, n_dims + 1)
-    u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                  for k in range(n_dims)])
-    axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                         n_dims))
-    return CornerDraws(torch.from_numpy(u.copy()),
-                       torch.from_numpy(axis.copy()).long())
 
 
 def pair(mesh_path, compute="f32", cfg=CFG):

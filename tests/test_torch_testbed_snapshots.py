@@ -1,6 +1,6 @@
 """The port's `NerfTestbed` snapshots in both directions and its
 `eval_psnr` against the JAX package's, with the sizes, draws and helpers of
-tests/test_torch_training.py (cases "exact": the stochastic-corner encode
+tests/torch_parity.py (cases "exact": the stochastic-corner encode
 and error-map sampling off on both sides): frames rendered from a snapshot
 loaded by the other package agree to rtol/atol 1e-4, a step trained on from
 it to 2e-3, PSNR to rtol 1e-4. Also: `chip_smoke.py`'s own copy of the
@@ -15,14 +15,11 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_training import (_numpy_tree, feed_jax_draws,  # noqa: E402
-                                 make_jax_tb, make_port_tb)
+from torch_parity import (_numpy_tree, feed_jax_draws,  # noqa: E402
+                          make_jax_tb, make_port_tb)
 
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu_torch.data.snapshot import load_snapshot
-
-torch.set_num_threads(2)
-
 
 MODES = pytest.mark.parametrize("exact", [True, False],
                                 ids=["exact", "default"])
@@ -31,8 +28,9 @@ MODES = pytest.mark.parametrize("exact", [True, False],
 # -- snapshots, both ways -----------------------------------------------------
 @MODES
 def test_snapshot_cross_loads_both_ways(tmp_path, exact):
-    jtb = make_jax_tb(jnp.float32, exact=exact)
-    tb = make_port_tb(torch.float32, exact=exact)
+    # the density-update count of 3 steps: 4 full sweeps, the default
+    jtb = make_jax_tb(jnp.float32, exact=exact, full_preps=4)
+    tb = make_port_tb(torch.float32, exact=exact, full_preps=4)
     feed_jax_draws(tb)
     tb.train(3)
     cam = tb.data.xforms_start[2].numpy()

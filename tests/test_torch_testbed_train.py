@@ -2,8 +2,8 @@
 `train` loop with its density-update cadence, the adaptation of the rays
 per batch and the abort on an empty batch (snapshots in both directions
 and `eval_psnr`: tests/test_torch_testbed_snapshots.py). Sizes, draws and
-tolerances are those of tests/test_torch_training.py, whose helpers build
-the two testbeds with the JAX testbed's defaults (stochastic-corner
+tolerances are those of tests/test_torch_training.py; tests/torch_parity.py
+builds the two testbeds with the JAX testbed's defaults (stochastic-corner
 encode, error-map sampling) or, in the cases named "exact", with both off:
 8 steps of the loop at float32 hold each loss to rtol 2e-3 (which holds
 while both sides march the same sample sets); 48 steps with the defaults,
@@ -20,17 +20,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_training import (N_RAYS, TRAIN_CFG, _numpy_tree,  # noqa: E402
-                                 assert_host_adam_close, feed_jax_draws,
-                                 make_jax_tb, make_port_tb)
+from torch_parity import (N_RAYS, TRAIN_CFG, _numpy_tree,  # noqa: E402
+                          assert_host_adam_close, feed_jax_draws,
+                          make_jax_tb, make_port_tb)
 
 from instant_ngp_tpu_torch.convert import params_from_jax
 from instant_ngp_tpu_torch.nerf.dataset import scene_config
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.utils import clear_spans, span_ms
-
-torch.set_num_threads(2)
-
 
 MODES = pytest.mark.parametrize("exact", [True, False],
                                 ids=["exact", "default"])
@@ -39,9 +36,11 @@ MODES = pytest.mark.parametrize("exact", [True, False],
 @MODES
 def test_eight_steps_of_the_loop_match_jax(exact):
     """train() itself: a prep at steps 0-3 (the warm-up cadence) and a
-    mixed uniform + occupied one at step 4, 8 steps, float32."""
-    jtb = make_jax_tb(jnp.float32, prep_every=4, exact=exact)
-    tb = make_port_tb(torch.float32, prep_every=4, exact=exact)
+    mixed uniform + occupied one at step 4, 8 steps, float32. The default
+    cadence is the subject: 4 full sweeps."""
+    jtb = make_jax_tb(jnp.float32, prep_every=4, exact=exact, full_preps=4)
+    tb = make_port_tb(torch.float32, prep_every=4, exact=exact,
+                      full_preps=4)
     state = _numpy_tree(jtb.state)
     tb.load_state(params_from_jax(state["params"]))
     feed_jax_draws(tb)
@@ -90,9 +89,9 @@ def _run_48(jtb, tb, after_16=None):
     return ours, ref
 
 
-def _make_48(**switches):
-    jtb = make_jax_tb(jnp.float32, prep_every=16)
-    tb = make_port_tb(torch.float32, prep_every=16)
+def _make_48(full_preps=1, **switches):
+    jtb = make_jax_tb(jnp.float32, prep_every=16, full_preps=full_preps)
+    tb = make_port_tb(torch.float32, prep_every=16, full_preps=full_preps)
     tb.load_state(params_from_jax(_numpy_tree(jtb.state)["params"]))
     feed_jax_draws(tb)
     for t in (jtb, tb):
@@ -109,8 +108,9 @@ def test_48_steps_with_the_jax_defaults_match_jax():
     map, its CDFs rebuilt every 16 steps so that the picks of steps 16-47
     follow them; besides, exposure optimisation with the host Adam's
     updates at steps 16, 32 and 48. Every loss to rtol 2e-3, the last CDFs
-    to 5e-3, the exposures as `assert_host_adam_close` states."""
-    jtb, tb = _make_48(optimize_exposure=True)
+    to 5e-3, the exposures as `assert_host_adam_close` states. The
+    testbeds' own cadence: 4 full sweeps."""
+    jtb, tb = _make_48(full_preps=4, optimize_exposure=True)
     ours, ref = _run_48(jtb, tb)
     np.testing.assert_allclose(ours, ref, rtol=2e-3)
     assert tb.host_syncs == {"camera_updates": 3, "error_cdfs": 3}
@@ -145,9 +145,10 @@ def test_48_steps_with_camera_optimisation_match_jax():
     the update itself to 1e-6 in tests/test_torch_camera_opt.py), and after
     each update the port takes the JAX testbed's pose and focal offsets;
     the exposures are left alone. With that every loss holds to 2e-3,
-    through 32 steps of rays built from non-zero offsets."""
-    jtb, tb = _make_48(optimize_extrinsics=True, optimize_focal_length=True,
-                       optimize_exposure=True)
+    through 32 steps of rays built from non-zero offsets. 4 full sweeps:
+    after 1 a pose gradient drifts past the 10 %."""
+    jtb, tb = _make_48(full_preps=4, optimize_extrinsics=True,
+                       optimize_focal_length=True, optimize_exposure=True)
     recorded = {"jax": [], "port": []}
 
     def record(t, store):
@@ -195,7 +196,8 @@ def test_48_steps_with_camera_optimisation_match_jax():
 
 
 def test_train_adapts_rays_and_aborts_on_zero_samples():
-    tb = make_port_tb(torch.float32)
+    # step 3 preps: 4 full sweeps, the default
+    tb = make_port_tb(torch.float32, full_preps=4)
     tb.adapt_ray_batch = True
     loss = tb.train(3)
     assert np.isfinite(loss) and loss == tb.loss_scalar

@@ -17,9 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_image_mode import CFG as IMAGE_CFG  # noqa: E402
-from test_torch_image_mode import image  # noqa: E402
-from test_torch_training import make_port_tb  # noqa: E402
+from torch_parity import IMAGE_CFG, image, make_port_tb  # noqa: E402
 
 from instant_ngp_tpu_torch import utils  # noqa: E402
 from instant_ngp_tpu_torch.image.testbed_image import \
@@ -27,8 +25,6 @@ from instant_ngp_tpu_torch.image.testbed_image import \
 from ngp_bench import run  # noqa: E402
 from ngp_bench.harness.cells import Readings  # noqa: E402
 from ngp_bench.harness.trace import Interval, Window  # noqa: E402
-
-torch.set_num_threads(2)
 
 NERF_STEP = ["nerf.sample", "nerf.forward", "nerf.composite",
              "nerf.backward", "nerf.optimizer"]
@@ -84,7 +80,7 @@ def test_a_span_without_a_profiler_is_the_shared_no_op():
 
 
 def test_the_nerf_loop_records_its_spans_nested():
-    tb = make_port_tb(torch.float32)
+    tb = make_port_tb(torch.float32, full_preps=4)    # the default warm-up
     _, events = traced(lambda: tb.train(2))
     assert len(events["nerf.step"]) == 2
     for name in NERF_STEP:

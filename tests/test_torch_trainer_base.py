@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401 (its import sets the thread count)
+
 from instant_ngp_tpu.common import LossType as JaxLossType
 from instant_ngp_tpu.ops import sampling as jsampling
 from instant_ngp_tpu.ops.factory import \
@@ -38,7 +40,6 @@ from instant_ngp_tpu_torch.ops.losses import create_loss
 from instant_ngp_tpu_torch.ops.optimizers import create_optimizer, tree_map
 from instant_ngp_tpu_torch.ops.trainer import Trainer
 
-torch.set_num_threads(2)
 
 NET = {"otype": "FullyFusedMLP", "activation": "ReLU",
        "output_activation": "None", "n_neurons": 32, "n_hidden_layers": 2}

@@ -7,10 +7,10 @@ otherwise: the stochastic-corner encode with base.json's keys (one exact
 axis, one-corner backward) and error-map sampling; the cases named "exact"
 switch both off on both sides. The JAX testbed runs its eager loop
 (`steps_per_dispatch = 1`). Where JAX draws random numbers the port is
-fed the same draws (tests/test_torch_sampler.py and
-tests/test_torch_grid_stochastic.py make them from the step's own key
-splits), the sampled corners included, so a step is compared value for
-value and not in expectation.
+fed the same draws (tests/torch_parity.py makes them from the step's own
+key splits), the sampled corners included, so a step is compared value
+for value and not in expectation. The testbeds, their knobs and the step
+assertion are tests/torch_parity.py's.
 
 Tolerances, by what differs between the two sides:
 - the composite alone (same raw inputs): summation order and ulps of
@@ -21,7 +21,8 @@ Tolerances, by what differs between the two sides:
   scatter into the hash table: `m` and the loss to rtol 1e-3 (atol 1e-6 of
   values of order 1e-3), `v` to rtol 2e-3, the parameters and the EMA
   (steps of order 1e-2) to rtol 1e-3 / atol 2e-5 where the second moment
-  is within 400x of the leaf's largest (see `_assert_step_close`);
+  is within 400x of the leaf's largest (see
+  `torch_parity._assert_step_close`);
 - at bf16 compute the backward rounds at different points (XLA rounds
   cotangents of bf16 operands to bf16, autograd keeps them float32): loss
   to 2 %, `m` to 5 % of its largest entry.
@@ -42,136 +43,25 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 from test_gradient_parity import (identity_samples, make_case,  # noqa: E402
                                   reference_backward)
-from test_nerf_training import CFG, make_dataset  # noqa: E402
-from test_torch_grid_stochastic import jax_corner_draws  # noqa: E402
-from test_torch_sampler import (jax_cell_draws, jax_cell_jitter,  # noqa: E402
-                                jax_train_draws, port_dataset)
+from torch_parity import (DTYPES, TRAIN_CFG, _assert_step_close,  # noqa: E402
+                          _port_case, _t, feed_jax_draws, jax_step,
+                          make_jax_tb, make_port_tb)
 
 from instant_ngp_tpu.common import LossType as JaxLossType
 from instant_ngp_tpu.nerf import training as jtraining
-from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed as JaxTestbed
-from instant_ngp_tpu_torch.convert import (opt_state_from_jax,
-                                           params_from_jax)
 from instant_ngp_tpu_torch.nerf import training
 from instant_ngp_tpu_torch.nerf.dataset import scene_config
-from instant_ngp_tpu_torch.nerf.sampler import RayBatch, SampleBatch
+from instant_ngp_tpu_torch.nerf.sampler import RayBatch
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
 from instant_ngp_tpu_torch.ops import mlp as mlp_module
 from instant_ngp_tpu_torch.ops.losses import LossType
 from instant_ngp_tpu_torch.ops.mlp import MLP
-from instant_ngp_tpu_torch.ops.grid_encoding import CornerDraws
 from instant_ngp_tpu_torch.ops.optimizers import tree_leaves
 
-torch.set_num_threads(2)
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# base.json's stochastic keys on the tiny grid
-TRAIN_CFG = dict(CFG, encoding=dict(CFG["encoding"],
-                                    n_features_per_level=4,
-                                    stochastic_exact_axes=1,
-                                    stochastic_bwd=True))
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
-N_RAYS = 512
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _set_knobs(tb, prep_every=16):
-    tb.target_batch_size = 1 << 12
-    tb.rays_per_batch = N_RAYS
-    tb.adapt_ray_batch = False
-    tb.n_march = 96
-    tb.max_samples_per_ray = 32
-    tb.density_samples_override = 1 << 12
-    tb.prep_every = prep_every
-    tb.steps_per_dispatch = 1
-
-
-def _set_mode(tb, exact):
-    """exact: the exact encode and uniform rays; else the defaults."""
-    assert tb.stochastic_corners is True
-    assert tb.use_error_map_sampling is True      # the dataset's default
-    if exact:
-        tb.stochastic_corners = False
-        tb.use_error_map_sampling = False
-
-
-def make_jax_tb(dtype, prep_every=16, exact=False):
-    tb = JaxTestbed(make_dataset(), TRAIN_CFG, compute_dtype=dtype)
-    _set_knobs(tb, prep_every)
-    _set_mode(tb, exact)
-    return tb
-
-
-def make_port_tb(dtype, prep_every=16, jax_tb=None, exact=False):
-    tb = NerfTestbed(port_dataset(make_dataset()), TRAIN_CFG, device="cpu",
-                     compute_dtype=dtype)
-    _set_knobs(tb, prep_every)
-    _set_mode(tb, exact)
-    if jax_tb is not None:
-        state = _numpy_tree(jax_tb.state)
-        tb.load_state(params_from_jax(state["params"]),
-                      opt_state_from_jax(state["opt"]))
-        tb.set_density_grid(np.asarray(jax_tb.density_grid))
-        tb.training_step = jax_tb.training_step
-        tb.density_grid_ema_step = jax_tb.density_grid_ema_step
-    return tb
-
-
-def feed_jax_draws(tb, seed=1337):
-    """Make a port testbed draw what the JAX testbed of the same seed
-    draws at the same step counts."""
-    enc = tb.model.pos_encoding
-
-    def train_draws(n_rays):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), tb.training_step)
-        k_enc = jax.random.split(key, 3)[2]
-        capacity = tb.target_batch_size * tb.sample_capacity_multiplier
-        return training.StepDraws(
-            jax_train_draws(key, n_rays, tb.data.n_images,
-                            with_cdf=tb._error_cdfs is not None),
-            jax_corner_draws(k_enc, capacity, 3, enc.n_levels))
-
-    def prep_draws(n_uniform, n_nonuniform):
-        rng = jax.random.fold_in(jax.random.PRNGKey(seed ^ 0xD3),
-                                 tb.density_grid_ema_step)
-        k_cells, k_pos, k_enc = jax.random.split(rng, 3)
-        n = n_uniform + n_nonuniform
-        # the JAX update encodes chunks of 2^19 cells (the last one
-        # padded), each with the draws of the same key
-        chunk = 1 << 19
-        one = jax_corner_draws(k_enc, chunk, 3, enc.n_levels)
-        corners = CornerDraws(one.u.repeat(1, -(-n // chunk), 1)[:, :n],
-                              None)
-        return (jax_cell_draws(k_cells, n_uniform, n_nonuniform,
-                               tb.scene.max_cascade + 1),
-                jax_cell_jitter(k_pos, n), corners)
-
-    tb._train_draws = train_draws
-    tb._prep_draws = prep_draws
 
 
 # -- the composite ---------------------------------------------------------
-def _port_case(case, mask):
-    raw, _, _, t_padded, jrays, bg, exposure, dts, rgba = case
-    r, k = mask.shape
-    js = identity_samples(mask)
-    samples = SampleBatch(*([None] * 4), _t(js.ray_id).long(),
-                          _t(js.ray_base).long(), _t(js.ray_count).long(),
-                          _t(js.n_samples).long(), _t(js.cand_slot).long(),
-                          _t(js.cand_src).long())
-    rays = RayBatch(torch.zeros(r, 3), torch.zeros(r, 3), torch.zeros(r),
-                    torch.ones(r, dtype=torch.bool), rgba=_t(rgba))
-    return samples, rays
-
-
 @pytest.mark.parametrize("loss_name", ["L2", "Huber"])
 @pytest.mark.parametrize("rgb_act", ["Logistic", "Exponential"])
 def test_composite_loss_matches_jax(rgb_act, loss_name):
@@ -282,69 +172,6 @@ def test_composite_masking_and_guards():
 
 
 # -- one train step --------------------------------------------------------
-def _assert_step_close(tb, jstate, jstats, stats, dtype):
-    jstate = _numpy_tree(jstate)
-    ours = {k: float(v) for k, v in stats.items() if k != "fused"}
-    ref = {k: float(np.asarray(jstats[k])) for k in ours}
-    for k in ("measured_batch_size",
-              "measured_batch_size_before_compaction", "n_rays"):
-        assert ours[k] == ref[k] > 0, k
-    np.testing.assert_array_equal(
-        stats["fused"].numpy(),
-        np.array([ours[k] for k in ("loss", "measured_batch_size",
-                                    "measured_batch_size_before_compaction",
-                                    "n_rays")], np.float32))
-    assert int(tb.opt_state["step"]) == int(jstate["opt"]["step"])
-    keys = sorted(jstate["params"])
-    for name in ("m", "v", "ema", "params"):
-        tree = tb.model.param_tree() if name == "params" \
-            else tb.opt_state[name]
-        jtree = jstate["params"] if name == "params" \
-            else jstate["opt"][name]
-        ours_l = [t.detach().numpy().ravel() for t in tree_leaves(
-            {k: tree[k] for k in keys})]
-        ref_l = [a.ravel() for a in jax.tree_util.tree_leaves(jtree)]
-        v_l = [a.ravel() for a in
-               jax.tree_util.tree_leaves(jstate["opt"]["v"])]
-        for a, b, v in zip(ours_l, ref_l, v_l):
-            assert a.shape == b.shape
-            if dtype == "f32" and name in ("m", "v"):
-                np.testing.assert_allclose(
-                    a, b, rtol=1e-3 if name == "m" else 2e-3,
-                    atol=1e-6 if name == "m" else 1e-10, err_msg=name)
-            elif dtype == "f32":
-                # Adam divides by sqrt(v): where the second moment is at
-                # the level of float32 noise of the gradient, a rounding
-                # difference is a full-size step. Compare where it is
-                # well above that.
-                sure = np.sqrt(v) > 0.05 * np.sqrt(v).max()
-                assert sure.sum() >= 10, name
-                np.testing.assert_allclose(a[sure], b[sure], rtol=1e-3,
-                                           atol=2e-5, err_msg=name)
-            elif name == "m":
-                assert np.abs(a - b).max() <= 0.05 * np.abs(b).max(), name
-    if dtype == "f32":
-        np.testing.assert_allclose(ours["loss"], ref["loss"], rtol=1e-3)
-    else:
-        np.testing.assert_allclose(ours["loss"], ref["loss"], rtol=2e-2)
-
-
-def _jax_step(jtb, cam_now=True):
-    """One step of the JAX testbed's jitted train function, as its eager
-    loop calls it -> the step's stats."""
-    key = jax.random.fold_in(jax.random.PRNGKey(jtb.seed),
-                             jtb.training_step)
-    jtb._maybe_init_error_map()
-    fn = jtb._get_train_fn(N_RAYS, jtb._bucket_k(N_RAYS), cam_now)
-    jtb.state, jstats = fn(jtb.state, jtb.data, jtb.bitfield,
-                           jtb.mean_density, key, jtb._cam_dict(),
-                           jtb._error_cdfs, jtb._error_map, None, None)
-    jtb.training_step += 1
-    if "error_map" in jstats:
-        jtb._error_map = jstats["error_map"]
-    return jstats
-
-
 @pytest.mark.parametrize("mode", ["exact", "default"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_train_step_matches_jax(dtype, mode):
@@ -362,7 +189,7 @@ def test_train_step_matches_jax(dtype, mode):
         tb._error_map = _t(jtb._error_map)
         tb._n_steps_since_error_update = jtb._n_steps_since_error_update
     for _ in range(2):
-        jstats = _jax_step(jtb)
+        jstats = jax_step(jtb)
         stats = tb.train_step()
         scalars = {k: v for k, v in stats.items() if k != "error_map"}
         _assert_step_close(tb, jtb.state, jstats, scalars, dtype)
@@ -483,7 +310,7 @@ def test_camera_and_exposure_gradients_match_jax(switches):
     tb._error_map = _t(jtb._error_map)
     tb._n_steps_since_error_update = jtb._n_steps_since_error_update
 
-    jstats = _jax_step(jtb)
+    jstats = jax_step(jtb)
     stats = tb.train_step()
     cam_on = "optimize_exposure" != switches[0] or len(switches) > 1
     assert ("cam_gradient" in jstats) == ("cam_gradient" in stats) == cam_on
@@ -649,33 +476,6 @@ def test_inference_uses_ema_and_repacks_after_a_step():
     assert all(not t.requires_grad for t in tree_leaves(ema))
     assert all(t.requires_grad
                for t in tree_leaves(tb.model.param_tree()))
-
-
-# -- a host Adam over several train steps ----------------------------------
-def assert_host_adam_close(ours, ref, what, n_updates):
-    """A variable stepped by a host Adam over several train steps, on both
-    sides. What each piece computes is held tightly elsewhere: one step's
-    gradients (`test_camera_and_exposure_gradients_match_jax`, 2e-3), the
-    update from given gradients and the Adams themselves
-    (tests/test_torch_camera_opt.py, 1e-6). Over several steps the two
-    runs' network parameters drift apart at the level the step tolerances
-    allow (Adam's eps of 1e-15 on noise-level gradients), the losses stay
-    within 2e-3, but a pose or focal gradient is a sum of terms of both
-    signs over the rays and moves by several percent with that drift; Adam
-    then normalises it to a full-size step. So: exposures (a gradient
-    without such cancellation) to 2e-3 of their largest entry; pose and
-    focal offsets to a quarter of their largest entry, with the same sign
-    wherever an entry is larger than that, and never further apart than
-    the steps Adam can have taken."""
-    ours, ref = np.asarray(ours), np.asarray(ref)
-    top = np.abs(ref).max()
-    assert ours.shape == ref.shape and top > 0, what
-    tol = 2e-3 if what == "exposures" else 0.25
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=tol * top,
-                               err_msg=what)
-    big = np.abs(ref) > tol * top
-    assert big.any() and (np.sign(ours[big]) == np.sign(ref[big])).all()
-    assert np.abs(ours - ref).max() <= 2 * n_updates * 1e-3, what
 
 
 def test_training_modules_import_without_jax():

@@ -1,6 +1,6 @@
 """The training switches of the port's NeRF testbed against the JAX
-package, on the tiny synthetic dataset of tests/test_torch_training.py
-(its helpers and tolerances): each switch that used to raise, alone on
+package, on the tiny synthetic dataset and with the helpers of
+tests/torch_parity.py (the tolerances of tests/test_torch_training.py): each switch that used to raise, alone on
 top of the exact uniform configuration, over 6 steps of `train`; the
 buffers' switches; what is left to raise (the scanned multi-step block,
 a device mesh); datasets with latent dims or depths; the mesh tools on a
@@ -15,19 +15,15 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_nerf_training import make_dataset  # noqa: E402
-from test_torch_sampler import port_dataset  # noqa: E402
-from test_torch_training import (TRAIN_CFG, _numpy_tree,  # noqa: E402
-                                 assert_host_adam_close, feed_jax_draws,
-                                 make_jax_tb, make_port_tb)
+from torch_parity import (TRAIN_CFG, _numpy_tree,  # noqa: E402
+                          assert_host_adam_close, feed_jax_draws,
+                          make_dataset, make_jax_tb, make_port_tb,
+                          port_dataset)
 
 from instant_ngp_tpu_torch.convert import params_from_jax
 from instant_ngp_tpu_torch.data.nerf_loader import NerfDataset
 from instant_ngp_tpu_torch.nerf import training
 from instant_ngp_tpu_torch.nerf.testbed_nerf import NerfTestbed
-
-torch.set_num_threads(2)
-
 
 # -- the switches of the remainder --------------------------------------------
 @pytest.mark.parametrize("switch, value", [

@@ -41,20 +41,20 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import _t, jax_corner_draws
+
 from instant_ngp_tpu.data.snapshot import load_snapshot as jax_load_snapshot
 from instant_ngp_tpu.volume import VolumeTestbed as JaxVolumeTestbed
 from instant_ngp_tpu.volume import load_nanovdb_header as jax_load_header
 from instant_ngp_tpu.volume import nanovdb as jax_nanovdb
 from instant_ngp_tpu.volume.testbed_volume import proc_envmap as jax_envmap
 from instant_ngp_tpu_torch.data.snapshot import load_snapshot
-from instant_ngp_tpu_torch.ops.grid_encoding import CornerDraws
 from instant_ngp_tpu_torch.volume import VolumeTestbed, load_nanovdb_header
 from instant_ngp_tpu_torch.volume import nanovdb
 from instant_ngp_tpu_torch.volume.testbed_volume import (
     MAX_TRAIN_VERTICES, VolumeRenderDraws, VolumeTrainDraws,
     load_volume_grid, proc_envmap)
 
-torch.set_num_threads(2)
 
 CFG = {
     "loss": {"otype": "L2"},
@@ -118,10 +118,6 @@ _jit_train_draws = jax.jit(_train_draws, static_argnums=1)
 _jit_render_draws = jax.jit(_render_draws, static_argnums=(1, 2))
 
 
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
 def jax_train_draws(key, n) -> VolumeTrainDraws:
     """What `_generate_training_data(key, n)` draws."""
     return VolumeTrainDraws(*map(_t, _jit_train_draws(key, n)))
@@ -131,15 +127,6 @@ def jax_render_draws(n, n_events=32) -> VolumeRenderDraws:
     """What `render_frame` draws (from PRNGKey(0)) for n rays."""
     return VolumeRenderDraws(*map(_t, _jit_render_draws(
         jax.random.PRNGKey(0), n, n_events)))
-
-
-def jax_corner_draws(key, n, n_dims, n_levels) -> CornerDraws:
-    keys = jax.random.split(key, n_dims + 1)
-    u = np.stack([np.asarray(jax.random.uniform(keys[k], (n, n_levels)))
-                  for k in range(n_dims)])
-    axis = np.asarray(jax.random.randint(keys[n_dims], (n, n_levels), 0,
-                                         n_dims))
-    return CornerDraws(_t(u), _t(axis).long())
 
 
 def pair(compute="f32"):
